@@ -1,0 +1,1 @@
+"""oc_nbody_tpu_torch.utils (see the package docstring)."""
