@@ -2,8 +2,8 @@
 
 The JAX package's ``run`` and ``info`` commands with ``--set a.b=v``
 overrides, plus ``--device cuda|cpu`` (default cuda; with no card it
-raises rather than fall back). ``--resume`` and ``ensemble`` are not ported
-yet and raise.
+raises rather than fall back). ``info`` also prints the stepper the config
+builds. ``--resume`` and ``ensemble`` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ def main(argv=None):
     p_ens.add_argument("config")
     p_ens.add_argument("rest", nargs=argparse.REMAINDER)
 
-    p_info = sub.add_parser("info", help="print a resolved config")
+    p_info = sub.add_parser("info", help="print a resolved config and the "
+                                         "stepper it builds")
     p_info.add_argument("config")
     p_info.add_argument("--set", dest="overrides", action="append", default=[])
 
@@ -43,7 +44,19 @@ def main(argv=None):
 
     cfg = apply_overrides(load_config(args.config), args.overrides)
     if args.command == "info":
+        from oc_nbody_tpu_torch.forces import make_force_model
+        from oc_nbody_tpu_torch.scene import (build_units, check_supported,
+                                              make_stepper)
         print(cfg.to_json())
+        try:
+            check_supported(cfg)
+        except NotImplementedError as err:
+            print(f"stepper: none, the config does not run here: {err}")
+            return 0
+        stepper, kind = make_stepper(
+            cfg, make_force_model(cfg.integrator.eps, build_units(cfg).G))
+        fields = {k: v for k, v in vars(stepper).items() if k != "force"}
+        print(f"stepper: {kind} {type(stepper).__name__}({fields})")
         return 0
 
     from oc_nbody_tpu_torch.run import run

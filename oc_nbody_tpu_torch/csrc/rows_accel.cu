@@ -5,12 +5,13 @@
 // (oc_nbody_tpu/ops/pallas_gravity.py:110, launched by accel_rows at :175)
 // and _accel_phi_kernel (:199, launched by accel_potential_rows at :264).
 //
-// Bound on the card: about 20 f32 flops and one rsqrtf per pair, while each
-// source is read from device memory once per block (16 bytes per 128 pairs),
-// so the kernel is bound by the FMA pipe, not by memory. Design: one thread
-// per row keeps the row and its accumulators in registers; the block stages
-// a tile of sources in shared memory as float4(x, y, z, G m) and every
-// thread reads the same entry in turn (a broadcast, free of bank conflicts).
+// Bound on the card: 18 f32 flops (19 with the potential; an FMA counts 2)
+// and one rsqrtf per pair, while each source is read from device memory
+// once per block (16 bytes per 128 pairs), so the kernel is bound by the
+// FMA pipe, not by memory. Design: one thread per row keeps the row and its
+// accumulators in registers; the block stages a tile of sources in shared
+// memory as float4(x, y, z, G m) and every thread reads the same entry in
+// turn (a broadcast, free of bank conflicts).
 // The ragged last source tile is masked by the loop bound and rows past nr
 // compute and store nothing, so no input is padded. Each source tile is
 // summed into its own partial before it joins the row's total; one serial

@@ -8,11 +8,11 @@
 // _sym_call at :353 via accel_sym and accel_potential_sym,
 // oc_nbody_tpu/ops/pallas_gravity.py:1736 and :1749).
 //
-// Bound on the card: about 25 f32 flops and one rsqrtf per pair (half the
-// rsqrtf of K1 on the same N), plus three 16-byte shared-memory accesses
-// per pair (source read, reaction read and write). Device memory is touched
-// only by the partials below. So the kernel is bound by the FMA pipe and
-// shared-memory bandwidth together.
+// Bound on the card: 26 f32 flops (28 with the potential; an FMA counts 2)
+// and one rsqrtf per pair (half the rsqrtf of K1 on the same N), plus three
+// 16-byte shared-memory accesses per pair (source read, reaction read and
+// write). Device memory is touched only by the partials below. So the
+// kernel is bound by the FMA pipe and shared-memory bandwidth together.
 //
 // On the TPU the grid runs in order and each reaction is a sequential
 // read-modify-write of the resident output. Here blocks run in parallel and
@@ -44,27 +44,9 @@
 
 namespace {
 
-constexpr int T = 128;
+constexpr int T = ocn::kSymTile;
 constexpr int kWarps = T / 32;
 static_assert((T & (T - 1)) == 0, "the rotating diagonal needs T = 2^k");
-
-// First linear block index of row I of the upper triangle of tile pairs,
-// whose rows hold J = I .. nt-1.
-__device__ __forceinline__ long long triangle_start(long long I, int nt) {
-  return I * nt - I * (I - 1) / 2;
-}
-
-// Linear block index b -> tile pair (I, J) with I <= J.
-__device__ __forceinline__ void tile_pair(long long b, int nt, int& I,
-                                          int& J) {
-  const double a = 2.0 * nt + 1.0;
-  int i = static_cast<int>(0.5 * (a - sqrt(a * a - 8.0 * static_cast<double>(b))));
-  i = max(0, min(i, nt - 1));
-  while (i > 0 && triangle_start(i, nt) > b) --i;
-  while (i + 1 < nt && triangle_start(i + 1, nt) <= b) ++i;
-  I = i;
-  J = i + static_cast<int>(b - triangle_start(i, nt));
-}
 
 template <bool WITH_PHI, bool GUARDED>
 __device__ __forceinline__ void sym_pair(float4 s, float xi, float yi,
@@ -99,7 +81,7 @@ __global__ void __launch_bounds__(T)
   __shared__ float4 src[T];
   __shared__ float4 col[kWarps][T];
   int I, J;
-  tile_pair(blockIdx.x, nt, I, J);
+  ocn::tile_pair(blockIdx.x, nt, I, J);
   const int r = threadIdx.x;
   const int i = I * T + r;
   const bool row_ok = i < n;

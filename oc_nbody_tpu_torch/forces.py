@@ -43,6 +43,17 @@ class ForceModel:
             acc = acc + self.external.accel(pos)
         return acc
 
+    def accel_jerk(self, pos, vel, mass):
+        """(accel, jerk), pairwise + external, in pos.dtype; the external
+        jerk is the field's exact convective derivative (v·∇)a_ext."""
+        acc, jerk = cuda_gravity.accel_jerk(pos, vel, mass, self.eps, self.G,
+                                            guarded=not self.softened)
+        if self.external is not None:
+            a_ext, da_ext = self.external.accel_jerk_ext(pos, vel)
+            acc = acc + a_ext
+            jerk = jerk + da_ext
+        return acc, jerk
+
     def accel_potential(self, pos, mass):
         """(accel, phi_pair, phi_ext); potentials are per-particle."""
         acc, phi_pair = cuda_gravity.accel_potential(

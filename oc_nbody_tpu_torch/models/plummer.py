@@ -60,10 +60,10 @@ def _sample_q(gen, n, n_rounds: int = 24):
 
 
 def plummer(n: int, gen: torch.Generator, a: float | None = None,
-            total_mass: float = 1.0, G: float = 1.0,
+            total_mass: float = 1.0, G: float = 1.0, masses=None,
             cutoff_mass_fraction: float = 0.999,
             device=None) -> ParticleState:
-    """Sample an N-particle, equal-mass Plummer sphere in virial equilibrium.
+    """Sample an N-particle Plummer sphere in virial equilibrium.
 
     Args:
       n: number of particles.
@@ -72,6 +72,9 @@ def plummer(n: int, gen: torch.Generator, a: float | None = None,
          radius 1, E = -1/4) when total_mass = G = 1.
       total_mass: cluster mass in code units.
       G: gravitational constant in code units.
+      masses: optional (n,) per-particle masses (e.g. from an IMF); they are
+        rescaled to sum to ``total_mass`` in f64, then cast to f32. Default:
+        equal masses.
       cutoff_mass_fraction: truncate the outermost mass fraction so a finite
         sample has no huge-radius outliers (standard practice).
       device: where the state lives.
@@ -87,7 +90,11 @@ def plummer(n: int, gen: torch.Generator, a: float | None = None,
     q = _sample_q(gen, n)
     vel = (q * vesc)[:, None] * _isotropic(gen, n)
 
-    mass = torch.full((n,), total_mass / n, dtype=torch.float32)
+    if masses is None:
+        mass = torch.full((n,), total_mass / n, dtype=torch.float32)
+    else:
+        masses = torch.as_tensor(masses, dtype=_F64).cpu()
+        mass = (masses / torch.sum(masses) * total_mass).to(torch.float32)
     state = make_state(pos, vel, mass)
     # remove the (small, finite-N) centre-of-mass drift, on the CPU so the
     # IC is bitwise the same whatever the device

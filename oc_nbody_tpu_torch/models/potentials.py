@@ -5,9 +5,10 @@ disk, NFW halo, their composite and the three-component Milky Way.
 Each potential is a frozen dataclass of Python-float parameters, so it
 evaluates on whatever device and dtype its positions have. Φ and the
 accelerations are hand-written closed forms (O(N) per force evaluation).
-The derived quantities of the base class — dΦ/dR, v_circ, the tidal tensor
-— come from autodiff of Φ in f64 (``torch.func``), exact with no finite
-differencing, in place of ``jax.grad`` / ``jax.hessian``.
+The derived quantities of the base class — dΦ/dR, v_circ, the tidal tensor,
+the external jerk (v·∇)a — come from autodiff (``torch.func``), exact with
+no finite differencing, in place of ``jax.grad`` / ``jax.hessian`` /
+``jax.jvp``.
 
 All quantities are in code units: G is passed at construction (scene.py
 converts physical parameters with a UnitSystem). The time-dependent
@@ -75,6 +76,12 @@ class Potential:
         along the radial direction."""
         xyz = torch.as_tensor(xyz, dtype=_F64)
         return -torch.func.hessian(self.phi)(xyz)
+
+    def accel_jerk_ext(self, pos, vel):
+        """(a_ext, da_ext/dt) along a trajectory: the exact convective
+        derivative (v·∇)a via one forward-mode jvp of ``accel``. Only
+        static fields are ported, so there is no ∂a/∂t term."""
+        return torch.func.jvp(self.accel, (pos,), (vel,))
 
     def tidal_coefficient_at(self, xyz, omega2):
         """λ_max(T) + Ω²: the tidal-radius denominator at a position.
@@ -162,6 +169,17 @@ class Composite(Potential):
 
     def accel(self, xyz):
         return sum(c.accel(xyz) for c in self.components)
+
+    def accel_jerk_ext(self, pos, vel):
+        """Sum of the members' (a, da/dt) pairs, as in the JAX package
+        (there each member handles its own ∂a/∂t)."""
+        acc = torch.zeros_like(pos)
+        jerk = torch.zeros_like(pos)
+        for c in self.components:
+            a, j = c.accel_jerk_ext(pos, vel)
+            acc = acc + a
+            jerk = jerk + j
+        return acc, jerk
 
 
 def composite(components: Sequence[Potential]) -> Composite:

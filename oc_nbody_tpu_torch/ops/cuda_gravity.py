@@ -1,5 +1,5 @@
-"""The pairwise force on the card: two hand-written CUDA kernels for Hopper
-(``sm_90a``), each beside its plain PyTorch twin.
+"""The pairwise force on the card: four hand-written CUDA kernels for
+Hopper (``sm_90a``), each beside its plain PyTorch twin.
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
     potential. Replaces the Pallas row-grid kernels ``_accel_kernel`` and
@@ -7,6 +7,11 @@
   * K2 ``csrc/sym_accel.cu`` — pair-symmetric self-interaction, optional
     potential, bitwise deterministic. Replaces ``_make_sym_kernel`` with
     ``_pair_accel`` / ``_pair_phi`` (oc_nbody_tpu/ops/pallas_pair.py:256).
+  * K3 ``csrc/sym_jerk.cu`` — pair-symmetric self-interaction accel + jerk,
+    bitwise deterministic. Replaces ``_make_sym_kernel`` with ``_pair_jerk``
+    (oc_nbody_tpu/ops/pallas_pair.py:256, :137).
+  * K4 ``csrc/rows_jerk.cu`` — one-sided rows vs sources accel + jerk.
+    Replaces ``_accel_jerk_kernel`` (oc_nbody_tpu/ops/pallas_gravity.py:294).
 
 The public wrappers keep the signatures and return contracts of
 ``oc_nbody_tpu.ops.pallas_gravity``: ``accel_rows`` and
@@ -14,17 +19,21 @@ The public wrappers keep the signatures and return contracts of
 (the rows potential includes the softened self term); ``accel_sym``,
 ``accel_potential_sym``, ``accel`` and ``accel_potential`` take the state's
 positions, centre and cast them, and return the positions' dtype with the
-self term removed from the potential.
+self term removed from the potential. ``accel_jerk_rows`` takes centred f32
+rows and sources with their velocities and returns f32; ``accel_jerk_sym``
+and ``accel_jerk`` take the state's positions and velocities, centre both
+and return the positions' dtype.
 
 A wrapper launches its kernel for CUDA tensors and calls the plain twin
-(``rows_plain`` / ``sym_plain``, built on ``ops/gravity.py``) for CPU
-tensors; there is no fallback from one to the other. ``LAUNCHES`` counts
-kernel launches and ``PLAIN_CALLS`` calls of the plain twins, so a run can
-show which one it went through.
+(``rows_plain``, ``sym_plain``, ``rows_jerk_plain``, ``sym_jerk_plain``,
+built on ``ops/gravity.py``) for CPU tensors; there is no fallback from one
+to the other. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls
+of the plain twins, so a run can show which one it went through.
 
 The kernels are built with ``nvcc`` into ``build/oc_nbody_tpu_torch/`` at
-first use and loaded with ``ctypes``. The build fails loudly (RuntimeError
-with the compiler's output) if ``nvcc`` is missing or refuses the source.
+first use (one ``nvcc -c`` per source, all started together, then one
+link) and loaded with ``ctypes``. The build fails loudly (RuntimeError with
+the compiler's output) if ``nvcc`` is missing or refuses a source.
 """
 from __future__ import annotations
 
@@ -44,19 +53,23 @@ from oc_nbody_tpu_torch.ops import gravity
 # STREAM_N, the one-sided K1 below. SYM_MIN is the TPU's crossover
 # (pallas_gravity.py:1686); the H100 crossover has not been measured yet.
 SYM_MIN = 8192
+# The same rule for accel + jerk: K3 for RT_MIN_JERK <= N <= STREAM_N, K4
+# below (the TPU's jerk crossover, pallas_gravity.py:727, :2272).
+RT_MIN_JERK = 16384
 # Largest N the resident sym kernel takes; past it the TPU runs chunked
 # sym kernels, not ported yet (ROADMAP B5).
 STREAM_N = 262144
 
-LAUNCHES = {"rows": 0, "sym": 0}
-PLAIN_CALLS = {"rows": 0, "sym": 0}
+LAUNCHES = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0}
+PLAIN_CALLS = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
-_SOURCES = ("rows_accel.cu", "sym_accel.cu")
+_HEADERS = ("pair.cuh",)
+_SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 # what nvcc printed for the build this process loaded (register and
@@ -80,10 +93,12 @@ def _nvcc() -> str:
 
 def build_library() -> Path:
     """Compile the kernels (once per source version) and return the path of
-    the shared library. Raises RuntimeError if nvcc is missing or fails."""
+    the shared library: one ``nvcc -c`` per source, all running at once,
+    then one ``nvcc -shared`` link. Raises RuntimeError if nvcc is missing
+    or fails."""
     global BUILD_LOG
     digest = hashlib.sha256()
-    for name in ("pair.cuh",) + _SOURCES:
+    for name in _HEADERS + _SOURCES:
         digest.update((CSRC / name).read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
     out = BUILD_DIR / f"libocn_gravity_{digest.hexdigest()[:12]}.so"
@@ -91,20 +106,35 @@ def build_library() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in _SOURCES)]
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in _SOURCES:
+            obj = tmp / (Path(src).stem + ".o")
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            log = open(tmp / (src + ".log"), "w+")
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _, log, proc in jobs:
+            code = proc.wait()
+            log.seek(0)
+            logs.append(log.read())
+            log.close()
+            if code != 0:
+                failed.append(f"nvcc failed ({code}): {' '.join(cmd)}\n"
+                              f"{logs[-1]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = tmp / "lib.so"
+        cmd = [nvcc, "-shared", "-o", str(lib),
+               *(str(obj) for _, obj, _, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_LOG = proc.stdout + proc.stderr
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(lib, out)  # atomic: concurrent builds race harmlessly
+    BUILD_LOG = "".join(logs)
     return out
 
 
@@ -117,6 +147,10 @@ def _library():
         lib.ocn_rows_accel.restype = i
         lib.ocn_sym_accel.argtypes = [p, p, i, f, f, i, p, p, p, p]
         lib.ocn_sym_accel.restype = i
+        lib.ocn_rows_jerk.argtypes = [p, p, i, p, p, p, i, f, f, i, p, p, p]
+        lib.ocn_rows_jerk.restype = i
+        lib.ocn_sym_jerk.argtypes = [p, p, p, i, f, f, i, p, p, p, p]
+        lib.ocn_sym_jerk.restype = i
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]
@@ -188,6 +222,28 @@ def sym_plain(pos_c, mass_c, eps, G=1.0, with_phi=False,
     return fn(pos_c, pos_c, mass_c, eps, G, chunk)
 
 
+def rows_jerk_plain(rows, vrows, src, svel, mass, eps, G=1.0,
+                    dtype=torch.float32, chunk=1024):
+    """K4's function in plain PyTorch, computed in ``dtype`` (f64: the
+    oracle the kernel is held to on the card). Returns (acc, jerk) in
+    ``dtype``."""
+    PLAIN_CALLS["rows_jerk"] += 1
+    rows, vrows, src, svel, mass = (t.to(dtype) for t in
+                                    (rows, vrows, src, svel, mass))
+    return gravity.accel_jerk_rows(rows, vrows, src, svel, mass, eps, G,
+                                   chunk)
+
+
+def sym_jerk_plain(pos_c, vel_c, mass_c, eps, G=1.0, dtype=torch.float32,
+                   chunk=1024):
+    """K3's function in plain PyTorch: the accel + jerk self-interaction of
+    centred ``pos_c`` / ``vel_c`` summed one-sidedly in ``dtype``."""
+    PLAIN_CALLS["sym_jerk"] += 1
+    pos_c, vel_c, mass_c = (t.to(dtype) for t in (pos_c, vel_c, mass_c))
+    return gravity.accel_jerk_rows(pos_c, vel_c, pos_c, vel_c, mass_c, eps,
+                                   G, chunk)
+
+
 # --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
@@ -233,6 +289,52 @@ def sym_kernel(pos_c, mass_c, eps, G=1.0, with_phi=False, guarded=True):
     LAUNCHES["sym"] += 1
     _check_launch(lib, code, "sym_accel")
     return (acc, phi) if with_phi else acc
+
+
+def rows_jerk_kernel(rows, vrows, src, svel, mass, eps, G=1.0,
+                     guarded=True):
+    """Launch K4 on centred f32 CUDA tensors; the same contract as
+    ``rows_jerk_plain``."""
+    nr, ns = rows.shape[0], src.shape[0]
+    _check_f32("pos_rows", rows, (nr, 3))
+    _check_f32("vel_rows", vrows, (nr, 3))
+    _check_f32("src_pos", src, (ns, 3))
+    _check_f32("src_vel", svel, (ns, 3))
+    _check_f32("src_mass", mass, (ns,))
+    lib = _library()
+    acc = torch.empty((nr, 3), dtype=torch.float32, device=rows.device)
+    jerk = torch.empty((nr, 3), dtype=torch.float32, device=rows.device)
+    code = lib.ocn_rows_jerk(
+        rows.data_ptr(), vrows.data_ptr(), nr, src.data_ptr(),
+        svel.data_ptr(), mass.data_ptr(), ns, _f32(G), _f32(_f32(eps) ** 2),
+        int(guarded), acc.data_ptr(), jerk.data_ptr(), _stream(rows))
+    LAUNCHES["rows_jerk"] += 1
+    _check_launch(lib, code, "rows_jerk")
+    return acc, jerk
+
+
+def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True):
+    """Launch K3 (both passes) on centred f32 CUDA tensors; the same
+    contract as ``sym_jerk_plain``."""
+    n = pos_c.shape[0]
+    _check_f32("pos", pos_c, (n, 3))
+    _check_f32("vel", vel_c, (n, 3))
+    _check_f32("mass", mass_c, (n,))
+    lib = _library()
+    t = lib.ocn_sym_tile()
+    nt = -(-n // t)
+    # six floats per slot: a float4 plane, then a float2 plane
+    scratch = torch.empty((nt * nt * t * 6,), dtype=torch.float32,
+                          device=pos_c.device)
+    acc = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
+    jerk = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
+    code = lib.ocn_sym_jerk(
+        pos_c.data_ptr(), vel_c.data_ptr(), mass_c.data_ptr(), n, _f32(G),
+        _f32(_f32(eps) ** 2), int(guarded), scratch.data_ptr(),
+        acc.data_ptr(), jerk.data_ptr(), _stream(pos_c))
+    LAUNCHES["sym_jerk"] += 1
+    _check_launch(lib, code, "sym_jerk")
+    return acc, jerk
 
 
 # --------------------------------------------------------------------------
@@ -311,3 +413,37 @@ def accel_potential(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
     acc, phi = accel_potential_rows(pos_c, pos_c, mass_c, eps, G, 0, guarded)
     phi = phi + gravity.self_phi(mass_c, eps, _f32(G))
     return acc.to(pos.dtype), phi.to(pos.dtype)
+
+
+def accel_jerk_rows(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps,
+                    G=1.0, chunk: int = 0, guarded: bool = True):
+    """(accel, jerk) on centred f32 rows from centred f32 sources; f32 out.
+    ``chunk`` is accepted for the pallas_gravity signature and ignored."""
+    if _on_cuda(pos_rows, vel_rows, src_pos, src_vel, src_mass):
+        return rows_jerk_kernel(pos_rows, vel_rows, src_pos, src_vel,
+                                src_mass, eps, G, guarded)
+    return rows_jerk_plain(pos_rows, vel_rows, src_pos, src_vel, src_mass,
+                           eps, G)
+
+
+def accel_jerk_sym(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Pair-symmetric self-interaction (accel, jerk); pos.dtype out."""
+    pos_c, mass_c, vel_c = gravity.prepare_f32(pos, mass, vel=vel)
+    if _on_cuda(pos_c, vel_c, mass_c):
+        acc, jerk = sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G, guarded)
+    else:
+        acc, jerk = sym_jerk_plain(pos_c, vel_c, mass_c, eps, G)
+    return acc.to(pos.dtype), jerk.to(pos.dtype)
+
+
+def accel_jerk(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Self-interaction (accel, jerk), pos.dtype out: K3 for RT_MIN_JERK <=
+    N, K4 below (the dispatch rule of pallas_gravity.accel_jerk)."""
+    n = pos.shape[0]
+    _check_n(n)
+    if n >= RT_MIN_JERK:
+        return accel_jerk_sym(pos, vel, mass, eps, G, guarded)
+    pos_c, mass_c, vel_c = gravity.prepare_f32(pos, mass, vel=vel)
+    acc, jerk = accel_jerk_rows(pos_c, vel_c, pos_c, vel_c, mass_c, eps, G,
+                                0, guarded)
+    return acc.to(pos.dtype), jerk.to(pos.dtype)

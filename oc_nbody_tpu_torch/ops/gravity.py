@@ -11,9 +11,11 @@ Two tiers, as in the JAX package:
 The hand-written CUDA kernels (``ops/cuda_gravity.py``) compute the same
 functions; on CPU tensors their wrappers call these.
 
-Conventions: r_ij = x_j - x_i points at the source;
+Conventions: r_ij = x_j - x_i points at the source, v_ij = v_j - v_i;
   a_i   = G sum_j m_j r_ij / (r_ij² + eps²)^{3/2}
   phi_i = -G sum_{j != i} m_j / sqrt(r_ij² + eps²)
+  j_i   = G sum_j m_j [v_ij - 3 (r_ij·v_ij) r_ij / (r_ij² + eps²)]
+          / (r_ij² + eps²)^{3/2}
 The ``*_rows`` potential still holds the softened self term -G m_i/eps when
 rows overlap sources; callers remove it with ``self_phi``. Separations use
 direct subtraction on coordinates centred before the f32 cast
@@ -42,13 +44,13 @@ def _inv_r(u):
 def _pair_geometry(pos, eps):
     dr = pos[None, :, :] - pos[:, None, :]
     u = torch.sum(dr * dr, dim=-1) + eps * eps
-    return dr, _inv_r(u)
+    return dr, u, _inv_r(u)
 
 
 def accel_direct(pos, mass, eps=0.0, G=1.0):
     """Oracle acceleration, full (N, N) broadcast in pos.dtype."""
     mass = mass.to(pos.dtype)
-    dr, inv_r = _pair_geometry(pos, eps)
+    dr, _, inv_r = _pair_geometry(pos, eps)
     w = G * mass[None, :] * inv_r**3
     return torch.sum(w[:, :, None] * dr, dim=1)  # self term: w_ii * 0 = 0
 
@@ -56,11 +58,28 @@ def accel_direct(pos, mass, eps=0.0, G=1.0):
 def accel_potential_direct(pos, mass, eps=0.0, G=1.0):
     """Oracle (accel, per-particle potential phi_i), excluding self terms."""
     mass = mass.to(pos.dtype)
-    dr, inv_r = _pair_geometry(pos, eps)
+    dr, _, inv_r = _pair_geometry(pos, eps)
     w = G * mass[None, :] * inv_r**3
     acc = torch.sum(w[:, :, None] * dr, dim=1)
     phi = -G * torch.sum(mass[None, :] * inv_r, dim=1)
     return acc, phi + self_phi(mass, eps, G)
+
+
+def accel_jerk_direct(pos, vel, mass, eps=0.0, G=1.0):
+    """Oracle (accel, jerk) for the Hermite stepper, full (N, N) broadcast
+    in pos.dtype."""
+    vel = vel.to(pos.dtype)
+    mass = mass.to(pos.dtype)
+    dr, u, inv_r = _pair_geometry(pos, eps)
+    dv = vel[None, :, :] - vel[:, None, :]
+    w = G * mass[None, :] * inv_r**3
+    rv = torch.sum(dr * dv, dim=-1)
+    tiny = torch.finfo(u.dtype).tiny
+    inv_u = torch.where(u > 0, 1.0 / torch.clamp(u, min=tiny), 0.0)
+    s = 3.0 * w * rv * inv_u
+    acc = torch.sum(w[:, :, None] * dr, dim=1)
+    jerk = torch.sum(w[:, :, None] * dv - s[:, :, None] * dr, dim=1)
+    return acc, jerk
 
 
 def self_phi(mass, eps, G):
@@ -116,30 +135,84 @@ def accel_potential_rows(pos_rows, src_pos, src_mass, eps, G=1.0,
     return _rows(pos_rows, src_pos, src_mass, eps, G, chunk, True)
 
 
+def _block_jerk(src_pos, src_vel, gm, pi, vi, eps2):
+    dx = src_pos[None, :, 0] - pi[:, 0:1]
+    dy = src_pos[None, :, 1] - pi[:, 1:2]
+    dz = src_pos[None, :, 2] - pi[:, 2:3]
+    dvx = src_vel[None, :, 0] - vi[:, 0:1]
+    dvy = src_vel[None, :, 1] - vi[:, 1:2]
+    dvz = src_vel[None, :, 2] - vi[:, 2:3]
+    u = dx * dx + dy * dy + dz * dz + eps2
+    inv_r = _inv_r(u)
+    w = gm * inv_r * inv_r * inv_r
+    rv = dx * dvx + dy * dvy + dz * dvz
+    # s = 3 w rv / u == 3 rv w inv_r^2 (inv_r is already zero-guarded)
+    s = (3.0 * rv) * w * (inv_r * inv_r)
+    acc = torch.stack([torch.sum(w * dx, dim=1), torch.sum(w * dy, dim=1),
+                       torch.sum(w * dz, dim=1)], dim=1)
+    jerk = torch.stack([torch.sum(w * dvx - s * dx, dim=1),
+                        torch.sum(w * dvy - s * dy, dim=1),
+                        torch.sum(w * dvz - s * dz, dim=1)], dim=1)
+    return acc, jerk
+
+
+def accel_jerk_rows(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps,
+                    G=1.0, chunk: int = 1024):
+    """(accel, jerk) on rows from sources, all already centred, computed in
+    pos_rows.dtype."""
+    dtype = pos_rows.dtype
+    eps2 = rounded(rounded(eps, dtype) ** 2, dtype)
+    gm = (rounded(G, dtype) * src_mass.to(dtype))[None, :]
+    blocks = [_block_jerk(src_pos, src_vel, gm, pos_rows[i0:i0 + chunk],
+                          vel_rows[i0:i0 + chunk], eps2)
+              for i0 in range(0, pos_rows.shape[0], chunk)]
+    if not blocks:
+        return pos_rows.new_zeros((0, 3)), pos_rows.new_zeros((0, 3))
+    return (torch.cat([b[0] for b in blocks]),
+            torch.cat([b[1] for b in blocks]))
+
+
 # --------------------------------------------------------------------------
 # single-device wrappers: centre -> cast -> rows == sources -> cast back
 # --------------------------------------------------------------------------
 
-def prepare_f32(pos, mass, compute_dtype=torch.float32):
-    """Centre on the mean position and cast for the pair sum. Pairwise
-    differences are shift-invariant, so centring costs nothing physically
-    but keeps the f32 mantissa for a cluster far from the origin (the north
-    star sits 8 kpc out)."""
-    pos_c = (pos - torch.mean(pos, dim=0)).to(compute_dtype)
-    return pos_c.contiguous(), mass.to(compute_dtype).contiguous()
+def prepare_f32(pos, mass, vel=None, compute_dtype=torch.float32):
+    """Centre on the mean position (and velocity) and cast for the pair
+    sum. Pairwise differences are shift-invariant, so centring costs nothing
+    physically but keeps the f32 mantissa for a cluster far from the origin
+    (the north star sits 8 kpc out) or moving fast along its orbit (~220
+    km/s at 8 kpc, where an uncentred f32 dv would lose its mantissa).
+    Returns (pos_c, mass_c), or (pos_c, mass_c, vel_c) when ``vel`` is
+    given."""
+    pos_c = (pos - torch.mean(pos, dim=0)).to(compute_dtype).contiguous()
+    mass_c = mass.to(compute_dtype).contiguous()
+    if vel is None:
+        return pos_c, mass_c
+    vel_c = (vel - torch.mean(vel, dim=0)).to(compute_dtype).contiguous()
+    return pos_c, mass_c, vel_c
 
 
 def accel(pos, mass, eps=0.0, G=1.0, *, compute_dtype=torch.float32,
           chunk=1024):
     """Blocked pairwise acceleration; returns (N, 3) in pos.dtype."""
-    pos_c, mass_c = prepare_f32(pos, mass, compute_dtype)
+    pos_c, mass_c = prepare_f32(pos, mass, compute_dtype=compute_dtype)
     return accel_rows(pos_c, pos_c, mass_c, eps, G, chunk).to(pos.dtype)
 
 
 def accel_potential(pos, mass, eps=0.0, G=1.0, *,
                     compute_dtype=torch.float32, chunk=1024):
     """Blocked (accel, phi); self term removed."""
-    pos_c, mass_c = prepare_f32(pos, mass, compute_dtype)
+    pos_c, mass_c = prepare_f32(pos, mass, compute_dtype=compute_dtype)
     acc, phi = accel_potential_rows(pos_c, pos_c, mass_c, eps, G, chunk)
     phi = phi + self_phi(mass_c, eps, G)
     return acc.to(pos.dtype), phi.to(pos.dtype)
+
+
+def accel_jerk(pos, vel, mass, eps=0.0, G=1.0, *,
+               compute_dtype=torch.float32, chunk=1024):
+    """Blocked (accel, jerk) for the Hermite-4 stepper; pos.dtype out."""
+    pos_c, mass_c, vel_c = prepare_f32(pos, mass, vel=vel,
+                                       compute_dtype=compute_dtype)
+    acc, jerk = accel_jerk_rows(pos_c, vel_c, pos_c, vel_c, mass_c, eps, G,
+                                chunk)
+    return acc.to(pos.dtype), jerk.to(pos.dtype)

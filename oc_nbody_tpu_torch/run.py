@@ -1,8 +1,10 @@
 """Run loop: config -> simulate -> diagnostics series.
 
-Counterpart of the output loop of ``oc_nbody_tpu/run.py``. The state stays
-on the device; the host touches device data once per diagnostics row (one
-copy of the finished row). Between rows the stepper only enqueues work.
+Counterpart of the output loop of ``oc_nbody_tpu/run.py``, for the KDK and
+Hermite steppers. The state stays on the device; the host touches device
+data once per diagnostics row (one copy of the finished row) and, under
+Hermite, once per step (the shared timestep). Between rows the KDK stepper
+only enqueues work.
 
 Per diagnostics interval: advance to the output time, compute the row,
 add the drift columns (``dE_over_E`` against |E_tot(0)|, ``dE_over_E_int``

@@ -1,10 +1,11 @@
 """Scene building: units, the external field, the IC and its orbit.
 
-Counterpart of ``oc_nbody_tpu/scene.py`` for the slice the port runs: a
-Plummer cluster with equal masses, isolated or on a circular orbit in the
-analytic Milky Way, integrated with fixed-dt KDK on one device. Every other
-config value is refused with the ROADMAP item that ports it, so a config
-never runs as something it does not say.
+Counterpart of ``oc_nbody_tpu/scene.py`` for the slices the port runs: a
+Plummer or King cluster with equal, Kroupa or Salpeter masses, isolated or
+on a circular orbit in the analytic Milky Way, integrated with fixed-dt KDK
+or shared-dt Hermite-4 on one device. Every other config value is refused
+with the ROADMAP item that ports it, so a config never runs as something it
+does not say.
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ import torch
 
 from oc_nbody_tpu_torch.config import SimConfig
 from oc_nbody_tpu_torch.forces import ForceModel, make_force_model
+from oc_nbody_tpu_torch.integrators.hermite import Hermite4
 from oc_nbody_tpu_torch.integrators.leapfrog import LeapfrogKDK
+from oc_nbody_tpu_torch.models import imf as imf_mod
 from oc_nbody_tpu_torch.models import potentials as pot_mod
+from oc_nbody_tpu_torch.models.king import king
 from oc_nbody_tpu_torch.models.plummer import plummer
 from oc_nbody_tpu_torch.state import ParticleState
 from oc_nbody_tpu_torch.utils.units import UnitSystem
@@ -25,8 +29,8 @@ from oc_nbody_tpu_torch.utils.units import UnitSystem
 # others)
 _UNPORTED = (
     ("mesh.n_devices", 1, "A17 (multi-GPU)"),
-    ("integrator.kind", "kdk", "A11/A12 (hermite, block), A14 (yoshida4)"),
     ("integrator.macro_batches", 0, "A18 (macro steppers)"),
+    ("integrator.pair_dt", False, "A11 (pair_dt: the encounter sweep)"),
     ("integrator.precision", "f32", "A13 (precision tiers)"),
     ("potential.perturber.kind", "none", "A14 (time-dependent fields)"),
     ("potential.bar.kind", "none", "A14 (time-dependent fields)"),
@@ -34,7 +38,6 @@ _UNPORTED = (
     ("friction.kind", "none", "A14 (dynamical friction)"),
     ("sev.kind", "none", "A14 (stellar evolution)"),
     ("escape.prune", False, "A15 (escape pruning)"),
-    ("ic.imf", "equal", "A4 (models/imf.py)"),
     ("ic.vel_scale", 1.0, "A8 (scene options)"),
     ("ic.rotation", 0.0, "A14 (models/rotation.py)"),
     ("ic.segregation", 0.0, "A14 (models/segregation.py)"),
@@ -42,8 +45,11 @@ _UNPORTED = (
     ("orbit.inclination_deg", 0.0, "A8 (scene options)"),
     ("output.diag_f64", False, "A13 (f64 diagnostics potential)"),
 )
-_IC_ITEMS = {"king": "A10", "dehnen": "A14", "eff": "A14",
-             "file": "A3 (snapshot I/O)"}
+_IC_ITEMS = {"dehnen": "A14", "eff": "A14", "file": "A3 (snapshot I/O)"}
+_INTEGRATOR_ITEMS = {"block": "A12 (block steps)", "yoshida4": "A14"}
+# the IMF draws from its own generator, so an equal-mass IC's stream is
+# the same whatever the IMF
+_IMF_STREAM = 0x494D46
 _POTENTIAL_ITEMS = {"point_mass": "A4", "log_halo": "A4"}
 
 
@@ -69,6 +75,11 @@ def check_supported(cfg: SimConfig) -> None:
             f"backend = {cfg.backend!r} names a JAX backend; the port takes "
             "'auto' only (the kernel or its plain twin is chosen by the "
             "tensors' device)")
+    kind = cfg.integrator.kind
+    if kind in _INTEGRATOR_ITEMS:
+        raise NotImplementedError(
+            f"integrator.kind = {kind!r} is not ported yet (ROADMAP "
+            f"{_INTEGRATOR_ITEMS[kind]}); the port runs 'kdk' and 'hermite'")
     for path, value, item in _UNPORTED:
         got = _get(cfg, path)
         if got != value and not (got is None and value == "none"):
@@ -114,17 +125,30 @@ def build_external_potential(cfg: SimConfig,
 
 
 def build_ic(cfg: SimConfig, us: UnitSystem, device) -> ParticleState:
-    """The equal-mass Plummer IC, sampled from a generator seeded with
-    ``ic.seed``."""
+    """The Plummer IC (from a generator seeded with ``ic.seed``) or the
+    King IC (numpy, ``ic.seed``), with IMF masses from a second generator
+    when ``ic.imf`` is not ``equal``."""
     ic = cfg.ic
     if ic.kind in _IC_ITEMS:
         raise NotImplementedError(f"ic.kind {ic.kind!r} is not ported yet "
                                   f"(ROADMAP {_IC_ITEMS[ic.kind]})")
-    if ic.kind != "plummer":
-        raise ValueError(f"unknown IC kind {ic.kind!r}")
-    gen = torch.Generator().manual_seed(ic.seed)
-    return plummer(ic.n, gen, a=ic.a, total_mass=ic.total_mass, G=us.G,
-                   device=device)
+    masses = None
+    if ic.imf != "equal":
+        samplers = {"kroupa": imf_mod.kroupa_imf,
+                    "salpeter": imf_mod.salpeter_imf}
+        if ic.imf not in samplers:
+            raise ValueError(f"unknown IMF {ic.imf!r}")
+        gen = torch.Generator().manual_seed(ic.seed + _IMF_STREAM)
+        masses = samplers[ic.imf](ic.n, gen, m_min=ic.m_min_msun,
+                                  m_max=ic.m_max_msun)
+    if ic.kind == "plummer":
+        gen = torch.Generator().manual_seed(ic.seed)
+        return plummer(ic.n, gen, a=ic.a, total_mass=ic.total_mass, G=us.G,
+                       masses=masses, device=device)
+    if ic.kind == "king":
+        return king(ic.n, ic.w0, seed=ic.seed, total_mass=ic.total_mass,
+                    G=us.G, masses=masses, device=device)
+    raise ValueError(f"unknown IC kind {ic.kind!r}")
 
 
 def place_on_orbit(state: ParticleState,
@@ -158,5 +182,13 @@ def build_scene(cfg: SimConfig, device="cuda") -> Scene:
 
 
 def make_stepper(cfg: SimConfig, force: ForceModel):
-    """The configured stepper and its kind: fixed-dt KDK."""
-    return LeapfrogKDK(force=force, dt=float(cfg.integrator.dt)), "kdk"
+    """The configured stepper and its kind: fixed-dt KDK or shared-dt
+    Hermite-4."""
+    ic = cfg.integrator
+    if ic.kind == "kdk":
+        return LeapfrogKDK(force=force, dt=float(ic.dt)), "kdk"
+    if ic.kind == "hermite":
+        return Hermite4(force=force, eta=ic.eta, eta_init=ic.eta_init,
+                        dt_max=ic.dt_max, quantize=ic.quantize,
+                        pec2=ic.pec2, symmetrized=ic.symmetrized), "hermite"
+    raise ValueError(f"unknown integrator kind {ic.kind!r}")

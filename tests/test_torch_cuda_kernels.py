@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 (rows_accel) and K2 (sym_accel) against their plain
-PyTorch twins in f64, on the card. Every test here needs an NVIDIA GPU and
+"""The CUDA kernels K1 (rows_accel), K2 (sym_accel), K3 (sym_jerk) and K4
+(rows_jerk) against their plain PyTorch twins in f64, on the card. Every test here needs an NVIDIA GPU and
 nvcc, and skips without them; on the card run
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
@@ -7,7 +7,9 @@ nvcc, and skips without them; on the card run
 (``--noconftest``: tests/conftest.py configures JAX, which that machine does
 not have; this file imports no JAX). Sizes cover ragged tiles, both guard
 modes and the potential output; tolerances are the JAX package's own
-(accel atol 5e-6·max|a|, phi rtol 3e-5).
+(accel atol 5e-6·max|a|, phi rtol 3e-5), and jerk atol 1e-5·max|j|: the
+jerk sums the difference of two terms of one size, so its f32 rounding is
+about twice the accel's.
 """
 import numpy as np
 import pytest
@@ -32,6 +34,22 @@ def _cluster(n, seed, device):
     pos = torch.from_numpy(rng.normal(size=(n, 3))).to(device)
     mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n).to(device)
     return prepare_f32(pos, mass)
+
+
+def _moving_cluster(n, seed, device):
+    """Centred f32 (pos, mass, vel) with virial-scale velocities."""
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(rng.normal(size=(n, 3))).to(device)
+    vel = torch.from_numpy(rng.normal(size=(n, 3)) * 0.5).to(device)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n).to(device)
+    return prepare_f32(pos, mass, vel=vel)
+
+
+def _check_jerk(out, ref):
+    for got, want, tol in zip(out, ref, (5e-6, 1e-5)):
+        assert got.dtype == torch.float32
+        err = float((got.double() - want).abs().max())
+        assert err <= tol * float(want.abs().max())
 
 
 def _check(out, ref, with_phi):
@@ -74,17 +92,58 @@ def test_sym_kernel_matches_plain_and_repeats_bitwise(cuda, n, with_phi,
     assert all(torch.equal(a, b) for a, b in pairs)
 
 
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("nr,ns", [(1, 1), (127, 129), (1000, 1000),
+                                   (300, 4097)])
+def test_rows_jerk_kernel_matches_plain(cuda, nr, ns, eps):
+    src, mass, svel = _moving_cluster(ns, ns, cuda)
+    rows = (src[:nr] + 0.01).contiguous() if nr != ns else src
+    vrows = (svel[:nr] - 0.02).contiguous() if nr != ns else svel
+    out = cg.rows_jerk_kernel(rows, vrows, src, svel, mass, eps, 1.3,
+                              guarded=eps == 0.0)
+    ref = cg.rows_jerk_plain(rows, vrows, src, svel, mass, eps, 1.3,
+                             dtype=torch.float64)
+    _check_jerk(out, ref)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 300, 1000, 8191])
+def test_sym_jerk_kernel_matches_plain_and_repeats_bitwise(cuda, n, eps):
+    pos, mass, vel = _moving_cluster(n, n, cuda)
+    out = cg.sym_jerk_kernel(pos, vel, mass, eps, 1.3, guarded=eps == 0.0)
+    again = cg.sym_jerk_kernel(pos, vel, mass, eps, 1.3, guarded=eps == 0.0)
+    ref = cg.sym_jerk_plain(pos, vel, mass, eps, 1.3, dtype=torch.float64)
+    _check_jerk(out, ref)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_guarded_self_pair_adds_no_jerk(cuda):
+    """eps = 0, two particles at one point: inv = 0 gives zero accel and
+    zero jerk, not NaN, in both jerk kernels."""
+    pos = torch.zeros((2, 3), dtype=torch.float32, device=cuda)
+    vel = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], dtype=torch.float32,
+                       device=cuda)
+    mass = torch.ones(2, dtype=torch.float32, device=cuda)
+    for out in (cg.sym_jerk_kernel(pos, vel, mass, 0.0, guarded=True),
+                cg.rows_jerk_kernel(pos, vel, pos, vel, mass, 0.0,
+                                    guarded=True)):
+        assert all(bool((t == 0).all()) for t in out)
+
+
 def test_wrappers_launch_the_kernels_on_cuda(cuda):
-    pos, mass = _cluster(8192, 1, cuda)
-    pos64 = pos.double()
+    pos, mass, vel = _moving_cluster(16384, 1, cuda)
+    pos64, vel64 = pos.double(), vel.double()
     launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
-    acc, phi = cg.accel_potential(pos64, mass, 1.0 / 64)  # N = SYM_MIN: K2
-    cg.accel(pos64[:1000].contiguous(), mass[:1000].contiguous(),
-             1.0 / 64)                                     # N < SYM_MIN: K1
+    acc, phi = cg.accel_potential(pos64[:8192], mass[:8192],
+                                  1.0 / 64)             # N = SYM_MIN: K2
+    cg.accel(pos64[:1000], mass[:1000], 1.0 / 64)       # N < SYM_MIN: K1
+    a, j = cg.accel_jerk(pos64, vel64, mass,
+                         1.0 / 64)                      # N = RT_MIN_JERK: K3
+    cg.accel_jerk(pos64[:1000], vel64[:1000], mass[:1000],
+                  1.0 / 64)                             # below: K4
     torch.cuda.synchronize()
-    assert acc.dtype == phi.dtype == torch.float64
-    assert cg.LAUNCHES == {"rows": launches["rows"] + 1,
-                           "sym": launches["sym"] + 1}
+    assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
+    assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}
     assert cg.PLAIN_CALLS == plain
 
 
@@ -96,3 +155,7 @@ def test_kernel_launchers_check_their_input(cuda):
         cg.sym_kernel(pos.t().contiguous().t(), mass, 0.1)
     with pytest.raises(ValueError, match="shape"):
         cg.rows_kernel(pos, pos, mass[:10], 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        cg.sym_jerk_kernel(pos, pos.double(), mass, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        cg.rows_jerk_kernel(pos, pos[:10], pos, pos, mass, 0.1)

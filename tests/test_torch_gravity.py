@@ -3,11 +3,13 @@ against the JAX package on identical inputs.
 
 On the CPU the wrappers run their kernels' plain PyTorch twins. They are
 held to the JAX jnp ops, to the Pallas kernels they replace (#1
-_accel_kernel, #2 _accel_phi_kernel, #16/#17 _make_sym_kernel with
-_pair_accel/_pair_phi) run in interpret mode as
-tests/unit/test_pallas_interpret.py runs them, and to the f64 oracle.
-Tolerances are the JAX package's own (test_pallas_interpret.py:51-59):
-accel atol 5e-6·max|a|, phi rtol 3e-5.
+_accel_kernel, #2 _accel_phi_kernel, #3 _accel_jerk_kernel, #16/#17/#18
+_make_sym_kernel with _pair_accel/_pair_phi/_pair_jerk) run in interpret
+mode as tests/unit/test_pallas_interpret.py runs them, and to the f64
+oracle. Tolerances are the JAX package's own (test_pallas_interpret.py:
+51-59): accel atol 5e-6·max|a|, phi rtol 3e-5; and jerk atol 1e-5·max|j|
+(the jerk sums the difference of two terms of one size, so its f32
+rounding is about twice the accel's).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,10 +19,11 @@ import torch
 import oc_nbody_tpu.ops.pallas_gravity as pg
 from oc_nbody_tpu.ops import gravity as jgrav
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
+from oc_nbody_tpu_torch.ops.gravity import prepare_f32
 
 G = 1.3
 _PALLAS = (pg.accel_rows, pg.accel_potential_rows, pg.accel_sym,
-           pg.accel_potential_sym)
+           pg.accel_potential_sym, pg.accel_jerk_rows, pg.accel_jerk_sym)
 
 
 @pytest.fixture(autouse=True)
@@ -29,6 +32,7 @@ def _interpret_and_threads(monkeypatch):
     # several tiles at these small N (the production tile is 512)
     monkeypatch.setattr(pg, "T_SYMA", 128)
     monkeypatch.setattr(pg, "T_SYMP", 128)
+    monkeypatch.setattr(pg, "T_SYM", 128)
     for fn in _PALLAS:
         fn.clear_cache()
     threads = torch.get_num_threads()
@@ -46,6 +50,12 @@ def _cluster(n, seed):
     return pos, mass
 
 
+def _moving_cluster(n, seed):
+    pos, mass = _cluster(n, seed)
+    vel = np.random.default_rng(seed + 1).normal(size=(n, 3)) * 0.5
+    return pos, vel, mass
+
+
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a)).to(dtype)
 
@@ -54,6 +64,14 @@ def _close_acc(got, ref):
     ref = np.asarray(ref, np.float64)
     np.testing.assert_allclose(np.asarray(got, np.float64), ref,
                                atol=5e-6 * np.abs(ref).max(), rtol=0)
+
+
+def _close_jerk(got, ref):
+    """(acc, jerk) against a reference pair."""
+    _close_acc(got[0], ref[0])
+    ref_j = np.asarray(ref[1], np.float64)
+    np.testing.assert_allclose(np.asarray(got[1], np.float64), ref_j,
+                               atol=1e-5 * np.abs(ref_j).max(), rtol=0)
 
 
 def _close_phi(got, ref):
@@ -119,6 +137,107 @@ def test_self_forms_match_jax(n, eps):
             assert phi.dtype == torch.float64, name
             for ref_phi in (oracle[1], jnp_ref[1], pal_ap[1]):
                 _close_phi(phi, ref_phi)
+
+
+JERK_CASES = [(n, eps) for n in (257, 512) for eps in (0.0, 1.0 / 64)]
+
+
+@pytest.mark.parametrize("n,eps", JERK_CASES)
+def test_jerk_forms_match_jax(n, eps):
+    """accel_jerk (dispatching), accel_jerk_sym and the jerk twins, each
+    against the JAX jnp op, the Pallas kernels #3 (one-sided) and #18
+    (pair-symmetric) and the f64 oracle."""
+    pos, vel, mass = _moving_cluster(n, seed=3 * n)
+    guarded = eps == 0.0
+    p64, v64, m32 = (_t(pos, torch.float64), _t(vel, torch.float64),
+                     _t(mass))
+    pc, mc, vc = prepare_f32(p64, m32, vel=v64)
+    outs = {
+        "accel_jerk": cg.accel_jerk(p64, v64, m32, eps, G, guarded),
+        "accel_jerk_sym": cg.accel_jerk_sym(p64, v64, m32, eps, G, guarded),
+        "accel_jerk_rows": cg.accel_jerk_rows(pc, vc, pc, vc, mc, eps, G, 0,
+                                              guarded),
+        "rows_jerk_plain": cg.rows_jerk_plain(pc, vc, pc, vc, mc, eps, G),
+        "sym_jerk_plain": cg.sym_jerk_plain(pc, vc, mc, eps, G),
+    }
+    m32j = jnp.asarray(mass, jnp.float32)
+    pcj, mcj, vcj = jgrav.prepare_f32(jnp.asarray(pos), m32j,
+                                      vel=jnp.asarray(vel))
+    refs = {
+        "oracle": jgrav.accel_jerk_direct(pos, vel, mass, eps, G),
+        "jnp": jgrav.accel_jerk(pos, vel, m32j, eps, G),
+        "pallas #3": pg.accel_jerk_rows(pcj, vcj, pcj, vcj, mcj,
+                                        np.float32(eps), np.float32(G),
+                                        guarded=guarded),
+        "pallas #18": pg.accel_jerk_sym(pos, vel, m32j, eps, G,
+                                        guarded=guarded),
+    }
+    for name, out in outs.items():
+        for ref in refs.values():
+            _close_jerk(out, ref)
+        f32_out = name in ("accel_jerk_rows", "rows_jerk_plain",
+                           "sym_jerk_plain")
+        want = torch.float32 if f32_out else torch.float64
+        assert out[0].dtype == out[1].dtype == want, name
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+def test_jerk_rows_from_other_sources_match_jax(eps):
+    """accel_jerk_rows with rows != sources (a block stepper's active set)
+    against Pallas #3 and the f64 rows oracle."""
+    src, svel, mass = _moving_cluster(400, seed=21)
+    rows, vrows, _ = _moving_cluster(77, seed=22)
+    r32, vr32, s32, sv32, m32 = (np.asarray(a, np.float32)
+                                 for a in (rows, vrows, src, svel, mass))
+    out = cg.accel_jerk_rows(_t(r32), _t(vr32), _t(s32), _t(sv32), _t(m32),
+                             eps, G, 0, eps == 0.0)
+    oracle = jgrav.accel_jerk_rows(rows, vrows, src, svel, mass, eps, G)
+    pal = pg.accel_jerk_rows(r32, vr32, s32, sv32, m32, np.float32(eps),
+                             np.float32(G), guarded=eps == 0.0)
+    for ref in (oracle, pal):
+        _close_jerk(out, ref)
+
+
+def test_jerk_oracle_matches_jax_and_guards_the_self_pair():
+    """The port's f64 accel_jerk_direct is JAX's to rounding; the f64 jerk
+    twins reproduce it; with eps = 0 two particles at one point give zero
+    accel and jerk, not NaN."""
+    from oc_nbody_tpu_torch.ops import gravity as tgrav
+    pos, vel, mass = _moving_cluster(200, seed=31)
+    p64, v64, m64 = (_t(a, torch.float64) for a in (pos, vel, mass))
+    for eps in (0.0, 0.05):
+        got = tgrav.accel_jerk_direct(p64, v64, m64, eps, G)
+        ref = jgrav.accel_jerk_direct(pos, vel, mass, eps, G)
+        for g_, r_ in zip(got, ref):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(r_),
+                                       rtol=1e-12, atol=1e-12)
+        twin = cg.sym_jerk_plain(p64, v64, m64, eps, G, dtype=torch.float64,
+                                 chunk=64)
+        for g_, r_ in zip(twin, ref):
+            np.testing.assert_allclose(g_.numpy(), np.asarray(r_),
+                                       rtol=1e-12, atol=1e-12)
+    same = torch.zeros((2, 3), dtype=torch.float64)
+    v2 = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], dtype=torch.float64)
+    for out in (tgrav.accel_jerk_direct(same, v2, torch.ones(2)),
+                cg.accel_jerk(same, v2, torch.ones(2))):
+        assert all(bool((t == 0).all()) for t in out)
+
+
+def test_jerk_dispatch_rule(monkeypatch):
+    """K3's twin for RT_MIN_JERK <= N <= STREAM_N, K4's below, ValueError
+    naming ROADMAP B5 above; CPU tensors never count as launches."""
+    pos, vel, mass = _moving_cluster(300, seed=41)
+    p64, v64, m32 = _t(pos, torch.float64), _t(vel, torch.float64), _t(mass)
+    launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
+    cg.accel_jerk(p64, v64, m32, 0.1)
+    assert cg.PLAIN_CALLS["rows_jerk"] == plain["rows_jerk"] + 1
+    monkeypatch.setattr(cg, "RT_MIN_JERK", 300)
+    cg.accel_jerk(p64, v64, m32, 0.1)
+    assert cg.PLAIN_CALLS["sym_jerk"] == plain["sym_jerk"] + 1
+    assert cg.LAUNCHES == launches
+    monkeypatch.setattr(cg, "STREAM_N", 299)
+    with pytest.raises(ValueError, match="B5"):
+        cg.accel_jerk(p64, v64, m32, 0.1)
 
 
 def test_plain_twins_in_f64_match_the_oracle():

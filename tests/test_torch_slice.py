@@ -1,13 +1,17 @@
-"""The ported main path as a whole, against the JAX package.
+"""The ported paths as a whole, against the JAX package.
 
-One numpy Plummer IC goes through both packages on the c1 scene (isolated,
-N=256) and on the north-star scene (Milky Way, circular 8 kpc orbit, N
-overridden to 512): place_on_orbit -> LeapfrogKDK for 64 steps ->
-compute_all. The two differ only by f32 pair-summation order, so
-positions agree to 1e-9 of the cluster size (measured: ~5e-11) and every
-diagnostics column to 1e-6 relative (measured: <= 6e-8; N_bound within
-±1, and the components of L to 1e-9 of |L|). Also: the CLI on
-c1, the refusals of what is not ported, and that the port imports no JAX.
+One numpy IC goes through both packages on each scene: c1 (Plummer,
+isolated, N=256), the north star (Plummer on a circular 8 kpc orbit in the
+Milky Way, N overridden to 512), c2 (the JAX package's King sample on the
+same orbit, N=512) and c3 (Plummer with Kroupa masses, isolated, N=512):
+place_on_orbit -> the config's stepper (KDK: 64 steps; Hermite:
+advance_to(1/32)) -> compute_all. The two differ only by f32
+pair-summation order, so positions agree to 1e-9 of the cluster size
+(measured: ~5e-11 under KDK) and every diagnostics column to 1e-6 relative
+(measured: <= 6e-8; N_bound within ±1, and the components of L to 1e-9 of
+|L|). Under Hermite both land on the same time in as many steps. Also: the
+CLI on c1, c2 and c3, the refusals of what is not ported, and that the port
+imports no JAX.
 """
 import math
 import os
@@ -24,6 +28,7 @@ from oc_nbody_tpu import diagnostics as jdiag
 from oc_nbody_tpu import scene as jscene
 from oc_nbody_tpu.forces import make_force_model as j_make_force_model
 from oc_nbody_tpu.integrators.leapfrog import LeapfrogKDK as JLeapfrogKDK
+from oc_nbody_tpu.models.king import king as j_king
 from oc_nbody_tpu.state import make_state as j_make_state
 from oc_nbody_tpu_torch import __main__ as tmain
 from oc_nbody_tpu_torch import config as tconfig
@@ -32,12 +37,16 @@ from oc_nbody_tpu_torch import scene as tscene
 from oc_nbody_tpu_torch.forces import make_force_model as t_make_force_model
 from oc_nbody_tpu_torch.integrators.leapfrog import LeapfrogKDK
 from oc_nbody_tpu_torch.interop import state_from_numpy, state_to_numpy
+from oc_nbody_tpu_torch.models import imf as timf
 from oc_nbody_tpu_torch.run import _to_host
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C1 = os.path.join(REPO, "configs", "c1_plummer_1k.toml")
+C2 = os.path.join(REPO, "configs", "c2_king_8k_circular.toml")
+C3 = os.path.join(REPO, "configs", "c3_hermite_16k_kroupa.toml")
 NORTH_STAR = os.path.join(REPO, "configs", "north_star_65k_orbit.toml")
 N_STEPS = 64
+T_HERMITE = 1.0 / 32
 
 
 @pytest.fixture(autouse=True)
@@ -75,12 +84,35 @@ def numpy_plummer(n, seed, a=3.0 * math.pi / 16.0):
     return pos, vel, mass, np.arange(n, dtype=np.int32)
 
 
+def numpy_kroupa(n, seed):
+    """Kroupa masses in [0.08, 100] Msun from numpy uniforms, total 1, f32."""
+    u = np.random.default_rng(seed).uniform(size=n)
+    m = timf.inverse_cdf(torch.from_numpy(u),
+                         *timf.kroupa_segments(0.08, 100.0)).numpy()
+    return (m / m.sum()).astype(np.float32)
+
+
+def _numpy_ic(cfg, n, seed):
+    """The scene's IC as numpy arrays for both packages: the JAX package's
+    King sample for a King config, else numpy_plummer, with Kroupa masses
+    where the config asks for them."""
+    if cfg.ic.kind == "king":
+        s = j_king(n, cfg.ic.w0, seed=seed)
+        return (np.asarray(s.pos), np.asarray(s.vel), np.asarray(s.mass),
+                np.arange(n, dtype=np.int32))
+    pos, vel, mass, ids = numpy_plummer(n, seed)
+    if cfg.ic.imf == "kroupa":
+        mass = numpy_kroupa(n, seed + 1)
+    return pos, vel, mass, ids
+
+
 def _both(path, n, seed):
-    """(JAX row, port row, JAX final pos, port final pos, cluster size)."""
+    """(JAX row, port row, JAX final pos, port final pos, cluster size, the
+    softened self-potential energy scale G·Σm²/eps)."""
     over = [f"ic.n={n}"]
     cfg_j = jconfig.apply_overrides(jconfig.load_config(path), over)
     cfg_t = tconfig.apply_overrides(tconfig.load_config(path), over)
-    pos, vel, mass, ids = numpy_plummer(n, seed)
+    pos, vel, mass, ids = _numpy_ic(cfg_j, n, seed)
     fr = cfg_j.output.fractions
 
     us = jscene.build_units(cfg_j)
@@ -89,9 +121,12 @@ def _both(path, n, seed):
                                   cfg_j, us)
     force = j_make_force_model(eps=cfg_j.integrator.eps, G=us.G,
                                external=ext, backend="jnp")
-    stepper = JLeapfrogKDK(force=force, dt=cfg_j.integrator.dt)
-    carry = jax.jit(stepper.advance, static_argnums=1)(stepper.init(state),
-                                                       N_STEPS)
+    stepper, kind = jscene.make_stepper(cfg_j, force)
+    if kind == "kdk":
+        carry = jax.jit(stepper.advance, static_argnums=1)(
+            stepper.init(state), N_STEPS)
+    else:
+        carry = jax.jit(stepper.advance_to)(stepper.init(state), T_HERMITE)
     row_j = jax.device_get(jax.jit(
         lambda s: jdiag.compute_all(s, force, fr))(carry.state))
     pos_j = np.asarray(carry.state.pos)
@@ -101,20 +136,35 @@ def _both(path, n, seed):
     tstate = tscene.place_on_orbit(
         state_from_numpy(pos, vel, mass, ids, 0.0, "cpu"), text, cfg_t, tus)
     tforce = t_make_force_model(cfg_t.integrator.eps, tus.G, text)
-    tstepper = LeapfrogKDK(force=tforce, dt=cfg_t.integrator.dt)
-    tcarry = tstepper.advance(tstepper.init(tstate), N_STEPS)
-    assert tcarry.n_steps == N_STEPS
+    tstepper, tkind = tscene.make_stepper(cfg_t, tforce)
+    assert tkind == kind
+    if kind == "kdk":
+        tcarry = tstepper.advance(tstepper.init(tstate), N_STEPS)
+    else:
+        tcarry = tstepper.advance_to(tstepper.init(tstate), T_HERMITE)
+    assert tcarry.n_steps == int(carry.n_steps)
     assert tcarry.state.time == float(carry.state.time)
     row_t = _to_host(tdiag.compute_all(tcarry.state, tforce, fr))
     size = float(np.abs(pos - pos.mean(axis=0)).max())
-    return row_j, row_t, pos_j, tcarry.state.pos.numpy(), size
+    m64 = mass.astype(np.float64)
+    self_scale = us.G * float(np.sum(m64 * m64)) / cfg_j.integrator.eps
+    return row_j, row_t, pos_j, tcarry.state.pos.numpy(), size, self_scale
 
 
-@pytest.mark.parametrize("path,n", [(C1, 256), (NORTH_STAR, 512)],
-                         ids=["c1", "north_star"])
+@pytest.mark.parametrize("path,n", [(C1, 256), (NORTH_STAR, 512), (C2, 512),
+                                    (C3, 512)],
+                         ids=["c1", "north_star", "c2", "c3"])
 def test_slice_matches_jax(path, n):
-    row_j, row_t, pos_j, pos_t, size = _both(path, n, seed=n)
+    row_j, row_t, pos_j, pos_t, size, self_scale = _both(path, n, seed=n)
     np.testing.assert_allclose(pos_t, pos_j, rtol=0, atol=1e-9 * size)
+    # c3's Kroupa masses: each f32 phi holds the softened self term
+    # -G m_i/eps until self_phi removes it, so the potential-energy columns
+    # carry its f32 rounding, a few 2^-24 of G·Σm²/eps (6.6 here; measured
+    # 1.25 ulps of it); with equal masses it is below the 1e-6 rtol
+    e_atol = 2.0 ** -22 * self_scale if path == C3 else 0.0
+    e_cols = {"PE_pair": e_atol, "E_tot": e_atol, "E_int": e_atol,
+              "Q_virial": e_atol * float(row_j["Q_virial"])
+              / abs(float(row_j["PE_pair"]))}
     assert set(row_t) == set(row_j)
     n_bound_moved = row_t["N_bound"] != float(row_j["N_bound"])
     assert abs(row_t["N_bound"] - float(row_j["N_bound"])) <= 1
@@ -129,7 +179,7 @@ def test_slice_matches_jax(path, n):
         # the components of L on an orbit run are a cancellation of
         # galactic-scale terms: held to L_norm, not to themselves
         atol = 1e-9 * float(row_j["L_norm"]) if k in ("Lx", "Ly", "Lz") \
-            else 0.0
+            else e_cols.get(k, 0.0)
         np.testing.assert_allclose(v, ref, rtol=rtol, atol=atol, err_msg=k)
 
 
@@ -157,20 +207,47 @@ def test_cli_runs_c1_on_cpu(capsys):
     assert "steps=1449" in lines[0]
 
 
+@pytest.mark.parametrize("path,n,t_end", [(C3, 256, 0.125), (C2, 256, 0.25)],
+                         ids=["c3", "c2"])
+def test_cli_runs_hermite_and_king_on_cpu(capsys, path, n, t_end):
+    """c3 (adaptive steps: their count follows the f32 force rounding, ~140
+    here) and c2 (fixed dt = 1/512: 128 steps) through the CLI."""
+    rc = tmain.main(["run", path, "--device", "cpu", "--set", f"ic.n={n}",
+                     "--set", f"output.t_end={t_end}"])
+    assert rc == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("t=")]
+    assert len(lines) == 1
+    assert float(lines[0].split("t=")[1].split()[0]) == t_end
+    de = float(lines[0].split("dE/E=")[1].split()[0])
+    assert abs(de) < 1e-5
+    steps = int(lines[0].split("steps=")[1].split()[0])
+    assert (100 < steps < 200) if path == C3 else steps == 128
+
+
 def test_cli_info_and_refusals(capsys):
     assert tmain.main(["info", C1, "--set", "ic.n=64"]) == 0
-    assert '"n": 64' in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert '"n": 64' in out and "stepper: kdk LeapfrogKDK" in out
+    assert tmain.main(["info", C3]) == 0
+    assert "stepper: hermite Hermite4" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="A3"):
         tmain.main(["run", C1, "--device", "cpu", "--resume"])
     with pytest.raises(NotImplementedError, match="A16"):
         tmain.main(["ensemble", C1, "--seeds", "0:2"])
     with pytest.raises(ValueError, match="JAX backend"):
         tmain.main(["run", C1, "--device", "cpu", "--set", "backend=jnp"])
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A12"):
         tmain.main(["run", C1, "--device", "cpu", "--set",
-                    "integrator.kind=hermite"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        tmain.main(["run", C1, "--device", "cpu", "--set", "ic.kind=king"])
+                    "integrator.kind=block"])
+    with pytest.raises(NotImplementedError, match="A11"):
+        tmain.main(["run", C3, "--device", "cpu", "--set",
+                    "integrator.pair_dt=true"])
+    with pytest.raises(NotImplementedError, match="A18"):
+        tmain.main(["run", C3, "--device", "cpu", "--set",
+                    "integrator.macro_batches=4"])
+    with pytest.raises(NotImplementedError, match="A14"):
+        tmain.main(["run", C1, "--device", "cpu", "--set", "ic.kind=dehnen"])
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
