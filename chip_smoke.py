@@ -8,24 +8,33 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the CUDA kernels from the sources in the checkout (one nvcc per
    source, all at once);
-3. each kernel (K1 rows_accel, K2 sym_accel, K3 sym_jerk, K4 rows_jerk)
-   against its plain PyTorch twin in f64 on the same inputs, with max
-   error, tolerance and times (CUDA events, median of 5) for the kernel and
-   the f32 plain twin; K2 and K3 are launched twice and must be bitwise
-   equal;
+3. each kernel (K1 rows_accel, K2 sym_accel, K3 sym_jerk, K4 rows_jerk,
+   K5 rows_jerk_t) against its plain PyTorch twin in f64 on the same
+   inputs, with max error, tolerance and times (CUDA events, median of 5)
+   for the kernel and the f32 plain twin (K5 and K4 beside it as CUDA-graph
+   replays of 20 calls); K2, K3 and K5 are launched twice
+   and must be bitwise equal, and K5 must give a row the same bits alone,
+   in a subset and among all rows; K5 is timed beside K4 at the same
+   shapes;
 4. the paths, each through ``python -m oc_nbody_tpu_torch run`` (via
    ``__main__.main``) with the launch counters set to 0 just before it and
    read just after: c1 (KDK, K1), the north star (KDK, K2), c2 (King IC,
    KDK, K2) and c3 (Kroupa IMF, Hermite, K3) at full N and full length,
-   and c3 cut to N = 4,096 and t_end = 1 (Hermite, K4). Only the older
-   paths' t_end (c1, the north star) is cut, and the cut printed, if the
-   runs would not fit the time budget. Each path must launch its kernel,
-   the plain twins must not run, no diagnostic may be NaN, and the drift
-   must stay inside its bound; c2 must strip 5-40% of its bound mass;
-5. the steps of c2 (KDK) and c3 (Hermite) alone: ms/step, for Hermite
-   also without the per-step read of the shared dt (the cost of that
-   device sync), and the device's busy time per step under torch.profiler
-   over the unprofiled step time.
+   c3 cut to N = 4,096 and t_end = 1 (Hermite, K4), c4 (eccentric
+   inclined orbit, block timesteps, K5) at full N, and c4 cut to N = 4,096
+   and t_end = 0.25 (block timesteps, K4). If the runs would not fit the
+   time budget, c1's and the north star's t_end are cut first, then c4's
+   (to the longest whole multiple of dt_max that fits, at least t = 8),
+   each cut printed. Each path must launch its kernel, the plain twins must
+   not run, no diagnostic may be NaN, and the drift must stay inside its
+   bound; c2 must strip 5-40% of its bound mass, and c4, when it runs its
+   full length, 5-30%; under block steps the active-row kernel launches
+   once per micro-step;
+5. the steps of c2 (KDK), c3 (Hermite) and c4 (block) alone: ms/step, for
+   Hermite and block also without the per-step read (the shared dt; t_next
+   and the active count), i.e. the cost of that device sync, and the
+   device's busy time per step under torch.profiler over the unprofiled
+   step time.
 
 Then the card's name and power limit, one JSON line with the kernels'
 numbers, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -42,6 +51,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 C3 = "configs/c3_hermite_16k_kroupa.toml"
+C4 = "configs/c4_block_32k_eccentric.toml"
 # path name -> (config, overrides, the kernel it must launch)
 PATHS = {
     "c1": ("configs/c1_plummer_1k.toml", [], "rows"),
@@ -49,19 +59,28 @@ PATHS = {
     "c2": ("configs/c2_king_8k_circular.toml", [], "sym"),
     "c3": (C3, [], "sym_jerk"),
     "c3_n4096": (C3, ["ic.n=4096", "output.t_end=1.0"], "rows_jerk"),
+    "c4": (C4, [], "rows_jerk_t"),
+    "c4_n4096": (C4, ["ic.n=4096", "output.t_end=0.25"], "rows_jerk"),
 }
-# only these paths' t_end is cut if the runs would not fit the budget
+# these paths' t_end is cut first if the runs would not fit the budget
 CUTTABLE = ("c1", "north_star")
+# then c4's, to a whole multiple of dt_max, but not below this
+C4_MIN_T = 8.0
 # the script must finish in 1200 s with the build included
 BUDGET_S = 1000.0
 DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                "north_star": ("dE_over_E_int", 1e-5),
                "c2": ("dE_over_E_int", 1e-5),
                "c3": ("dE_over_E", 1e-6),
-               "c3_n4096": ("dE_over_E", 1e-6)}
+               "c3_n4096": ("dE_over_E", 1e-6),
+               "c4": ("dE_over_E_int", 2e-5),
+               "c4_n4096": ("dE_over_E_int", 2e-5)}
 # c2's bound mass stripped over the run: the JAX package's recorded run
 # stripped 18.3% (RESULTS.md:713); outside this range the tide is broken
 STRIP_RANGE = (0.05, 0.40)
+# c4's over its full length (the JAX package's run at dt_max = 1/64: 14.3%,
+# RESULTS.md:623)
+C4_STRIP_RANGE = (0.05, 0.30)
 # steps the JAX package's c3 run took to t = 10 (RESULTS.md:714): the
 # Hermite run-time estimate scales 50 timed steps by this rate
 HERMITE_STEPS_PER_TIME = 60516 / 10.0
@@ -76,7 +95,11 @@ PEAK_BYTES = 3.35e12
 # pair-symmetric, per unique pair, accel 26 and 28 with phi
 # (sym_accel.cu:sym_pair), accel+jerk 53 (sym_jerk.cu:sym_jerk_pair)
 FLOPS_PER_PAIR = {"rows": 18, "rows_phi": 19, "rows_jerk": 41,
-                  "sym": 26, "sym_phi": 28, "sym_jerk": 53}
+                  "rows_jerk_t": 41, "sym": 26, "sym_phi": 28,
+                  "sym_jerk": 53}
+# K5's shapes: c4's 32,768 sources against these active-row counts
+K5_ROWS = (1, 64, 1024, 8192, 32768)
+K5_NS = 32768
 
 
 def _fail(msg):
@@ -96,6 +119,35 @@ def _median_ms(fn, reps=5):
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def _graph_ms(fn, calls=20, reps=5):
+    """Median ms of one call, timed (CUDA events) over replays of a CUDA
+    graph of ``calls`` back-to-back calls: no host launch cost enters, so
+    a kernel shorter than its Python wrapper is timed on the device."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    del graph
+    torch.cuda.empty_cache()
     return statistics.median(times)
 
 
@@ -289,6 +341,14 @@ def check_kernels(cg, device):
                     max_abs_err=err, ms=ms, plain_ms=pms, shape=[nr, ns],
                     bound=_bound(nr * ns, FLOPS_PER_PAIR["rows_jerk"],
                                  28 * ns + 48 * nr))
+    # K5 beside K4 at c4's source count, 2e-5 of max past 16,384 sources
+    print("kernel      shape            eps        max|da|    rel_a    "
+          "rel_j    ms        K4_ms     plain_ms  bound_ms")
+    src, mass, svel = _moving_cluster(K5_NS, 15, device)
+    for nr in K5_ROWS:
+        for eps in (0.0, 1.0 / 256):
+            k5_case(cg, src, svel, mass, nr, eps)
+    check_row_independence(cg, src, svel, mass)
     print("kernel     shape           ms        bound_ms   bound_by    "
           "share of bound")
     for key, m in main.items():
@@ -296,6 +356,67 @@ def check_kernels(cg, device):
         print(f"{key:<11}{str(m['shape']):<16}{m['ms']:<10.4f}{b_ms:<11.5f}"
               f"{b_by:<12}{b_ms / m['ms']:.1%}")
     return main
+
+
+def k5_case(cg, src, svel, mass, nr, eps):
+    """K5 on nr rows (the first nr sources, shifted) against the f64 twin
+    and launched twice (bitwise), timed beside K4 (both as CUDA-graph
+    replays, ``_graph_ms``: at few rows the kernels are shorter than their
+    wrappers) and the f32 twin; prints one line and returns
+    dict(max_abs_err, ms, plain_ms, k4_ms, shape, bound)."""
+    import torch
+    ns = src.shape[0]
+    rows = (src[:nr] + 1e-3).contiguous()
+    vrows = (svel[:nr] - 1e-3).contiguous()
+    guarded = eps == 0.0
+    tol = 2e-5 if ns > 16384 else 5e-6
+    tol_j = 2e-5 if ns > 16384 else 1e-5
+    out = cg.rows_jerk_t_kernel(rows, vrows, src, svel, mass, eps,
+                                guarded=guarded)
+    again = cg.rows_jerk_t_kernel(rows, vrows, src, svel, mass, eps,
+                                  guarded=guarded)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"rows_jerk_t ({nr},{ns}) eps={eps}: two "
+                             "launches differ bitwise")
+    ref = cg.rows_jerk_t_plain(rows, vrows, src, svel, mass, eps,
+                               dtype=torch.float64)
+    err, rel_a, rel_j = _compare_jerk(out, ref, tol, tol_j)
+    del ref
+    ms = _graph_ms(lambda: cg.rows_jerk_t_kernel(
+        rows, vrows, src, svel, mass, eps, guarded=guarded))
+    k4_ms = _graph_ms(lambda: cg.rows_jerk_kernel(
+        rows, vrows, src, svel, mass, eps, guarded=guarded))
+    pms = _median_ms(lambda: cg.rows_jerk_t_plain(rows, vrows, src, svel,
+                                                  mass, eps))
+    bound = _bound(nr * ns, FLOPS_PER_PAIR["rows_jerk_t"], 28 * ns + 48 * nr)
+    print(f"rows_jerk_t ({nr},{ns}){'':<{13 - len(str(nr)) - len(str(ns))}}"
+          f"{eps:<11.6g}{err:<11.3e}{rel_a:<9.2e}{rel_j:<9.2e}"
+          f"{ms:<10.4f}{k4_ms:<10.4f}{pms:<10.4f}{bound[0]:.5f}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, k4_ms=k4_ms,
+                shape=[nr, ns], bound=bound)
+
+
+def check_row_independence(cg, src, svel, mass):
+    """K5 gives a row the same bits alone, in a random subset and among all
+    rows (what makes compacted and masked block steps agree)."""
+    import torch
+    ns = src.shape[0]
+    gen = torch.Generator().manual_seed(16)
+    for guarded, eps in ((True, 0.0), (False, 1.0 / 256)):
+        full = cg.rows_jerk_t_kernel(src, svel, src, svel, mass, eps,
+                                     guarded=guarded)
+        for k in (1, 64, 1024, 8191):
+            rows = torch.randperm(ns, generator=gen)[:k].to(src.device)
+            sub = cg.rows_jerk_t_kernel(src[rows].contiguous(),
+                                        svel[rows].contiguous(), src, svel,
+                                        mass, eps, guarded=guarded)
+            if not all(torch.equal(a, b[rows]) for a, b in zip(sub, full)):
+                raise AssertionError(f"rows_jerk_t: {k} rows launched apart "
+                                     "differ bitwise from the same rows "
+                                     "among all")
+    print(f"rows_jerk_t: rows of 1, 64, 1024 and 8191 launched apart are "
+          f"bitwise equal to the same rows among all {ns} (eps 0 and 1/256)")
 
 
 def _load(name):
@@ -325,8 +446,12 @@ def _estimate_s(cfg, device):
     per_row = time.perf_counter() - t
     out = cfg.output
     n_rows = math.ceil(out.t_end / out.diag_every) + 1
-    steps = (out.t_end * HERMITE_STEPS_PER_TIME if kind == "hermite"
-             else out.t_end / cfg.integrator.dt)
+    if kind == "hermite":
+        steps = out.t_end * HERMITE_STEPS_PER_TIME
+    elif kind == "block":   # the upper bound: every dt_min slot active
+        steps = out.t_end / stepper.dt_min
+    else:
+        steps = out.t_end / cfg.integrator.dt
     return steps * per_step + n_rows * per_row
 
 
@@ -343,10 +468,24 @@ def run_main_path(cg, device, budget_s):
     print("estimated full-length run time: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in est.items())
           + f" (budget {budget_s:.0f} s)")
-    fixed = sum(v for k, v in est.items() if k not in CUTTABLE)
+    fixed = sum(v for k, v in est.items() if k not in CUTTABLE + ("c4",))
+    overrides = {k: list(over) for k, (_, over, _) in PATHS.items()}
+    # c1 and the north star cut to one diagnostics interval each, first
+    least = sum(est[k] * _load(k).output.diag_every / _load(k).output.t_end
+                for k in CUTTABLE)
+    c4_out = _load("c4").output
+    room = budget_s - fixed - least
+    if est["c4"] > room:
+        g = _load("c4").integrator.dt_max
+        cut = max(C4_MIN_T, g * math.floor(c4_out.t_end * room / est["c4"]
+                                           / g))
+        overrides["c4"].append(f"output.t_end={cut!r}")
+        print(f"CUT: c4 output.t_end {c4_out.t_end} -> {cut} to fit the "
+              "time budget (N unchanged)")
+        est["c4"] *= cut / c4_out.t_end
+    fixed += est["c4"]
     scale = min(1.0, max(0.0, budget_s - fixed)
                 / sum(est[k] for k in CUTTABLE))
-    overrides = {k: list(over) for k, (_, over, _) in PATHS.items()}
     if scale < 1.0:
         for k in CUTTABLE:
             out = _load(k).output
@@ -391,6 +530,8 @@ def run_main_path(cg, device, budget_s):
             if any(cg.PLAIN_CALLS.values()):
                 raise AssertionError(f"{k}: plain twins ran on the path: "
                                      f"{cg.PLAIN_CALLS}")
+            if k.startswith("c4"):
+                _check_block_launches(cg, k, results[-1], launches[k])
     finally:
         run_mod.run = real_run
     for k, res in runs.items():
@@ -413,6 +554,8 @@ def run_main_path(cg, device, budget_s):
               f"run {res.wall_time_s:.1f} s", flush=True)
         if not drift <= bound:
             raise AssertionError(f"{k}: max|{col}| = {drift:.3e} > {bound:g}")
+        if k.startswith("c4"):
+            _report_block(k, res, advance_s)
     mb = runs["c2"].diagnostics["M_bound"]
     stripped = 1.0 - mb[-1] / mb[0]
     print(f"c2: bound mass {mb[0]:.6g} -> {mb[-1]:.6g}: {stripped:.2%} "
@@ -422,51 +565,109 @@ def run_main_path(cg, device, budget_s):
     if not STRIP_RANGE[0] <= stripped <= STRIP_RANGE[1]:
         raise AssertionError(f"c2: stripped {stripped:.2%} outside "
                              f"{STRIP_RANGE}: the tide is broken")
+    if runs["c4"].state.time == _load("c4").output.t_end:
+        mb = runs["c4"].diagnostics["M_bound"]
+        stripped = 1.0 - mb[-1] / mb[0]
+        print(f"c4: bound mass {mb[0]:.6g} -> {mb[-1]:.6g}: {stripped:.2%} "
+              "stripped (the JAX package's run at dt_max = 1/64: 14.3%)",
+              flush=True)
+        if not C4_STRIP_RANGE[0] <= stripped <= C4_STRIP_RANGE[1]:
+            raise AssertionError(f"c4: stripped {stripped:.2%} outside "
+                                 f"{C4_STRIP_RANGE}: the tide is broken")
+    else:
+        print("c4: cut short of its full length, so no strip check")
     return runs, launches
 
 
+def _check_block_launches(cg, k, res, launches):
+    """Under block steps the active-row kernel launches once per micro-step
+    (twice with pec2) and the self-interaction kernel once, at init."""
+    ic = _load(k).integrator
+    want = PATHS[k][2]
+    per = 2 if ic.pec2 else 1
+    init_key = "sym_jerk" if res.state.n >= cg.RT_MIN_JERK else "rows_jerk"
+    expect = {want: per * res.n_steps}
+    expect[init_key] = expect.get(init_key, 0) + 1
+    for key, n in expect.items():
+        if launches[key] != n:
+            raise AssertionError(f"{k}: {key} launched {launches[key]} times, "
+                                 f"expected {n} ({res.n_steps} micro-steps)")
+
+
+def _report_block(k, res, advance_s):
+    """Micro-steps against their bound, active rows, and the rates."""
+    ic = _load(k).integrator
+    t = res.state.time
+    most = round(t * (1 << (ic.n_levels - 1)) / ic.dt_max)
+    n = res.state.n
+    print(f"{k}: {res.n_steps} micro-steps to t={t:.6g} (at most {most}: "
+          f"every dt_min slot), n_active_sum={res.n_active_sum} "
+          f"({res.n_active_sum / res.n_steps:.1f} active rows per "
+          f"micro-step), {advance_s / res.n_steps * 1e3:.4f} ms/micro-step, "
+          f"{res.n_active_sum * n / advance_s:.4e} active-row interactions/s",
+          flush=True)
+    if res.n_steps > most:
+        raise AssertionError(f"{k}: {res.n_steps} micro-steps > {most}")
+
+
 def measure_steps(device, n_steps=200):
-    """Phase 5, off the main path: the step of c2 (KDK) and c3 (Hermite) on
-    the card. Times n_steps steps on the host clock; for Hermite also
-    without the per-step read of the shared dt (the same device work
-    through ``Hermite4.propose`` at the carried dt, one sync at the end),
-    in turns. The device's busy time per step comes from torch.profiler
-    over 100 steps; its busy share is that over the unprofiled step time
-    (the profiler slows the host)."""
+    """Phase 5, off the main path: the step of c2 (KDK), c3 (Hermite) and
+    c4 (block) on the card. Times n_steps steps on the host clock; for
+    Hermite also without the per-step read of the shared dt (the same device
+    work through ``Hermite4.propose`` at the carried dt, one sync at the
+    end), and for block steps without the per-micro-step read of (t_next,
+    n_active) (``BlockHermite.step_known`` replaying the schedule that a
+    first pass read), in turns. The device's busy time per step comes from
+    torch.profiler over 100 steps; its busy share is that over the
+    unprofiled step time (the profiler slows the host)."""
     import torch
     from oc_nbody_tpu_torch.integrators.hermite import HermiteCarry
     from oc_nbody_tpu_torch.scene import build_scene, make_stepper
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {}
-    for name in ("c2", "c3"):
+    for name in ("c2", "c3", "c4"):
         cfg = _load(name)
         scene = build_scene(cfg, device)
         stepper, kind = make_stepper(cfg, scene.force)
         carry = stepper.advance(stepper.init(scene.state), 20)
 
-        def no_read(c):
+        schedule = []
+        if kind == "block":     # the (t_next, n_active) each step reads
+            c = carry
+            for _ in range(n_steps):
+                nxt = stepper.step(c)
+                schedule.append((stepper._t_end_int(nxt, nxt.state.time),
+                                 nxt.n_active_sum - c.n_active_sum))
+                c = nxt
+
+        def no_read(c, i):
+            if kind == "block":
+                return stepper.step_known(c, *schedule[i])
             x1, v1, a1, j1, _ = stepper.propose(c, c.dt)
             return HermiteCarry(
                 state=c.state.replace(pos=x1, vel=v1,
                                       time=c.state.time + c.dt),
                 acc=a1, jerk=j1, dt=c.dt, n_steps=c.n_steps + 1)
 
+        def read_step(c, i):
+            return stepper.step(c)
+
         def timed(step):
             c = carry
             torch.cuda.synchronize()
             t = time.perf_counter()
-            for _ in range(n_steps):
-                c = step(c)
+            for i in range(n_steps):
+                c = step(c, i)
             torch.cuda.synchronize()
             return (time.perf_counter() - t) / n_steps * 1e3
 
-        if kind == "hermite":   # in turns: read, no read, no read, read
-            read = [timed(stepper.step)]
+        if kind in ("hermite", "block"):  # in turns: read, no, no, read
+            read = [timed(read_step)]
             free = [timed(no_read), timed(no_read)]
-            read.append(timed(stepper.step))
+            read.append(timed(read_step))
         else:
-            read, free = [timed(stepper.step), timed(stepper.step)], []
+            read, free = [timed(read_step), timed(read_step)], []
         ms = statistics.mean(read)
         c = carry
         torch.cuda.synchronize()
@@ -484,7 +685,8 @@ def measure_steps(device, n_steps=200):
                 f"({', '.join(f'{x:.4f}' for x in read)})")
         if free:
             ms_free = statistics.mean(free)
-            line += (f" with the per-step dt read, {ms_free:.4f} ms/step "
+            what = "(t_next, n_active)" if kind == "block" else "dt"
+            line += (f" with the per-step {what} read, {ms_free:.4f} ms/step "
                      f"without it ({', '.join(f'{x:.4f}' for x in free)}): "
                      f"the read costs {ms - ms_free:.4f} ms/step")
             out[name + "_read_ms"] = ms - ms_free
@@ -496,6 +698,9 @@ def measure_steps(device, n_steps=200):
               + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 100:.1f}"
                           f" us/step" for e in top), flush=True)
         out[name + "_busy"] = busy_ms / ms
+        if kind == "block":
+            print(f"{name}: {statistics.mean(n for _, n in schedule):.1f} "
+                  f"active rows per micro-step over the {n_steps} timed")
         del scene, stepper, carry, c
         torch.cuda.empty_cache()
     return out
@@ -533,6 +738,15 @@ def main():
     main_shapes = check_kernels(cg, device)
     budget = BUDGET_S - (time.perf_counter() - t_start)
     runs, launches = run_main_path(cg, device, budget)
+    # K5 at the shape c4's main path gave it on average: its mean active
+    # rows per micro-step against its 32,768 sources, eps = 1/256
+    c4 = runs["c4"]
+    nr = max(1, round(c4.n_active_sum / c4.n_steps))
+    print(f"K5 at c4's mean active rows per micro-step ({nr}):")
+    src, mass, svel = _moving_cluster(c4.state.n, 15, device)
+    main_shapes["rows_jerk_t"] = k5_case(cg, src, svel, mass, nr,
+                                         _load("c4").integrator.eps)
+    del src, mass, svel
     measure_steps(device)
 
     kernels = []
@@ -547,7 +761,11 @@ def main():
              "oc_nbody_tpu/ops/pallas_pair.py:256 (_OP_J, _pair_jerk :137)",
              None),
             ("rows_jerk", "rows_jerk", "oc_nbody_tpu_torch/csrc/rows_jerk.cu",
-             "oc_nbody_tpu/ops/pallas_gravity.py:294", None)):
+             "oc_nbody_tpu/ops/pallas_gravity.py:294", None),
+            ("rows_jerk_t", "rows_jerk_t",
+             "oc_nbody_tpu_torch/csrc/rows_jerk_t.cu",
+             "oc_nbody_tpu/ops/pallas_gravity.py:926 (_sweep_t_jerk :801)",
+             None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

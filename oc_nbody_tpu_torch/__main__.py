@@ -55,7 +55,8 @@ def main(argv=None):
             return 0
         stepper, kind = make_stepper(
             cfg, make_force_model(cfg.integrator.eps, build_units(cfg).G))
-        fields = {k: v for k, v in vars(stepper).items() if k != "force"}
+        fields = {k: v for k, v in vars(stepper).items()
+                  if k != "force" and not k.startswith("_")}
         print(f"stepper: {kind} {type(stepper).__name__}({fields})")
         return 0
 

@@ -54,6 +54,48 @@ class ForceModel:
             jerk = jerk + da_ext
         return acc, jerk
 
+    def centred_sources(self, src_pos, src_vel, src_mass):
+        """(src_c, svel_c, mass_c, center, vcenter): the sources centred on
+        their unweighted mean, in f64, then cast to f32."""
+        center = torch.mean(src_pos, dim=0)
+        vcenter = torch.mean(src_vel, dim=0)
+        f32 = torch.float32
+        return ((src_pos - center).to(f32).contiguous(),
+                (src_vel - vcenter).to(f32).contiguous(),
+                src_mass.to(f32).contiguous(), center, vcenter)
+
+    def pair_accel_jerk_rows(self, rows_c, vrows_c, src_c, svel_c, mass_c):
+        """The pairwise (accel, jerk) of centred f32 rows from centred f32
+        sources, f32 out (K5, or K4 below RT_MIN_JERK sources)."""
+        return cuda_gravity.accel_jerk_rows(rows_c, vrows_c, src_c, svel_c,
+                                            mass_c, self.eps, self.G,
+                                            guarded=not self.softened)
+
+    def accel_jerk_on_rows(self, pos_rows, vel_rows, src_pos, src_vel,
+                           src_mass, rows_mask=None):
+        """(accel, jerk) on a row subset against the full source set, in
+        pos_rows.dtype: the block-timestep active-set evaluation. Rows and
+        sources are centred on the unweighted source mean in f64 before the
+        f32 cast; the external field acts on the raw row positions.
+        ``rows_mask`` is the escape-pruning membership, not ported yet."""
+        if rows_mask is not None:
+            raise NotImplementedError(
+                "accel_jerk_on_rows with rows_mask (escape pruning) is not "
+                "ported yet (ROADMAP A15)")
+        src_c, svel_c, mass_c, center, vcenter = self.centred_sources(
+            src_pos, src_vel, src_mass)
+        f32 = torch.float32
+        acc, jerk = self.pair_accel_jerk_rows(
+            (pos_rows - center).to(f32).contiguous(),
+            (vel_rows - vcenter).to(f32).contiguous(), src_c, svel_c, mass_c)
+        acc = acc.to(pos_rows.dtype)
+        jerk = jerk.to(pos_rows.dtype)
+        if self.external is not None:
+            a_ext, da_ext = self.external.accel_jerk_ext(pos_rows, vel_rows)
+            acc = acc + a_ext
+            jerk = jerk + da_ext
+        return acc, jerk
+
     def accel_potential(self, pos, mass):
         """(accel, phi_pair, phi_ext); potentials are per-particle."""
         acc, phi_pair = cuda_gravity.accel_potential(

@@ -1,0 +1,478 @@
+"""Block (individual power-of-two) timesteps, Hermite-4 scheme.
+
+Counterpart of ``BlockHermite`` in ``oc_nbody_tpu/integrators/block.py``.
+Every particle carries its own (t_i, dt_i) with dt_i = dt_max / 2^k,
+k < n_levels; each micro-step advances the system to t_next = min(t_i +
+dt_i), predicts ALL particles there (O(N)), evaluates forces only for the
+ACTIVE rows (t_i + dt_i == t_next) against all predicted sources, corrects
+and re-rungs the active rows.
+
+Integer time grid. t_i and dt_i are int64 tensors on the device in units of
+dt_min = dt_max / 2^(n_levels-1): activity is exact integer equality,
+growth alignment is ``(t_next % (2 dt_i)) == 0``, and physical times are
+``t_origin + t_int * dt_min`` only where needed.
+
+Host and device. Each micro-step enqueues t_next = min(t_i + dt_i), the
+active mask and the compaction order ``argsort(~active, stable)`` (the
+active rows first, in their original order) on the device, then reads
+(t_next, n_active) to the host in one two-element copy: the micro-step's
+one sync, which the loop bound of ``advance_to`` needs anyway. The force is
+then launched on exactly ``idx[:n_active]``. Time, the micro-step count and
+the active-row total live on the host; every f64 operation the JAX package
+does on the device is a device op here on the same dtype.
+
+Compaction. The JAX package compacts with ``lax.top_k`` into a ladder of
+power-of-two buffer sizes under ``lax.switch``: static shapes for XLA and a
+bound on the TPU's scoped VMEM. Eager PyTorch launches on the exact count,
+so the ladder is not ported. ``n_buckets = 0`` keeps the masked full-row
+evaluation (every row evaluated, the inactive results discarded); any
+other value compacts.
+
+Rung selector. ``_rung_from_float`` picks the largest power of two <= x
+exactly (``torch.frexp``). The JAX package takes floor(jnp.log2(x)), which
+rounds down at some exact powers of two (floor(log2(8.0)) is 2 on
+XLA:CPU); the two differ only there, and a dt from f32-derived forces
+does not land on one.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from oc_nbody_tpu_torch.forces import ForceModel
+from oc_nbody_tpu_torch.state import ParticleState
+
+_TINY = torch.finfo(torch.float64).tiny
+# what checkpoint_aux writes and restore requires
+_AUX_KEYS = ("acc", "jerk", "a_ext", "j_ext", "t_i", "dt_i", "t_origin",
+             "n_steps", "n_active_sum", "dt_max", "n_levels")
+
+
+def _norm(x):
+    return torch.sqrt(torch.sum(x * x, dim=-1))
+
+
+def _interp_derivs(a0, j0, a1, j1, h, inv_h2, inv_h3):
+    """Hermite-interpolated (a2 at t1, a3) from endpoint (a, j) pairs."""
+    a2_0 = (-6.0 * (a0 - a1) - h * (4.0 * j0 + 2.0 * j1)) * inv_h2
+    a3 = (12.0 * (a0 - a1) + 6.0 * h * (j0 + j1)) * inv_h3
+    return a2_0 + h * a3, a3
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCarry:
+    state: ParticleState     # pos/vel at per-particle times; time = last t_next
+    acc: torch.Tensor        # (N, 3) TOTAL acceleration at t_i
+    jerk: torch.Tensor       # (N, 3) TOTAL jerk at t_i
+    # external-field parts of acc/jerk at t_i: the rung criterion is applied
+    # to the pairwise and external components separately (a total-force
+    # Aarseth dt is inflated by the smooth galactic field); zero without one
+    a_ext: torch.Tensor      # (N, 3)
+    j_ext: torch.Tensor      # (N, 3)
+    t_i: torch.Tensor        # (N,) int64, units of dt_min, relative to t_origin
+    dt_i: torch.Tensor       # (N,) int64 rung length in dt_min units
+    t_origin: float          # physical time at t_int == 0 (host)
+    n_steps: int             # micro-steps (host)
+    n_active_sum: int        # active-row evaluations (host; work metric)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockHermite:
+    """Individual block-timestep Hermite-4 stepper (integer time grid)."""
+
+    force: ForceModel
+    eta: float = 0.02
+    eta_init: float = 0.01
+    dt_max: float = 1.0 / 16.0
+    n_levels: int = 8
+    # 0: masked full-row evaluation; otherwise compact to the active rows
+    n_buckets: int = 4
+    # PEC²: a second (evaluate, correct) pass on the active rows at their
+    # corrected state; doubles the active-row force work
+    pec2: bool = False
+    _graph_cache: dict = dataclasses.field(default_factory=dict, init=False,
+                                           repr=False, compare=False)
+
+    @property
+    def dt_min(self) -> float:
+        return self.dt_max / (1 << (self.n_levels - 1))
+
+    @property
+    def _dt_int_max(self) -> int:
+        return 1 << (self.n_levels - 1)
+
+    # ---- rung helpers (integer dt in dt_min units) ---------------------
+    def _rung_from_float(self, dt_raw):
+        """Largest power-of-two dt_int with dt_int*dt_min <= dt_raw, clamped
+        to [1, 2^(n_levels-1)]; exact (frexp gives floor(log2 x) + 1)."""
+        x = torch.clamp(dt_raw / self.dt_min, min=1.0,
+                        max=float(self._dt_int_max))
+        _, e = torch.frexp(x)
+        p = torch.clamp(e.to(torch.int64) - 1, min=0)   # NaN -> rung 1
+        return torch.ones_like(p) << p
+
+    def _aarseth_dt(self, a, j, a2, a3):
+        na, nj, n2, n3 = _norm(a), _norm(j), _norm(a2), _norm(a3)
+        num = na * n2 + nj * nj
+        den = nj * n3 + n2 * n2
+        dt = torch.sqrt(self.eta * num / torch.clamp(den, min=_TINY))
+        return torch.where(den > 0, dt, math.inf)
+
+    @staticmethod
+    def _ext_parts(force, pos, vel, like):
+        """(a_ext, j_ext) of the (static) external field, O(N)."""
+        if force.external is None:
+            return torch.zeros_like(like), torch.zeros_like(like)
+        a_ext, j_ext = force.external.accel_jerk_ext(pos, vel)
+        return a_ext.to(like.dtype), j_ext.to(like.dtype)
+
+    # ---- lifecycle ----------------------------------------------------
+    def init(self, state: ParticleState) -> BlockCarry:
+        force = self.force.at_time(state.time)
+        acc, jerk = force.accel_jerk(state.pos, state.vel, state.mass)
+        acc = acc.to(state.pos.dtype)
+        jerk = jerk.to(state.pos.dtype)
+        a_ext, j_ext = self._ext_parts(force, state.pos, state.vel, acc)
+
+        def aj_dt(a_vec, j_vec):
+            a, j = _norm(a_vec), _norm(j_vec)
+            return torch.where(j > 0, a / torch.clamp(j, min=_TINY),
+                               math.inf)
+
+        # startup rung: per-component a/|j| timescales, pairwise and external
+        dt_raw = self.eta_init * torch.minimum(
+            aj_dt(acc - a_ext, jerk - j_ext), aj_dt(a_ext, j_ext))
+        return BlockCarry(
+            state=state, acc=acc, jerk=jerk, a_ext=a_ext, j_ext=j_ext,
+            t_i=torch.zeros((state.n,), dtype=torch.int64,
+                            device=state.device),
+            dt_i=self._rung_from_float(dt_raw), t_origin=float(state.time),
+            n_steps=0, n_active_sum=0)
+
+    # ---- the micro-step -----------------------------------------------
+    # A micro-step is three parts: _pre (schedule and predict; static
+    # shapes), the pairwise force on the active rows (its shape is the
+    # active count, known only after the read), and _finish (external
+    # field, corrector, re-rung; static shapes). On a CUDA device the two
+    # static parts replay as CUDA graphs (_StepGraphs): the micro-step is
+    # some three hundred small O(N) kernels, bound by launching them.
+
+    def _pre(self, force, t_i, dt_i, pos, vel, acc, jerk, mass):
+        """Enqueued without a sync: (sched = [t_next, n_active] int64,
+        t_next 0-d, active mask, compaction order or None when masked,
+        predicted xp and vp of every particle, centred f32 sources)."""
+        tn = t_i + dt_i
+        t_next = torch.min(tn)
+        active = tn == t_next
+        sched = torch.stack([t_next, torch.sum(active)])
+        idx = (torch.argsort((~active).to(torch.uint8), stable=True)
+               if self.n_buckets else None)
+        # predict ALL particles to t_next (O(N))
+        d = ((t_next - t_i).to(torch.float64) * self.dt_min)[:, None]
+        d2, d3 = d * d, d * d * d
+        xp = pos + d * vel + (d2 / 2) * acc + (d3 / 6) * jerk
+        vp = vel + d * acc + (d2 / 2) * jerk
+        sources = force.centred_sources(xp, vp, mass)[:3]
+        return sched, t_next, active, idx, xp, vp, sources
+
+    @staticmethod
+    def _pair(force, sources, idx, n_active, out=None):
+        """Pairwise (a, j) as one f32 (2, N, 3) tensor: of the active rows
+        and zero elsewhere (compacted), or of every row (masked, ``idx``
+        None). ``out``, if given, is that tensor, zeroed by the caller. A
+        row centred by its gather from the centred sources is the row
+        centred on its own, bit for bit."""
+        src_c, svel_c, _ = sources
+        if out is None:
+            out = torch.zeros((2,) + tuple(src_c.shape), dtype=src_c.dtype,
+                              device=src_c.device)
+        if idx is None:
+            a, j = force.pair_accel_jerk_rows(src_c, svel_c, *sources)
+            out[0].copy_(a)
+            out[1].copy_(j)
+            return out
+        rows = idx[:n_active]
+        a_r, j_r = force.pair_accel_jerk_rows(src_c[rows], svel_c[rows],
+                                              *sources)
+        out[0].index_copy_(0, rows, a_r)
+        out[1].index_copy_(0, rows, j_r)
+        return out
+
+    def _corrector(self, h, pos, vel, a0, j0, a1, j1):
+        h2 = h * h
+        v1 = vel + (h / 2) * (a0 + a1) + (h2 / 12) * (j0 - j1)
+        x1 = pos + (h / 2) * (vel + v1) + (h2 / 12) * (a0 - a1)
+        return x1, v1
+
+    def _total(self, force, xe, ve, pair):
+        """(a1, j1, a_ext1, j_ext1): total force at the evaluation state,
+        the pairwise part (``_pair``'s f32 tensor, cast to xe's dtype) plus
+        the external field at the raw positions."""
+        a_pair, j_pair = pair.to(xe.dtype).unbind(0)
+        a_ext1, j_ext1 = self._ext_parts(force, xe, ve, a_pair)
+        if force.external is None:
+            return a_pair, j_pair, a_ext1, j_ext1
+        return a_pair + a_ext1, j_pair + j_ext1, a_ext1, j_ext1
+
+    def _finish(self, force, t_next, active, xe, ve, pair, pos, vel, acc,
+                jerk, a_ext, j_ext, t_i, dt_i):
+        """Correct the active rows over their own step and re-rung them;
+        the carry's eight tensors, new."""
+        h = (dt_i.to(torch.float64) * self.dt_min)[:, None]
+        a1, j1, a_ext1, j_ext1 = self._total(force, xe, ve, pair)
+        x1, v1 = self._corrector(h, pos, vel, acc, jerk, a1, j1)
+
+        # new rung: the Aarseth criterion on the pairwise and external
+        # components separately, rung = min; the two are stacked on a
+        # leading axis (the same elementwise arithmetic, half the launches)
+        inv_h2 = 1.0 / (h * h)
+        inv_h3 = inv_h2 / h
+        a0s = torch.stack([acc - a_ext, a_ext])
+        j0s = torch.stack([jerk - j_ext, j_ext])
+        a1s = torch.stack([a1 - a_ext1, a_ext1])
+        j1s = torch.stack([j1 - j_ext1, j_ext1])
+        a2_1, a3 = _interp_derivs(a0s, j0s, a1s, j1s, h, inv_h2, inv_h3)
+        dt_raw = torch.amin(self._aarseth_dt(a1s, j1s, a2_1, a3), dim=0)
+        dt_want = self._rung_from_float(dt_raw)
+        # grow at most one rung, only when aligned with the block grid
+        dt_grow = 2 * dt_i
+        aligned = torch.remainder(t_next, dt_grow) == 0
+        dt_new = torch.where(
+            dt_want >= dt_grow,
+            torch.where(aligned, torch.clamp(dt_grow, max=self._dt_int_max),
+                        dt_i),
+            torch.minimum(dt_want, dt_i))
+        am = active[:, None]
+        return (torch.where(am, x1, pos), torch.where(am, v1, vel),
+                torch.where(am, a1, acc), torch.where(am, j1, jerk),
+                torch.where(am, a_ext1, a_ext), torch.where(am, j_ext1, j_ext),
+                torch.where(active, t_next, t_i),
+                torch.where(active, dt_new, dt_i))
+
+    def _use_graphs(self, carry: BlockCarry) -> bool:
+        """CUDA graphs on a CUDA device; pec2's extra evaluation between
+        the two static parts runs eagerly."""
+        return carry.t_i.device.type == "cuda" and not self.pec2
+
+    def _graphs(self, carry: BlockCarry) -> "_StepGraphs":
+        key = (carry.t_i.device, carry.state.n)
+        g = self._graph_cache.get(key)
+        if g is None:
+            self._graph_cache.clear()
+            g = self._graph_cache[key] = _StepGraphs(self, carry)
+        return g
+
+    def _micro_step(self, carry: BlockCarry, t_end_int=None, known=None):
+        """One micro-step, or None when ``t_end_int`` is given and the next
+        t_next lies past it. ``known`` = (t_next, n_active) skips the read
+        (the same device work; to measure the read's cost)."""
+        s = carry.state
+        if self._use_graphs(carry):
+            g = self._graphs(carry)
+            g.load(carry)
+            g.pre.replay()
+            sched, _, _, idx, xp, _, sources = g.pre_out
+            t_next, n_active = known or sched.tolist()  # the one read
+            if t_end_int is not None and t_next > t_end_int:
+                return None
+            force = self.force.at_time(carry.t_origin + t_next * self.dt_min)
+            self._pair(force, sources, idx, n_active, out=g.pair)
+            g.post.replay()
+            f, i = g.f64.clone(), g.i64.clone()
+            pos, vel, acc, jerk, a_ext, j_ext = f.unbind(0)
+            t_i, dt_i = i.unbind(0)
+            g.last = self._carry(carry, t_next, n_active, pos, vel, acc, jerk,
+                                 a_ext, j_ext, t_i, dt_i)
+            return g.last
+        sched, t_dev, active, idx, xp, vp, sources = self._pre(
+            self.force, carry.t_i, carry.dt_i, s.pos, s.vel, carry.acc,
+            carry.jerk, s.mass)
+        t_next, n_active = known or sched.tolist()      # the one read
+        if t_end_int is not None and t_next > t_end_int:
+            return None
+        # every evaluation of this micro-step happens at physical t_next
+        force = self.force.at_time(carry.t_origin + t_next * self.dt_min)
+        pair = self._pair(force, sources, idx, n_active)
+        xe, ve = xp, vp
+        if self.pec2:
+            # re-evaluate at the corrected active rows (inactive sources
+            # keep their prediction, as pass 1 saw them), correct once more
+            h = (carry.dt_i.to(torch.float64) * self.dt_min)[:, None]
+            a1, j1, _, _ = self._total(force, xp, vp, pair)
+            x1, v1 = self._corrector(h, s.pos, s.vel, carry.acc, carry.jerk,
+                                     a1, j1)
+            am = active[:, None]
+            xe, ve = torch.where(am, x1, xp), torch.where(am, v1, vp)
+            sources = force.centred_sources(xe, ve, s.mass)[:3]
+            pair = self._pair(force, sources, idx, n_active)
+        out = self._finish(force, t_dev, active, xe, ve, pair, s.pos, s.vel,
+                           carry.acc, carry.jerk, carry.a_ext, carry.j_ext,
+                           carry.t_i, carry.dt_i)
+        return self._carry(carry, t_next, n_active, *out)
+
+    def _carry(self, carry, t_next, n_active, pos, vel, acc, jerk, a_ext,
+               j_ext, t_i, dt_i) -> BlockCarry:
+        time = carry.t_origin + float(t_next) * self.dt_min
+        return carry.replace(
+            state=carry.state.replace(pos=pos, vel=vel, time=time),
+            acc=acc, jerk=jerk, a_ext=a_ext, j_ext=j_ext, t_i=t_i, dt_i=dt_i,
+            n_steps=carry.n_steps + 1,
+            n_active_sum=carry.n_active_sum + n_active)
+
+    def step(self, carry: BlockCarry) -> BlockCarry:
+        return self._micro_step(carry)
+
+    def step_known(self, carry: BlockCarry, t_next: int,
+                   n_active: int) -> BlockCarry:
+        """``step`` with (t_next, n_active) known on the host already: the
+        same device work without the read (to measure the read's cost)."""
+        return self._micro_step(carry, known=(t_next, n_active))
+
+    # ---- driving ------------------------------------------------------
+    def _t_end_int(self, carry: BlockCarry, t_end) -> int:
+        return round((float(t_end) - carry.t_origin) / self.dt_min)
+
+    def advance_to(self, carry: BlockCarry, t_end) -> BlockCarry:
+        """Micro-step until every particle reaches t_end. ``t_end`` must lie
+        on the dt_max block grid so the system synchronises there."""
+        te = self._t_end_int(carry, t_end)
+        while True:
+            nxt = self._micro_step(carry, t_end_int=te)
+            if nxt is None:
+                return carry
+            carry = nxt
+
+    def reached(self, carry: BlockCarry, t_end) -> bool:
+        te = self._t_end_int(carry, t_end)
+        return int(torch.min(carry.t_i + carry.dt_i)) > te
+
+    def advance(self, carry: BlockCarry, n: int) -> BlockCarry:
+        """n micro-steps."""
+        for _ in range(n):
+            carry = self.step(carry)
+        return carry
+
+    def rung_occupancy(self, carry: BlockCarry) -> torch.Tensor:
+        """Particle count per rung k (dt = dt_max/2^k), shape (n_levels,),
+        on the device. Force work per dt_max block is sum_k occ[k] * 2^k
+        row evaluations."""
+        dt_ints = torch.ones((self.n_levels,), dtype=torch.int64,
+                             device=carry.dt_i.device) << torch.arange(
+            self.n_levels - 1, -1, -1, dtype=torch.int64,
+            device=carry.dt_i.device)
+        return torch.sum(carry.dt_i[None, :] == dt_ints[:, None], dim=1)
+
+    def checkpoint_aux(self, carry: BlockCarry) -> dict:
+        """What a checkpoint must hold for a bitwise resume."""
+        return {"acc": carry.acc, "jerk": carry.jerk,
+                "a_ext": carry.a_ext, "j_ext": carry.j_ext,
+                "t_i": carry.t_i, "dt_i": carry.dt_i,
+                "t_origin": carry.t_origin, "n_steps": carry.n_steps,
+                "n_active_sum": carry.n_active_sum,
+                "dt_max": float(self.dt_max), "n_levels": int(self.n_levels)}
+
+    def restore(self, state: ParticleState, aux: dict) -> BlockCarry:
+        """The carry of a checkpoint. t_i and dt_i are integers in units of
+        the checkpoint's dt_min: a checkpoint grid that embeds exactly in
+        this one (old dt_min a power-of-two multiple of the new) is rescaled
+        by that factor, dt_i clamped at the new dt_max; coarsening is
+        refused. Every key of ``checkpoint_aux`` is required (the JAX package
+        re-initialises, recomputes the ext parts or skips the grid check on
+        a partial aux)."""
+        missing = [k for k in _AUX_KEYS if k not in aux]
+        if missing:
+            raise ValueError(f"block checkpoint aux lacks {missing}: a "
+                             "partial aux is refused, not re-initialised")
+        old_dt_min = float(aux["dt_max"]) / (1 << (int(aux["n_levels"]) - 1))
+        ratio = old_dt_min / self.dt_min
+        r = round(ratio)
+        if not (abs(ratio - r) < 1e-9 and r >= 1 and (r & (r - 1)) == 0):
+            raise ValueError(
+                f"checkpoint block grid (dt_max={float(aux['dt_max'])}, "
+                f"n_levels={int(aux['n_levels'])}, dt_min={old_dt_min}) "
+                f"does not embed in the configured grid (dt_max="
+                f"{self.dt_max}, n_levels={self.n_levels}, dt_min="
+                f"{self.dt_min}): old dt_min must be a power-of-two "
+                "multiple of the new (refining is exact; coarsening "
+                "would corrupt per-particle times)")
+
+        def dev(key, dtype):
+            return torch.as_tensor(aux[key]).to(device=state.device,
+                                                dtype=dtype)
+
+        f64, i64 = torch.float64, torch.int64
+        return BlockCarry(
+            state=state, acc=dev("acc", f64), jerk=dev("jerk", f64),
+            a_ext=dev("a_ext", f64), j_ext=dev("j_ext", f64),
+            t_i=dev("t_i", i64) * r,
+            dt_i=torch.clamp(dev("dt_i", i64) * r, max=self._dt_int_max),
+            t_origin=float(aux["t_origin"]), n_steps=int(aux["n_steps"]),
+            n_active_sum=int(aux["n_active_sum"]))
+
+
+class _StepGraphs:
+    """The micro-step's two static-shape parts (``_pre`` and ``_finish``)
+    captured as CUDA graphs over buffers of one carry shape. The carry's six
+    f64 (N, 3) fields live in one (6, N, 3) buffer and t_i, dt_i in one
+    (2, N) int64 buffer; ``post`` writes the new carry back into them, so a
+    run of micro-steps loads its carry once and clones two buffers per
+    micro-step for the carry it returns. ``pair`` is the (2, N, 3) f32
+    buffer the eager pairwise force fills between the replays; ``pre``
+    zeroes it."""
+
+    def __init__(self, stepper: BlockHermite, carry: BlockCarry):
+        s = carry.state
+        dev = carry.t_i.device
+        force = stepper.force.at_time(s.time)   # static fields only
+        self.f64 = torch.empty((6, s.n, 3), dtype=torch.float64, device=dev)
+        self.i64 = torch.empty((2, s.n), dtype=torch.int64, device=dev)
+        self.mass = torch.empty_like(s.mass)
+        self.pair = torch.zeros((2, s.n, 3), dtype=torch.float32, device=dev)
+        self.last = None
+        self.load(carry)
+        pos, vel, acc, jerk, a_ext, j_ext = self.f64.unbind(0)
+        t_i, dt_i = self.i64.unbind(0)
+
+        def pre():
+            self.pair.zero_()
+            return stepper._pre(force, t_i, dt_i, pos, vel, acc, jerk,
+                                self.mass)
+
+        def post(pre_out):
+            _, t_next, active, _, xp, vp, _ = pre_out
+            out = stepper._finish(force, t_next, active, xp, vp, self.pair,
+                                  pos, vel, acc, jerk, a_ext, j_ext, t_i,
+                                  dt_i)
+            self.f64.copy_(torch.stack(out[:6]))
+            self.i64.copy_(torch.stack(out[6:]))
+
+        # warm up on a side stream (lazy initialisation stays out of the
+        # capture); the buffers are reloaded after it
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                post(pre())
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.load(carry, force=True)
+        self.pre, self.post = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.pre):
+            self.pre_out = pre()
+        with torch.cuda.graph(self.post, pool=self.pre.pool()):
+            post(self.pre_out)
+
+    def load(self, carry: BlockCarry, force: bool = False) -> None:
+        """Copy the carry into the buffers unless they hold it already."""
+        if carry is self.last and not force:
+            return
+        s = carry.state
+        self.f64.copy_(torch.stack([s.pos, s.vel, carry.acc, carry.jerk,
+                                    carry.a_ext, carry.j_ext]))
+        self.i64.copy_(torch.stack([carry.t_i, carry.dt_i]))
+        self.mass.copy_(s.mass)
+        self.last = None

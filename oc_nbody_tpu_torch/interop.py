@@ -1,6 +1,7 @@
-"""Carry a particle state, or a Hermite carry, between the JAX package and
-the port as numpy arrays, with the reference dtypes (pos/vel/acc/jerk f64,
-mass f32, ids i32, time and dt f64, n_steps i64). Used by the tests to give
+"""Carry a particle state, a Hermite carry or a block carry between the JAX
+package and the port as numpy arrays, with the reference dtypes
+(pos/vel/acc/jerk/a_ext/j_ext f64, mass f32, ids i32, time, dt and t_origin
+f64, n_steps, n_active_sum and the block grid t_i/dt_i i64). Used by the tests to give
 both packages identical inputs. Takes and returns numpy only; imports no
 JAX.
 """
@@ -9,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from oc_nbody_tpu_torch.integrators.block import BlockCarry
 from oc_nbody_tpu_torch.integrators.hermite import HermiteCarry
 from oc_nbody_tpu_torch.state import ParticleState, make_state
 
@@ -17,10 +19,10 @@ def state_from_numpy(pos, vel, mass, ids, time, device) -> ParticleState:
     """A port ParticleState on ``device`` from numpy-convertible arrays (for
     example ``np.asarray`` of each field of a JAX ParticleState)."""
     return make_state(
-        torch.from_numpy(np.asarray(pos, np.float64)),
-        torch.from_numpy(np.asarray(vel, np.float64)),
-        torch.from_numpy(np.asarray(mass, np.float32)),
-        ids=torch.from_numpy(np.asarray(ids, np.int32)),
+        torch.from_numpy(np.array(pos, np.float64)),
+        torch.from_numpy(np.array(vel, np.float64)),
+        torch.from_numpy(np.array(mass, np.float32)),
+        ids=torch.from_numpy(np.array(ids, np.int32)),
         time=float(np.asarray(time, np.float64)), device=device)
 
 
@@ -43,8 +45,8 @@ def hermite_carry_from_numpy(pos, vel, mass, ids, time, acc, jerk, dt,
     state = state_from_numpy(pos, vel, mass, ids, time, device)
     return HermiteCarry(
         state=state,
-        acc=torch.from_numpy(np.asarray(acc, np.float64)).to(device),
-        jerk=torch.from_numpy(np.asarray(jerk, np.float64)).to(device),
+        acc=torch.from_numpy(np.array(acc, np.float64)).to(device),
+        jerk=torch.from_numpy(np.array(jerk, np.float64)).to(device),
         dt=float(np.asarray(dt, np.float64)),
         n_steps=int(np.asarray(n_steps, np.int64)))
 
@@ -57,3 +59,40 @@ def hermite_carry_to_numpy(carry: HermiteCarry):
             carry.acc.detach().cpu().numpy().astype(np.float64),
             carry.jerk.detach().cpu().numpy().astype(np.float64),
             np.float64(carry.dt), np.int64(carry.n_steps))
+
+
+def block_carry_from_numpy(pos, vel, mass, ids, time, acc, jerk, a_ext,
+                           j_ext, t_i, dt_i, t_origin, n_steps, n_active_sum,
+                           device) -> BlockCarry:
+    """A port BlockCarry on ``device`` from the fields of a block carry (for
+    example ``np.asarray`` of each field of a JAX BlockCarry); t_i and dt_i
+    stay int64."""
+    def f64(a):
+        return torch.from_numpy(np.array(a, np.float64)).to(device)
+
+    def i64(a):
+        return torch.from_numpy(np.array(a, np.int64)).to(device)
+
+    return BlockCarry(
+        state=state_from_numpy(pos, vel, mass, ids, time, device),
+        acc=f64(acc), jerk=f64(jerk), a_ext=f64(a_ext), j_ext=f64(j_ext),
+        t_i=i64(t_i), dt_i=i64(dt_i),
+        t_origin=float(np.asarray(t_origin, np.float64)),
+        n_steps=int(np.asarray(n_steps, np.int64)),
+        n_active_sum=int(np.asarray(n_active_sum, np.int64)))
+
+
+def block_carry_to_numpy(carry: BlockCarry):
+    """(pos, vel, mass, ids, time, acc, jerk, a_ext, j_ext, t_i, dt_i,
+    t_origin, n_steps, n_active_sum) as numpy arrays in the reference dtypes
+    — the argument order of ``block_carry_from_numpy``."""
+    def f64(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    def i64(t):
+        return t.detach().cpu().numpy().astype(np.int64)
+
+    return (*state_to_numpy(carry.state), f64(carry.acc), f64(carry.jerk),
+            f64(carry.a_ext), f64(carry.j_ext), i64(carry.t_i),
+            i64(carry.dt_i), np.float64(carry.t_origin),
+            np.int64(carry.n_steps), np.int64(carry.n_active_sum))

@@ -1,4 +1,4 @@
-"""The pairwise force on the card: four hand-written CUDA kernels for
+"""The pairwise force on the card: five hand-written CUDA kernels for
 Hopper (``sm_90a``), each beside its plain PyTorch twin.
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
@@ -12,6 +12,10 @@ Hopper (``sm_90a``), each beside its plain PyTorch twin.
     (oc_nbody_tpu/ops/pallas_pair.py:256, :137).
   * K4 ``csrc/rows_jerk.cu`` — one-sided rows vs sources accel + jerk.
     Replaces ``_accel_jerk_kernel`` (oc_nbody_tpu/ops/pallas_gravity.py:294).
+  * K5 ``csrc/rows_jerk_t.cu`` — one-sided accel + jerk of few rows from
+    many sources, the sources split over blocks; a row's bits do not depend
+    on the other rows of the launch. Replaces ``_accel_jerk_kernel_t`` with
+    ``_sweep_t_jerk`` (oc_nbody_tpu/ops/pallas_gravity.py:926, :801).
 
 The public wrappers keep the signatures and return contracts of
 ``oc_nbody_tpu.ops.pallas_gravity``: ``accel_rows`` and
@@ -20,14 +24,15 @@ The public wrappers keep the signatures and return contracts of
 ``accel_potential_sym``, ``accel`` and ``accel_potential`` take the state's
 positions, centre and cast them, and return the positions' dtype with the
 self term removed from the potential. ``accel_jerk_rows`` takes centred f32
-rows and sources with their velocities and returns f32; ``accel_jerk_sym``
-and ``accel_jerk`` take the state's positions and velocities, centre both
-and return the positions' dtype.
+rows and sources with their velocities and returns f32 (K5 for at least
+``RT_MIN_JERK`` sources and at most ``RT_MAX_ROWS`` rows, K4 otherwise);
+``accel_jerk_sym`` and ``accel_jerk`` take the state's positions and
+velocities, centre both and return the positions' dtype.
 
 A wrapper launches its kernel for CUDA tensors and calls the plain twin
 (``rows_plain``, ``sym_plain``, ``rows_jerk_plain``, ``sym_jerk_plain``,
-built on ``ops/gravity.py``) for CPU tensors; there is no fallback from one
-to the other. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls
+``rows_jerk_t_plain``, built on ``ops/gravity.py``) for CPU tensors; there
+is no fallback from one to the other. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls
 of the plain twins, so a run can show which one it went through.
 
 The kernels are built with ``nvcc`` into ``build/oc_nbody_tpu_torch/`` at
@@ -54,20 +59,27 @@ from oc_nbody_tpu_torch.ops import gravity
 # (pallas_gravity.py:1686); the H100 crossover has not been measured yet.
 SYM_MIN = 8192
 # The same rule for accel + jerk: K3 for RT_MIN_JERK <= N <= STREAM_N, K4
-# below (the TPU's jerk crossover, pallas_gravity.py:727, :2272).
+# below (the TPU's jerk crossover, pallas_gravity.py:727, :2272). For rows
+# against other sources it picks K5 over K4 from RT_MIN_JERK sources, up to
+# RT_MAX_ROWS rows (pallas_gravity.py:356-360, :739); the H100 crossover
+# between K4 and K5 is measured by chip_smoke.py, not used here.
 RT_MIN_JERK = 16384
+RT_MAX_ROWS = 65536
 # Largest N the resident sym kernel takes; past it the TPU runs chunked
 # sym kernels, not ported yet (ROADMAP B5).
 STREAM_N = 262144
 
-LAUNCHES = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0}
-PLAIN_CALLS = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0}
+LAUNCHES = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0,
+            "rows_jerk_t": 0}
+PLAIN_CALLS = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0,
+               "rows_jerk_t": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
 _HEADERS = ("pair.cuh",)
-_SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu")
+_SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
+            "rows_jerk_t.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -151,6 +163,11 @@ def _library():
         lib.ocn_rows_jerk.restype = i
         lib.ocn_sym_jerk.argtypes = [p, p, p, i, f, f, i, p, p, p, p]
         lib.ocn_sym_jerk.restype = i
+        lib.ocn_rows_jerk_t.argtypes = [p, p, i, p, p, p, i, f, f, i, p, p,
+                                        p, p]
+        lib.ocn_rows_jerk_t.restype = i
+        lib.ocn_rows_jerk_t_scratch.argtypes = [i, i]
+        lib.ocn_rows_jerk_t_scratch.restype = ctypes.c_longlong
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]
@@ -222,26 +239,37 @@ def sym_plain(pos_c, mass_c, eps, G=1.0, with_phi=False,
     return fn(pos_c, pos_c, mass_c, eps, G, chunk)
 
 
-def rows_jerk_plain(rows, vrows, src, svel, mass, eps, G=1.0,
-                    dtype=torch.float32, chunk=1024):
-    """K4's function in plain PyTorch, computed in ``dtype`` (f64: the
-    oracle the kernel is held to on the card). Returns (acc, jerk) in
-    ``dtype``."""
-    PLAIN_CALLS["rows_jerk"] += 1
+def _jerk_plain(key, rows, vrows, src, svel, mass, eps, G, dtype, chunk):
+    """The accel + jerk rows sum in ``dtype``, counted under ``key``."""
+    PLAIN_CALLS[key] += 1
     rows, vrows, src, svel, mass = (t.to(dtype) for t in
                                     (rows, vrows, src, svel, mass))
     return gravity.accel_jerk_rows(rows, vrows, src, svel, mass, eps, G,
                                    chunk)
 
 
+def rows_jerk_plain(rows, vrows, src, svel, mass, eps, G=1.0,
+                    dtype=torch.float32, chunk=1024):
+    """K4's function in plain PyTorch, computed in ``dtype`` (f64: the
+    oracle the kernel is held to on the card). Returns (acc, jerk) in
+    ``dtype``."""
+    return _jerk_plain("rows_jerk", rows, vrows, src, svel, mass, eps, G,
+                       dtype, chunk)
+
+
+def rows_jerk_t_plain(rows, vrows, src, svel, mass, eps, G=1.0,
+                      dtype=torch.float32, chunk=1024):
+    """K5's function in plain PyTorch: K4's function, counted apart."""
+    return _jerk_plain("rows_jerk_t", rows, vrows, src, svel, mass, eps, G,
+                       dtype, chunk)
+
+
 def sym_jerk_plain(pos_c, vel_c, mass_c, eps, G=1.0, dtype=torch.float32,
                    chunk=1024):
     """K3's function in plain PyTorch: the accel + jerk self-interaction of
     centred ``pos_c`` / ``vel_c`` summed one-sidedly in ``dtype``."""
-    PLAIN_CALLS["sym_jerk"] += 1
-    pos_c, vel_c, mass_c = (t.to(dtype) for t in (pos_c, vel_c, mass_c))
-    return gravity.accel_jerk_rows(pos_c, vel_c, pos_c, vel_c, mass_c, eps,
-                                   G, chunk)
+    return _jerk_plain("sym_jerk", pos_c, vel_c, pos_c, vel_c, mass_c, eps,
+                       G, dtype, chunk)
 
 
 # --------------------------------------------------------------------------
@@ -310,6 +338,31 @@ def rows_jerk_kernel(rows, vrows, src, svel, mass, eps, G=1.0,
         int(guarded), acc.data_ptr(), jerk.data_ptr(), _stream(rows))
     LAUNCHES["rows_jerk"] += 1
     _check_launch(lib, code, "rows_jerk")
+    return acc, jerk
+
+
+def rows_jerk_t_kernel(rows, vrows, src, svel, mass, eps, G=1.0,
+                       guarded=True):
+    """Launch K5 (both passes) on centred f32 CUDA tensors; the same
+    contract as ``rows_jerk_t_plain``."""
+    nr, ns = rows.shape[0], src.shape[0]
+    _check_f32("pos_rows", rows, (nr, 3))
+    _check_f32("vel_rows", vrows, (nr, 3))
+    _check_f32("src_pos", src, (ns, 3))
+    _check_f32("src_vel", svel, (ns, 3))
+    _check_f32("src_mass", mass, (ns,))
+    lib = _library()
+    scratch = torch.empty((lib.ocn_rows_jerk_t_scratch(nr, ns),),
+                          dtype=torch.float32, device=rows.device)
+    acc = torch.empty((nr, 3), dtype=torch.float32, device=rows.device)
+    jerk = torch.empty((nr, 3), dtype=torch.float32, device=rows.device)
+    code = lib.ocn_rows_jerk_t(
+        rows.data_ptr(), vrows.data_ptr(), nr, src.data_ptr(),
+        svel.data_ptr(), mass.data_ptr(), ns, _f32(G), _f32(_f32(eps) ** 2),
+        int(guarded), scratch.data_ptr(), acc.data_ptr(), jerk.data_ptr(),
+        _stream(rows))
+    LAUNCHES["rows_jerk_t"] += 1
+    _check_launch(lib, code, "rows_jerk_t")
     return acc, jerk
 
 
@@ -418,12 +471,24 @@ def accel_potential(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
 def accel_jerk_rows(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps,
                     G=1.0, chunk: int = 0, guarded: bool = True):
     """(accel, jerk) on centred f32 rows from centred f32 sources; f32 out.
+    K5 for RT_MIN_JERK <= sources <= STREAM_N with at most RT_MAX_ROWS rows,
+    K4 otherwise (the dispatch rule of pallas_gravity.accel_jerk_rows).
     ``chunk`` is accepted for the pallas_gravity signature and ignored."""
-    if _on_cuda(pos_rows, vel_rows, src_pos, src_vel, src_mass):
-        return rows_jerk_kernel(pos_rows, vel_rows, src_pos, src_vel,
-                                src_mass, eps, G, guarded)
-    return rows_jerk_plain(pos_rows, vel_rows, src_pos, src_vel, src_mass,
-                           eps, G)
+    ns = src_pos.shape[0]
+    if ns > STREAM_N:
+        raise ValueError(
+            f"{ns} sources exceed STREAM_N = {STREAM_N}: the streamed "
+            "accel + jerk kernel that runs past it is not ported yet "
+            "(ROADMAP B2/B4)")
+    on_cuda = _on_cuda(pos_rows, vel_rows, src_pos, src_vel, src_mass)
+    if ns >= RT_MIN_JERK and pos_rows.shape[0] <= RT_MAX_ROWS:
+        launch, plain = rows_jerk_t_kernel, rows_jerk_t_plain
+    else:
+        launch, plain = rows_jerk_kernel, rows_jerk_plain
+    if on_cuda:
+        return launch(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps, G,
+                      guarded)
+    return plain(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps, G)
 
 
 def accel_jerk_sym(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):

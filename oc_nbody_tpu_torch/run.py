@@ -1,10 +1,15 @@
 """Run loop: config -> simulate -> diagnostics series.
 
-Counterpart of the output loop of ``oc_nbody_tpu/run.py``, for the KDK and
-Hermite steppers. The state stays on the device; the host touches device
-data once per diagnostics row (one copy of the finished row) and, under
-Hermite, once per step (the shared timestep). Between rows the KDK stepper
-only enqueues work.
+Counterpart of the output loop of ``oc_nbody_tpu/run.py``, for the KDK,
+Hermite and block steppers. The state stays on the device; the host touches
+device data once per diagnostics row (one copy of the finished row, and
+under block steps one of the rung occupancy), under Hermite once per step
+(the shared timestep) and under block steps once per micro-step (t_next
+and the active count). Between rows the KDK stepper only enqueues work.
+
+Under block steps every output time is snapped to the dt_max grid (the
+stepper synchronises only there), and each row gets ``rung_00`` ...
+``rung_{n_levels-1}``, the particle count per rung.
 
 Per diagnostics interval: advance to the output time, compute the row,
 add the drift columns (``dE_over_E`` against |E_tot(0)|, ``dE_over_E_int``
@@ -40,6 +45,7 @@ class RunResult:
     n_steps: int
     phase_s: dict              # phase name -> total seconds (fenced)
     wall_per_myr: float = float("nan")
+    n_active_sum: int = 0      # block steps: active-row force evaluations
 
 
 def _to_host(row: dict) -> dict:
@@ -58,7 +64,7 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
             "resume needs snapshot I/O, which is not ported yet "
             "(ROADMAP A3)")
     scene = build_scene(cfg, device)
-    stepper, _ = make_stepper(cfg, scene.force)
+    stepper, kind = make_stepper(cfg, scene.force)
     # physical-time fields (Myr) override the code-unit ones, on a copy
     out = cfg.output
     myr = {}
@@ -68,6 +74,24 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
         myr["diag_every"] = out.diag_every_myr / scene.units.time_myr
     if myr:
         out = dataclasses.replace(out, **myr)
+    t0 = scene.state.time
+    if kind == "block":
+        # the block stepper synchronises only on the dt_max grid: an
+        # off-grid output time would leave large-rung particles behind
+        g = float(cfg.integrator.dt_max)
+        snapped = {
+            "diag_every": max(g, round(out.diag_every / g) * g),
+            "snap_every": max(g, round(out.snap_every / g) * g),
+            "t_end": t0 + max(g, round((out.t_end - t0) / g) * g),
+        }
+        changed = {k: v for k, v in snapped.items()
+                   if abs(v - getattr(out, k)) > 1e-12 * max(1.0, abs(v))}
+        if changed:
+            if out.stdout:
+                olds = {k: getattr(out, k) for k in changed}
+                print(f"block grid: snapped {olds} -> {changed} "
+                      f"(dt_max = {g})")
+            out = dataclasses.replace(out, **snapped)
 
     watch = Stopwatch(scene.state.device)
     series: dict[str, list] = {}
@@ -82,7 +106,6 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
         for k, v in row.items():
             series.setdefault(k, []).append(float(v))
 
-    t0 = scene.state.time
     with watch.phase("init"):
         carry = stepper.init(scene.state)
     with watch.phase("diagnostics"):
@@ -90,13 +113,16 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
     e0 = row0["E_tot"]
     e_int0 = abs(row0.get("E_int", e0))
 
-    def drift_cols(row):
+    def drift_cols(row, carry):
         e = row["E_tot"]
         row["dE_over_E"] = (e - e0) / abs(e0) if e0 else 0.0
         row["dE_over_E_int"] = (e - e0) / e_int0 if e_int0 else 0.0
+        if kind == "block":
+            for k, c in enumerate(stepper.rung_occupancy(carry).tolist()):
+                row[f"rung_{k:02d}"] = float(c)
         return row
 
-    row0 = drift_cols(row0)
+    row0 = drift_cols(row0, carry)
     row0["wall_s"] = 0.0
     emit(row0)
 
@@ -108,7 +134,7 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
         with watch.phase("advance"):
             carry = stepper.advance_to(carry, t_target)
         with watch.phase("diagnostics"):
-            row = drift_cols(diag_row(carry.state))
+            row = drift_cols(diag_row(carry.state), carry)
         e = row["E_tot"]
         row["wall_s"] = _time.perf_counter() - wall_start
         emit(row)
@@ -131,4 +157,5 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
         state=carry.state, carry=carry,
         diagnostics={k: np.asarray(v) for k, v in series.items()},
         wall_time_s=wall, n_steps=carry.n_steps,
-        phase_s=dict(watch.totals), wall_per_myr=wall_per_myr)
+        phase_s=dict(watch.totals), wall_per_myr=wall_per_myr,
+        n_active_sum=getattr(carry, "n_active_sum", 0))

@@ -2,20 +2,23 @@
 
 Counterpart of ``oc_nbody_tpu/scene.py`` for the slices the port runs: a
 Plummer or King cluster with equal, Kroupa or Salpeter masses, isolated or
-on a circular orbit in the analytic Milky Way, integrated with fixed-dt KDK
-or shared-dt Hermite-4 on one device. Every other config value is refused
+on a circular or eccentric (optionally inclined) orbit in the analytic
+Milky Way, integrated with fixed-dt KDK, shared-dt Hermite-4 or block
+timesteps on one device. Every other config value is refused
 with the ROADMAP item that ports it, so a config never runs as something it
 does not say.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
 from oc_nbody_tpu_torch.config import SimConfig
 from oc_nbody_tpu_torch.forces import ForceModel, make_force_model
+from oc_nbody_tpu_torch.integrators.block import BlockHermite
 from oc_nbody_tpu_torch.integrators.hermite import Hermite4
 from oc_nbody_tpu_torch.integrators.leapfrog import LeapfrogKDK
 from oc_nbody_tpu_torch.models import imf as imf_mod
@@ -42,11 +45,10 @@ _UNPORTED = (
     ("ic.rotation", 0.0, "A14 (models/rotation.py)"),
     ("ic.segregation", 0.0, "A14 (models/segregation.py)"),
     ("ic.binary_fraction", 0.0, "A14 (models/binaries.py)"),
-    ("orbit.inclination_deg", 0.0, "A8 (scene options)"),
     ("output.diag_f64", False, "A13 (f64 diagnostics potential)"),
 )
 _IC_ITEMS = {"dehnen": "A14", "eff": "A14", "file": "A3 (snapshot I/O)"}
-_INTEGRATOR_ITEMS = {"block": "A12 (block steps)", "yoshida4": "A14"}
+_INTEGRATOR_ITEMS = {"yoshida4": "A14"}
 # the IMF draws from its own generator, so an equal-mass IC's stream is
 # the same whatever the IMF
 _IMF_STREAM = 0x494D46
@@ -79,7 +81,8 @@ def check_supported(cfg: SimConfig) -> None:
     if kind in _INTEGRATOR_ITEMS:
         raise NotImplementedError(
             f"integrator.kind = {kind!r} is not ported yet (ROADMAP "
-            f"{_INTEGRATOR_ITEMS[kind]}); the port runs 'kdk' and 'hermite'")
+            f"{_INTEGRATOR_ITEMS[kind]}); the port runs 'kdk', 'hermite' and "
+            "'block'")
     for path, value, item in _UNPORTED:
         got = _get(cfg, path)
         if got != value and not (got is None and value == "none"):
@@ -151,24 +154,53 @@ def build_ic(cfg: SimConfig, us: UnitSystem, device) -> ParticleState:
     raise ValueError(f"unknown IC kind {ic.kind!r}")
 
 
+def eccentric_orbit_ic(potential: pot_mod.Potential, r_apo: float,
+                       r_peri: float):
+    """In-plane phase-space point at apocentre of an (r_apo, r_peri) orbit,
+    as host f64 lists. Energy and angular momentum matched in the midplane:
+      L^2 = 2 (Φ(r_a) − Φ(r_p)) / (1/r_p² − 1/r_a²)
+    """
+    phi_a = float(potential.phi_R(r_apo))
+    phi_p = float(potential.phi_R(r_peri))
+    L2 = 2.0 * (phi_a - phi_p) / (1.0 / r_peri**2 - 1.0 / r_apo**2)
+    v_t = math.sqrt(L2) / r_apo
+    return [r_apo, 0.0, 0.0], [0.0, v_t, 0.0]
+
+
+def _rot_x(vec, angle_rad: float):
+    """Rotate a 3-vector about the x axis (tilts the orbital plane)."""
+    c, s = math.cos(angle_rad), math.sin(angle_rad)
+    x, y, z = vec
+    return [x, c * y - s * z, s * y + c * z]
+
+
 def place_on_orbit(state: ParticleState,
                    potential: Optional[pot_mod.Potential], cfg: SimConfig,
                    us: UnitSystem) -> ParticleState:
     """Put the cluster's centre of mass on its galactic orbit: at (R0, 0, 0)
-    moving prograde at v_circ(R0) for a circular orbit."""
+    moving prograde at v_circ(R0) for a circular orbit, at apocentre for an
+    eccentric one; the orbital plane tilted about x by
+    ``orbit.inclination_deg``. The offsets are host f64 arithmetic."""
     orbit = cfg.orbit
     if orbit.kind == "none":
         return state
     if potential is None:
         raise ValueError("orbit placement requires an external potential")
-    if orbit.kind == "eccentric":
-        raise NotImplementedError("orbit.kind 'eccentric' is not ported yet "
-                                  "(ROADMAP A8)")
-    if orbit.kind != "circular":
+    length_scale = 1.0 / us.length_pc
+    if orbit.kind == "circular":
+        R0 = orbit.R0_pc * length_scale
+        pos0 = [R0, 0.0, 0.0]
+        vel0 = [0.0, float(potential.vcirc(R0)), 0.0]
+    elif orbit.kind == "eccentric":
+        pos0, vel0 = eccentric_orbit_ic(potential,
+                                        orbit.r_apo_pc * length_scale,
+                                        orbit.r_peri_pc * length_scale)
+    else:
         raise ValueError(f"unknown orbit kind {orbit.kind!r}")
-    R0 = orbit.R0_pc / us.length_pc
-    return state.shifted(dpos=[R0, 0.0, 0.0],
-                         dvel=[0.0, float(potential.vcirc(R0)), 0.0])
+    if orbit.inclination_deg:
+        ang = math.radians(orbit.inclination_deg)
+        pos0, vel0 = _rot_x(pos0, ang), _rot_x(vel0, ang)
+    return state.shifted(dpos=pos0, dvel=vel0)
 
 
 def build_scene(cfg: SimConfig, device="cuda") -> Scene:
@@ -182,8 +214,8 @@ def build_scene(cfg: SimConfig, device="cuda") -> Scene:
 
 
 def make_stepper(cfg: SimConfig, force: ForceModel):
-    """The configured stepper and its kind: fixed-dt KDK or shared-dt
-    Hermite-4."""
+    """The configured stepper and its kind: fixed-dt KDK, shared-dt
+    Hermite-4 or block timesteps."""
     ic = cfg.integrator
     if ic.kind == "kdk":
         return LeapfrogKDK(force=force, dt=float(ic.dt)), "kdk"
@@ -191,4 +223,8 @@ def make_stepper(cfg: SimConfig, force: ForceModel):
         return Hermite4(force=force, eta=ic.eta, eta_init=ic.eta_init,
                         dt_max=ic.dt_max, quantize=ic.quantize,
                         pec2=ic.pec2, symmetrized=ic.symmetrized), "hermite"
+    if ic.kind == "block":
+        return BlockHermite(force=force, eta=ic.eta, eta_init=ic.eta_init,
+                            dt_max=ic.dt_max, n_levels=ic.n_levels,
+                            pec2=ic.pec2), "block"
     raise ValueError(f"unknown integrator kind {ic.kind!r}")

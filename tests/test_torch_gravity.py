@@ -6,7 +6,8 @@ held to the JAX jnp ops, to the Pallas kernels they replace (#1
 _accel_kernel, #2 _accel_phi_kernel, #3 _accel_jerk_kernel, #16/#17/#18
 _make_sym_kernel with _pair_accel/_pair_phi/_pair_jerk) run in interpret
 mode as tests/unit/test_pallas_interpret.py runs them, and to the f64
-oracle. Tolerances are the JAX package's own (test_pallas_interpret.py:
+oracle; K5's twin (rows_jerk_t) to #9 _accel_jerk_kernel_t, reached with
+RT_MIN_JERK lowered as test_pallas_interpret.py:372 lowers it. Tolerances are the JAX package's own (test_pallas_interpret.py:
 51-59): accel atol 5e-6·max|a|, phi rtol 3e-5; and jerk atol 1e-5·max|j|
 (the jerk sums the difference of two terms of one size, so its f32
 rounding is about twice the accel's).
@@ -23,7 +24,8 @@ from oc_nbody_tpu_torch.ops.gravity import prepare_f32
 
 G = 1.3
 _PALLAS = (pg.accel_rows, pg.accel_potential_rows, pg.accel_sym,
-           pg.accel_potential_sym, pg.accel_jerk_rows, pg.accel_jerk_sym)
+           pg.accel_potential_sym, pg.accel_jerk_rows, pg.accel_jerk_sym,
+           pg.accel_jerk_rows_t)
 
 
 @pytest.fixture(autouse=True)
@@ -339,3 +341,65 @@ def test_port_oracles_and_blocked_ops_match_jax():
                                              0.05, G)
     _close_acc(acc, ref_acc)
     _close_phi(phi, ref_phi)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 32])
+@pytest.mark.parametrize("nr", [1, 37, 200])
+def test_k5_twin_matches_transposed_pallas(monkeypatch, nr, eps):
+    """accel_jerk_rows at RT_MIN_JERK sources (lowered to 256 in both
+    packages) routes to K5's twin in the port and to #9
+    _accel_jerk_kernel_t in the JAX package; both agree with each other and
+    with the f64 rows oracle."""
+    monkeypatch.setattr(cg, "RT_MIN_JERK", 256)
+    monkeypatch.setattr(pg, "RT_MIN_JERK", 64)
+    src, svel, mass = _moving_cluster(256, seed=51)
+    rows, vrows, _ = _moving_cluster(nr, seed=52 + nr)
+    r32, vr32, s32, sv32, m32 = (np.asarray(a, np.float32)
+                                 for a in (rows, vrows, src, svel, mass))
+    plain = dict(cg.PLAIN_CALLS)
+    out = cg.accel_jerk_rows(_t(r32), _t(vr32), _t(s32), _t(sv32), _t(m32),
+                             eps, G, 0, eps == 0.0)
+    assert cg.PLAIN_CALLS["rows_jerk_t"] == plain["rows_jerk_t"] + 1
+    assert cg.PLAIN_CALLS["rows_jerk"] == plain["rows_jerk"]
+    assert out[0].dtype == out[1].dtype == torch.float32
+    assert tuple(out[0].shape) == tuple(out[1].shape) == (nr, 3)
+    args = (r32, vr32, s32, sv32, m32, np.float32(eps), np.float32(G))
+    refs = {
+        "oracle": jgrav.accel_jerk_rows(rows, vrows, src, svel, mass, eps,
+                                        G),
+        "pallas #9": pg.accel_jerk_rows_t(*args, guarded=eps == 0.0),
+        "pallas dispatch": pg.accel_jerk_rows(*args, guarded=eps == 0.0),
+    }
+    for ref in refs.values():
+        _close_jerk(out, ref)
+
+
+def test_rows_jerk_dispatch_rule(monkeypatch):
+    """K5's twin for RT_MIN_JERK <= sources <= STREAM_N with at most
+    RT_MAX_ROWS rows, K4's below RT_MIN_JERK sources or above RT_MAX_ROWS
+    rows, ValueError naming ROADMAP B2/B4 past STREAM_N sources; CPU
+    tensors never count as launches."""
+    src, svel, mass = (_t(np.asarray(a, np.float32))
+                       for a in _moving_cluster(300, seed=61))
+    rows, vrows = src[:40].contiguous(), svel[:40].contiguous()
+    launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
+
+    def routed(n_src):
+        before = dict(cg.PLAIN_CALLS)
+        cg.accel_jerk_rows(rows, vrows, src[:n_src].contiguous(),
+                           svel[:n_src].contiguous(),
+                           mass[:n_src].contiguous(), 0.1)
+        return [k for k in before if cg.PLAIN_CALLS[k] != before[k]]
+
+    monkeypatch.setattr(cg, "RT_MIN_JERK", 300)
+    assert routed(300) == ["rows_jerk_t"]          # at RT_MIN_JERK
+    assert routed(299) == ["rows_jerk"]            # below it
+    monkeypatch.setattr(cg, "RT_MIN_JERK", 200)
+    assert routed(300) == ["rows_jerk_t"]          # above it
+    monkeypatch.setattr(cg, "RT_MAX_ROWS", 39)     # 40 rows: too many
+    assert routed(300) == ["rows_jerk"]
+    assert cg.LAUNCHES == launches
+    assert cg.PLAIN_CALLS["rows_jerk_t"] == plain["rows_jerk_t"] + 2
+    monkeypatch.setattr(cg, "STREAM_N", 299)
+    with pytest.raises(ValueError, match="B2/B4"):
+        routed(300)

@@ -237,9 +237,12 @@ def test_cli_info_and_refusals(capsys):
         tmain.main(["ensemble", C1, "--seeds", "0:2"])
     with pytest.raises(ValueError, match="JAX backend"):
         tmain.main(["run", C1, "--device", "cpu", "--set", "backend=jnp"])
-    with pytest.raises(NotImplementedError, match="A12"):
+    assert tmain.main(["info", os.path.join(REPO, "configs",
+                                            "c4_block_32k_eccentric.toml")]) == 0
+    assert "stepper: block BlockHermite" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="A14"):
         tmain.main(["run", C1, "--device", "cpu", "--set",
-                    "integrator.kind=block"])
+                    "integrator.kind=yoshida4"])
     with pytest.raises(NotImplementedError, match="A11"):
         tmain.main(["run", C3, "--device", "cpu", "--set",
                     "integrator.pair_dt=true"])
