@@ -15,22 +15,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    replays of 20 calls); K2, K3 and K5 are launched twice
    and must be bitwise equal, and K5 must give a row the same bits alone,
    in a subset and among all rows; K5 is timed beside K4 at the same
-   shapes;
+   shapes. Then the extended (hi/lo) tier the same way: K6 sym_accel_x at
+   N = 131,072 (beside K2), K7 sym_jerk_x at 16,384 (beside K3), K8
+   rows_accel_x at 1,024², K9 rows_jerk_x on K5's row counts against
+   32,768 sources (beside K5) and as a self-interaction at 4,096, eps > 0
+   and eps = 0, each against the f64 evaluation of the same (hi, lo)
+   planes; K6, K7 and K9 launched twice and bitwise equal, K9 row-set
+   independent; and the close-pair case (50 pairs at 1e-5 of the scale,
+   eps = 1e-4), where the extended kernels must stay inside 2e-5 of max|a|
+   and 5e-5 of max|j| of the f64 oracle and the f32 kernels must err past
+   1e-3;
 4. the paths, each through ``python -m oc_nbody_tpu_torch run`` (via
    ``__main__.main``) with the launch counters set to 0 just before it and
    read just after: c1 (KDK, K1), the north star (KDK, K2), c2 (King IC,
    KDK, K2) and c3 (Kroupa IMF, Hermite, K3) at full N and full length,
    c3 cut to N = 4,096 and t_end = 1 (Hermite, K4), c4 (eccentric
    inclined orbit, block timesteps, K5) at full N, and c4 cut to N = 4,096
-   and t_end = 0.25 (block timesteps, K4). If the runs would not fit the
-   time budget, c1's and the north star's t_end are cut first, then c4's
-   (to the longest whole multiple of dt_max that fits, at least t = 8),
-   each cut printed. Each path must launch its kernel, the plain twins must
+   and t_end = 0.25 (block timesteps, K4); then the extended tier: c5x as
+   committed at full N = 131,072 (KDK, K6 once per step, f64 diagnostics
+   rows) to t = 2, and c1, c3 and c4 with ``integrator.precision=extended``
+   (c1x: K8; c3x at N = 16,384: K7 per step, K6 with the potential per row;
+   c4x at N = 32,768: K9 once per micro-step, K7 at init; c3x and c4x at
+   N = 4,096: K9), each to t of about 1. If the runs would not fit the time
+   budget, c4's t_end is cut first (to the longest whole multiple of
+   dt_max that fits, at least t = 8), then c1's and the north star's, and
+   c5x's last, each cut printed. Each path must launch its kernel, the plain twins must
    not run, no diagnostic may be NaN, and the drift must stay inside its
    bound; c2 must strip 5-40% of its bound mass, and c4, when it runs its
    full length, 5-30%; under block steps the active-row kernel launches
    once per micro-step;
-5. the steps of c2 (KDK), c3 (Hermite) and c4 (block) alone: ms/step, for
+5. the steps of c2 (KDK), c3 (Hermite), c4 (block) and c5x (KDK at the
+   extended tier, N = 131,072) alone: ms/step, for
    Hermite and block also without the per-step read (the shared dt; t_next
    and the active count), i.e. the cost of that device sync, and the
    device's busy time per step under torch.profiler over the unprofiled
@@ -52,6 +67,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 C3 = "configs/c3_hermite_16k_kroupa.toml"
 C4 = "configs/c4_block_32k_eccentric.toml"
+EXT = "integrator.precision=extended"
 # path name -> (config, overrides, the kernel it must launch)
 PATHS = {
     "c1": ("configs/c1_plummer_1k.toml", [], "rows"),
@@ -61,20 +77,40 @@ PATHS = {
     "c3_n4096": (C3, ["ic.n=4096", "output.t_end=1.0"], "rows_jerk"),
     "c4": (C4, [], "rows_jerk_t"),
     "c4_n4096": (C4, ["ic.n=4096", "output.t_end=0.25"], "rows_jerk"),
+    # the extended (hi/lo) tier: c5x as committed but for its length
+    "c5x": ("configs/c5x_131k_extended.toml", ["output.t_end=2.0"], "sym_x"),
+    "c1x": ("configs/c1_plummer_1k.toml",
+            [EXT, "output.t_end=2.8284271247"], "rows_x"),
+    "c3x": (C3, [EXT, "output.t_end=1.0"], "sym_jerk_x"),
+    "c4x": (C4, [EXT, "output.t_end=1.0"], "rows_jerk_x"),
+    "c3x_n4096": (C3, [EXT, "ic.n=4096", "output.t_end=1.0"], "rows_jerk_x"),
+    "c4x_n4096": (C4, [EXT, "ic.n=4096", "output.t_end=0.25"],
+                  "rows_jerk_x"),
 }
-# these paths' t_end is cut first if the runs would not fit the budget
-CUTTABLE = ("c1", "north_star")
-# then c4's, to a whole multiple of dt_max, but not below this
+# if the runs would not fit the budget, c4's t_end is cut first, to a whole
+# multiple of dt_max, but not below this
 C4_MIN_T = 8.0
-# the script must finish in 1200 s with the build included
-BUDGET_S = 1000.0
+# then these paths' t_end
+CUTTABLE = ("c1", "north_star")
+# and c5x's last, to whole diagnostics intervals
+# the script must finish in 1200 s with the build included; the paths are
+# cut to this so that the whole run ends in about half of that
+BUDGET_S = 620.0
 DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                "north_star": ("dE_over_E_int", 1e-5),
                "c2": ("dE_over_E_int", 1e-5),
                "c3": ("dE_over_E", 1e-6),
                "c3_n4096": ("dE_over_E", 1e-6),
                "c4": ("dE_over_E_int", 2e-5),
-               "c4_n4096": ("dE_over_E_int", 2e-5)}
+               "c4_n4096": ("dE_over_E_int", 2e-5),
+               # the JAX package's c5x: <= 1.0e-7 over t = 0 -> 1
+               # (RESULTS.md:590-593)
+               "c5x": ("dE_over_E_int", 1e-6),
+               "c1x": ("dE_over_E", 1e-6),
+               "c3x": ("dE_over_E", 1e-6),
+               "c3x_n4096": ("dE_over_E", 1e-6),
+               "c4x": ("dE_over_E_int", 2e-5),
+               "c4x_n4096": ("dE_over_E_int", 2e-5)}
 # c2's bound mass stripped over the run: the JAX package's recorded run
 # stripped 18.3% (RESULTS.md:713); outside this range the tide is broken
 STRIP_RANGE = (0.05, 0.40)
@@ -94,12 +130,25 @@ PEAK_BYTES = 3.35e12
 # phi (pair.cuh:row_pair), accel+jerk 41 (pair.cuh:row_jerk_pair);
 # pair-symmetric, per unique pair, accel 26 and 28 with phi
 # (sym_accel.cu:sym_pair), accel+jerk 53 (sym_jerk.cu:sym_jerk_pair)
+# the extended tier: the shared separation and Newton-refined inverse 27
+# (pair.cuh:hilo_sep_inv), so one-sided accel 36 and 37 with phi
+# (row_pair_x), accel+jerk 65 (row_jerk_pair_x); pair-symmetric accel 44
+# and 46 with phi (sym_accel_x.cu:sym_pair_x), accel+jerk 77
+# (sym_jerk_x.cu:sym_jerk_pair_x)
 FLOPS_PER_PAIR = {"rows": 18, "rows_phi": 19, "rows_jerk": 41,
                   "rows_jerk_t": 41, "sym": 26, "sym_phi": 28,
-                  "sym_jerk": 53}
+                  "sym_jerk": 53, "rows_x": 36, "rows_x_phi": 37,
+                  "rows_jerk_x": 65, "sym_x": 44, "sym_x_phi": 46,
+                  "sym_jerk_x": 77}
 # K5's shapes: c4's 32,768 sources against these active-row counts
 K5_ROWS = (1, 64, 1024, 8192, 32768)
 K5_NS = 32768
+# the shapes of the extended kernels: c5x's N (K6), c3's (K7), c1's (K8),
+# and K9 as a self-interaction below SYM_MIN
+K6_N = 131072
+K7_N = 16384
+K8_N = 1024
+K9_SELF_N = 4096
 
 
 def _fail(msg):
@@ -419,6 +468,267 @@ def check_row_independence(cg, src, svel, mass):
           f"bitwise equal to the same rows among all {ns} (eps 0 and 1/256)")
 
 
+def _planes(n, seed, device):
+    """(hi, lo, gm, vhi, vlo) of a Hénon-unit Plummer sphere: the operands
+    of the extended tier."""
+    import torch
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    from oc_nbody_tpu_torch.ops.gravity import prepare_x
+    state = plummer(n, torch.Generator().manual_seed(seed), device=device)
+    return prepare_x(state.pos, state.mass, 1.0, vel=state.vel)
+
+
+def _same_bits(a, b):
+    import torch
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_kernels_x(cg, device, main):
+    """Phase 3, the extended tier: K6-K9 against the f64 evaluation of the
+    same (hi, lo) planes at the paths' shapes; adds their entries to
+    ``main``. Tolerances as for K1-K5: 5e-6·max|a| and 1e-5·max|j| up to
+    16,384 sources, 2e-5 beyond; phi rtol 3e-5."""
+    import torch
+    f64 = torch.float64
+    print("kernel        shape            phi  eps        max|da|    "
+          "rel      phi_rel    ms        plain_ms  f32-tier ms")
+    # K8 at c1's N, beside K1
+    hi, lo, gm, _, _ = _planes(K8_N, 21, device)
+    pos_c, mass_c = _cluster(K8_N, 21, device)
+    for with_phi in (False, True):
+        for eps in (0.0, 1.0 / 512):
+            kw = dict(with_phi=with_phi, guarded=eps == 0.0)
+            out = cg.rows_x_kernel(hi, lo, hi, lo, gm, eps, **kw)
+            ref = cg.rows_x_plain(hi, lo, hi, lo, gm, eps, dtype=f64, **kw)
+            err, rel, prel = _compare(out, ref, with_phi, 5e-6)
+            ms = _median_ms(lambda: cg.rows_x_kernel(hi, lo, hi, lo, gm, eps,
+                                                     **kw))
+            pms = _median_ms(lambda: cg.rows_x_plain(hi, lo, hi, lo, gm, eps,
+                                                     **kw))
+            k1 = _median_ms(lambda: cg.rows_kernel(pos_c, pos_c, mass_c, eps,
+                                                   **kw))
+            print(f"rows_accel_x  ({K8_N},{K8_N})    {int(with_phi):<5}"
+                  f"{eps:<11.6g}{err:<11.3e}{rel:<9.2e}{prel:<11.2e}"
+                  f"{ms:<10.4f}{pms:<10.4f}{k1:.4f} (K1)")
+            if eps > 0:
+                key = "rows_x_phi" if with_phi else "rows_x"
+                main[key] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=pms, f32_ms=k1,
+                    shape=[K8_N, K8_N],
+                    bound=_bound(K8_N * K8_N, FLOPS_PER_PAIR[key],
+                                 (64 + (4 if with_phi else 0)) * K8_N))
+    # K6 at c5x's N, beside K2; the f64 evaluation once per eps (with the
+    # potential: its accelerations are those of the form without)
+    hi, lo, gm, _, _ = _planes(K6_N, 22, device)
+    pos_c, mass_c = _cluster(K6_N, 22, device)
+    for eps in (1.0 / 512, 0.0):
+        guarded = eps == 0.0
+        ref = cg.sym_x_plain(hi, lo, gm, eps, with_phi=True, dtype=f64,
+                             guarded=guarded)
+        for with_phi in (False, True) if eps > 0 else (False,):
+            kw = dict(with_phi=with_phi, guarded=guarded)
+            out = cg.sym_x_kernel(hi, lo, gm, eps, **kw)
+            if not _same_bits(out, cg.sym_x_kernel(hi, lo, gm, eps, **kw)):
+                raise AssertionError(f"sym_accel_x N={K6_N} phi={with_phi} "
+                                     f"eps={eps}: two launches differ "
+                                     "bitwise")
+            err, rel, prel = _compare(out, ref if with_phi else ref[0],
+                                      with_phi, 2e-5)
+            ms = _median_ms(lambda: cg.sym_x_kernel(hi, lo, gm, eps, **kw))
+            k2 = _median_ms(lambda: cg.sym_kernel(pos_c, mass_c, eps, **kw))
+            pms = (_median_ms(lambda: cg.sym_x_plain(hi, lo, gm, eps, **kw),
+                              reps=1) if eps > 0 else float("nan"))
+            print(f"sym_accel_x   ({K6_N})         {int(with_phi):<5}"
+                  f"{eps:<11.6g}{err:<11.3e}{rel:<9.2e}{prel:<11.2e}"
+                  f"{ms:<10.4f}{pms:<10.4f}{k2:.4f} (K2)   "
+                  "bitwise-repeatable", flush=True)
+            if eps > 0:
+                key = "sym_x_phi" if with_phi else "sym_x"
+                main[key] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=pms, f32_ms=k2,
+                    shape=[K6_N],
+                    bound=_bound(K6_N * (K6_N - 1) // 2, FLOPS_PER_PAIR[key],
+                                 (40 + (4 if with_phi else 0)) * K6_N))
+        del ref
+        torch.cuda.empty_cache()
+    # the f64 evaluation of K6's planes, timed once: the first data point
+    # for this tier against a native-f64 pair sum on this card
+    f64_ms = _median_ms(lambda: cg.sym_x_plain(hi, lo, gm, 1.0 / 512,
+                                               dtype=f64), reps=1)
+    print(f"the f64 plain evaluation of the same planes at N={K6_N}: "
+          f"{f64_ms:.1f} ms (eager PyTorch, chunks of 256 rows)")
+    main["sym_x"]["f64_plain_ms"] = f64_ms
+    del hi, lo, gm, pos_c, mass_c
+    torch.cuda.empty_cache()
+
+    print("kernel        shape            eps        max|da|    rel_a    "
+          "rel_j    ms        plain_ms  f32-tier ms")
+    # K7 at c3's N, beside K3
+    hi, lo, gm, vhi, vlo = _planes(K7_N, 23, device)
+    pos_c, mass_c, vel_c = _moving_cluster(K7_N, 23, device)
+    for eps in (0.0, 1.0 / 256):
+        guarded = eps == 0.0
+        out = cg.sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=guarded)
+        if not _same_bits(out, cg.sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps,
+                                                    guarded=guarded)):
+            raise AssertionError(f"sym_jerk_x N={K7_N} eps={eps}: two "
+                                 "launches differ bitwise")
+        ref = cg.sym_jerk_x_plain(hi, lo, vhi, vlo, gm, eps, dtype=f64,
+                                  guarded=guarded)
+        err, rel_a, rel_j = _compare_jerk(out, ref, 5e-6, 1e-5)
+        del ref
+        ms = _median_ms(lambda: cg.sym_jerk_x_kernel(hi, lo, vhi, vlo, gm,
+                                                     eps, guarded=guarded))
+        pms = _median_ms(lambda: cg.sym_jerk_x_plain(hi, lo, vhi, vlo, gm,
+                                                     eps, guarded=guarded))
+        k3 = _median_ms(lambda: cg.sym_jerk_kernel(pos_c, vel_c, mass_c, eps,
+                                                   guarded=guarded))
+        print(f"sym_jerk_x    ({K7_N})          {eps:<11.6g}{err:<11.3e}"
+              f"{rel_a:<9.2e}{rel_j:<9.2e}{ms:<10.4f}{pms:<10.4f}{k3:.4f} "
+              "(K3)   bitwise-repeatable", flush=True)
+        if eps > 0:
+            main["sym_jerk_x"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, f32_ms=k3,
+                shape=[K7_N],
+                bound=_bound(K7_N * (K7_N - 1) // 2,
+                             FLOPS_PER_PAIR["sym_jerk_x"], 76 * K7_N))
+    torch.cuda.empty_cache()
+    # K9: a self-interaction below SYM_MIN, then K5's row counts against
+    # c4's source count, beside K5
+    src = _planes(K9_SELF_N, 24, device)
+    for eps in (0.0, 1.0 / 256):
+        k9_case(cg, src, K9_SELF_N, eps, shift=False)
+    src = _planes(K5_NS, 25, device)
+    for nr in K5_ROWS:
+        for eps in (0.0, 1.0 / 256):
+            k9_case(cg, src, nr, eps)
+    check_row_independence_x(cg, src)
+    check_close_pairs(cg, device)
+
+
+def k9_case(cg, src, nr, eps, shift=True):
+    """K9 on nr rows (the first nr sources, shifted unless ``shift`` is
+    False: then a self-interaction) against the f64 evaluation of the same
+    planes and launched twice (bitwise), timed beside K5 on the planes'
+    hi parts (both as CUDA-graph replays) and the f32 twin; prints one line
+    and returns dict(max_abs_err, ms, plain_ms, f32_ms, shape, bound)."""
+    import torch
+    hi, lo, gm, vhi, vlo = src
+    ns = hi.shape[0]
+    if shift:
+        rows = ((hi[:nr] + 1e-3).contiguous(), lo[:nr].contiguous(),
+                (vhi[:nr] - 1e-3).contiguous(), vlo[:nr].contiguous())
+    else:
+        rows = tuple(p[:nr].contiguous() for p in (hi, lo, vhi, vlo))
+    planes = (*rows, hi, lo, vhi, vlo, gm)
+    guarded = eps == 0.0
+    tol = 2e-5 if ns > 16384 else 5e-6
+    tol_j = 2e-5 if ns > 16384 else 1e-5
+    out = cg.rows_jerk_x_kernel(*planes, eps, guarded=guarded)
+    if not _same_bits(out, cg.rows_jerk_x_kernel(*planes, eps,
+                                                 guarded=guarded)):
+        raise AssertionError(f"rows_jerk_x ({nr},{ns}) eps={eps}: two "
+                             "launches differ bitwise")
+    ref = cg.rows_jerk_x_plain(*planes, eps, dtype=torch.float64,
+                               guarded=guarded)
+    err, rel_a, rel_j = _compare_jerk(out, ref, tol, tol_j)
+    del ref
+    ms = _graph_ms(lambda: cg.rows_jerk_x_kernel(*planes, eps,
+                                                 guarded=guarded))
+    # the f32 tier on the same sizes: K5 from RT_MIN_JERK sources, K4 below
+    f32_kernel = (cg.rows_jerk_t_kernel if ns >= cg.RT_MIN_JERK
+                  else cg.rows_jerk_kernel)
+    f32_ms = _graph_ms(lambda: f32_kernel(rows[0], rows[2], hi, vhi, gm, eps,
+                                          guarded=guarded))
+    pms = _median_ms(lambda: cg.rows_jerk_x_plain(*planes, eps,
+                                                  guarded=guarded))
+    bound = _bound(nr * ns, FLOPS_PER_PAIR["rows_jerk_x"], 52 * ns + 72 * nr)
+    name = "K5" if ns >= cg.RT_MIN_JERK else "K4"
+    print(f"rows_jerk_x   ({nr},{ns}){'':<{13 - len(str(nr)) - len(str(ns))}}"
+          f"{eps:<11.6g}{err:<11.3e}{rel_a:<9.2e}{rel_j:<9.2e}"
+          f"{ms:<10.4f}{pms:<10.4f}{f32_ms:.4f} ({name})  bound "
+          f"{bound[0]:.5f}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, f32_ms=f32_ms,
+                shape=[nr, ns], bound=bound)
+
+
+def check_row_independence_x(cg, src):
+    """K9 gives a row the same bits alone, in a random subset and among all
+    rows (what makes compacted and masked block steps agree)."""
+    import torch
+    hi, lo, gm, vhi, vlo = src
+    planes = (hi, lo, vhi, vlo)
+    ns = hi.shape[0]
+    gen = torch.Generator().manual_seed(17)
+    for guarded, eps in ((True, 0.0), (False, 1.0 / 256)):
+        full = cg.rows_jerk_x_kernel(*planes, *planes, gm, eps,
+                                     guarded=guarded)
+        for k in (1, 64, 1024, 8191):
+            rows = torch.randperm(ns, generator=gen)[:k].to(hi.device)
+            sub = cg.rows_jerk_x_kernel(*(p[rows] for p in planes), *planes,
+                                        gm, eps, guarded=guarded)
+            if not all(torch.equal(a, b[rows]) for a, b in zip(sub, full)):
+                raise AssertionError(f"rows_jerk_x: {k} rows launched apart "
+                                     "differ bitwise from the same rows "
+                                     "among all")
+    print(f"rows_jerk_x: rows of 1, 64, 1024 and 8191 launched apart are "
+          f"bitwise equal to the same rows among all {ns} (eps 0 and 1/256)")
+
+
+def check_close_pairs(cg, device):
+    """The case that tells the tiers apart (the JAX package's, from a numpy
+    seed): 600 particles, 50 of them 1e-5 of the coordinate scale from a
+    partner, eps = 1e-4, against the f64 oracle of the unsplit state. The
+    extended kernels must stay inside 2e-5·max|a| and 5e-5·max|j|; the f32
+    kernels must err past 1e-3·max|a| (a kernel that ignored lo would)."""
+    import numpy as np
+    import torch
+    from oc_nbody_tpu_torch.ops import gravity
+    rng = np.random.default_rng(7)
+    n, eps = 600, 1e-4
+    pos = rng.normal(size=(n, 3))
+    pos[50:100] = pos[:50] + 1e-5 * rng.normal(size=(50, 3))
+    pos = torch.from_numpy(pos).to(device)
+    vel = torch.from_numpy(0.3 * rng.normal(size=(n, 3))).to(device)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n).to(device)
+    a_ref, j_ref = gravity.accel_jerk_direct(pos, vel, mass, eps)
+
+    def rel(got, want):
+        return float(torch.linalg.norm(got.double() - want, dim=1).max()
+                     / torch.linalg.norm(want, dim=1).max())
+
+    hi, lo, gm, vhi, vlo = gravity.prepare_x(pos, mass, 1.0, vel=vel)
+    src = (hi, lo, vhi, vlo)
+    pos_c, mass_c, vel_c = gravity.prepare_f32(pos, mass, vel=vel)
+    f32 = {"K1": rel(cg.rows_kernel(pos_c, pos_c, mass_c, eps), a_ref),
+           "K2": rel(cg.sym_kernel(pos_c, mass_c, eps), a_ref),
+           "K4": rel(cg.rows_jerk_kernel(pos_c, vel_c, pos_c, vel_c, mass_c,
+                                         eps)[0], a_ref)}
+    a9, j9 = cg.rows_jerk_x_kernel(*src, *src, gm, eps)
+    a7, j7 = cg.sym_jerk_x_kernel(*src, gm, eps)
+    ext_a = {"K6": rel(cg.sym_x_kernel(hi, lo, gm, eps), a_ref),
+             "K7": rel(a7, a_ref),
+             "K8": rel(cg.rows_x_kernel(hi, lo, hi, lo, gm, eps), a_ref),
+             "K9": rel(a9, a_ref)}
+    ext_j = {"K7": rel(j7, j_ref), "K9": rel(j9, j_ref)}
+    print("close pairs (N=600, 50 pairs at 1e-5, eps=1e-4), max row error "
+          "over max row size against the f64 oracle: f32 kernels accel "
+          + ", ".join(f"{k} {v:.3e}" for k, v in f32.items())
+          + "; extended kernels accel "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ext_a.items())
+          + "; jerk " + ", ".join(f"{k} {v:.3e}" for k, v in ext_j.items()))
+    if not all(v > 1e-3 for v in f32.values()):
+        raise AssertionError(f"close pairs: an f32 kernel is inside 1e-3: "
+                             f"{f32}; the case does not tell the tiers apart")
+    if not all(v < 2e-5 for v in ext_a.values()):
+        raise AssertionError(f"close pairs: extended accel past 2e-5: {ext_a}")
+    if not all(v < 5e-5 for v in ext_j.values()):
+        raise AssertionError(f"close pairs: extended jerk past 5e-5: {ext_j}")
+
+
 def _load(name):
     from oc_nbody_tpu_torch.config import apply_overrides, load_config
     path, over, _ = PATHS[name]
@@ -441,15 +751,19 @@ def _estimate_s(cfg, device):
     torch.cuda.synchronize()
     per_step = (time.perf_counter() - t) / 50
     t = time.perf_counter()
-    diagnostics.compute_all(carry.state, scene.force, cfg.output.fractions)
+    diagnostics.compute_all(carry.state, scene.force, cfg.output.fractions,
+                            f64_pairwise=cfg.output.diag_f64)
     torch.cuda.synchronize()
     per_row = time.perf_counter() - t
+    dt_min = getattr(stepper, "dt_min", None)
+    del scene, stepper, carry
+    torch.cuda.empty_cache()
     out = cfg.output
     n_rows = math.ceil(out.t_end / out.diag_every) + 1
     if kind == "hermite":
         steps = out.t_end * HERMITE_STEPS_PER_TIME
     elif kind == "block":   # the upper bound: every dt_min slot active
-        steps = out.t_end / stepper.dt_min
+        steps = out.t_end / dt_min
     else:
         steps = out.t_end / cfg.integrator.dt
     return steps * per_step + n_rows * per_row
@@ -468,23 +782,23 @@ def run_main_path(cg, device, budget_s):
     print("estimated full-length run time: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in est.items())
           + f" (budget {budget_s:.0f} s)")
-    fixed = sum(v for k, v in est.items() if k not in CUTTABLE + ("c4",))
     overrides = {k: list(over) for k, (_, over, _) in PATHS.items()}
-    # c1 and the north star cut to one diagnostics interval each, first
-    least = sum(est[k] * _load(k).output.diag_every / _load(k).output.t_end
-                for k in CUTTABLE)
+    # the cut order: c4's length first (the later ones counted in full
+    # while it is sized), then c1's and the north star's, c5x's last
+    fixed = sum(v for k, v in est.items()
+                if k not in CUTTABLE + ("c4", "c5x"))
     c4_out = _load("c4").output
-    room = budget_s - fixed - least
+    room = budget_s - fixed - sum(est[k] for k in CUTTABLE) - est["c5x"]
     if est["c4"] > room:
         g = _load("c4").integrator.dt_max
-        cut = max(C4_MIN_T, g * math.floor(c4_out.t_end * room / est["c4"]
-                                           / g))
+        cut = max(C4_MIN_T, g * math.floor(max(0.0, room) * c4_out.t_end
+                                           / est["c4"] / g))
         overrides["c4"].append(f"output.t_end={cut!r}")
         print(f"CUT: c4 output.t_end {c4_out.t_end} -> {cut} to fit the "
               "time budget (N unchanged)")
         est["c4"] *= cut / c4_out.t_end
     fixed += est["c4"]
-    scale = min(1.0, max(0.0, budget_s - fixed)
+    scale = min(1.0, max(0.0, budget_s - fixed - est["c5x"])
                 / sum(est[k] for k in CUTTABLE))
     if scale < 1.0:
         for k in CUTTABLE:
@@ -494,6 +808,16 @@ def run_main_path(cg, device, budget_s):
             overrides[k].append(f"output.t_end={cut!r}")
             print(f"CUT: {k} output.t_end {out.t_end} -> {cut} to fit the "
                   "time budget (N unchanged)")
+            est[k] *= cut / out.t_end
+    fixed += sum(est[k] for k in CUTTABLE)
+    if est["c5x"] > budget_s - fixed:
+        out = _load("c5x").output
+        cut = out.diag_every * max(1, math.floor(
+            out.t_end * max(0.0, budget_s - fixed) / est["c5x"]
+            / out.diag_every))
+        overrides["c5x"].append(f"output.t_end={cut!r}")
+        print(f"CUT: c5x output.t_end {out.t_end} -> {cut} to fit the time "
+              "budget (N unchanged)")
 
     # record the RunResult that the CLI's run() returns
     results = []
@@ -532,6 +856,8 @@ def run_main_path(cg, device, budget_s):
                                      f"{cg.PLAIN_CALLS}")
             if k.startswith("c4"):
                 _check_block_launches(cg, k, results[-1], launches[k])
+            if want.endswith("_x"):
+                _check_extended_launches(cg, k, results[-1], launches[k])
     finally:
         run_mod.run = real_run
     for k, res in runs.items():
@@ -556,6 +882,11 @@ def run_main_path(cg, device, budget_s):
             raise AssertionError(f"{k}: max|{col}| = {drift:.3e} > {bound:g}")
         if k.startswith("c4"):
             _report_block(k, res, advance_s)
+        if _load(k).output.diag_f64:
+            rows = len(res.diagnostics["time"])
+            print(f"{k}: f64 diagnostics potential (plain PyTorch, row chunks "
+                  f"of 512): {res.phase_s['diagnostics'] / rows:.3f} s per "
+                  f"row over {rows} rows (the whole row, N={n})", flush=True)
     mb = runs["c2"].diagnostics["M_bound"]
     stripped = 1.0 - mb[-1] / mb[0]
     print(f"c2: bound mass {mb[0]:.6g} -> {mb[-1]:.6g}: {stripped:.2%} "
@@ -579,13 +910,41 @@ def run_main_path(cg, device, budget_s):
     return runs, launches
 
 
+def _check_extended_launches(cg, k, res, launches):
+    """On a path of the extended tier no f32-tier kernel launches; under
+    KDK the self-interaction kernel launches once per step and once at
+    init, plus once per diagnostics row unless the rows are f64 sums
+    (``output.diag_f64``); under Hermite at least once per step."""
+    stray = {key: n for key, n in launches.items()
+             if n and not key.endswith("_x")}
+    if stray:
+        raise AssertionError(f"{k}: f32-tier kernels launched on an "
+                             f"extended path: {stray}")
+    cfg = _load(k)
+    want = PATHS[k][2]
+    if cfg.integrator.kind == "kdk":
+        rows = 0 if cfg.output.diag_f64 else len(res.diagnostics["time"])
+        if launches[want] != res.n_steps + 1 + rows:
+            raise AssertionError(
+                f"{k}: {want} launched {launches[want]} times, expected "
+                f"{res.n_steps} steps + 1 (init) + {rows} rows")
+    elif cfg.integrator.kind == "hermite":
+        if launches[want] < res.n_steps + 1:
+            raise AssertionError(f"{k}: {want} launched {launches[want]} "
+                                 f"times in {res.n_steps} steps")
+
+
 def _check_block_launches(cg, k, res, launches):
     """Under block steps the active-row kernel launches once per micro-step
     (twice with pec2) and the self-interaction kernel once, at init."""
     ic = _load(k).integrator
     want = PATHS[k][2]
     per = 2 if ic.pec2 else 1
-    init_key = "sym_jerk" if res.state.n >= cg.RT_MIN_JERK else "rows_jerk"
+    if ic.precision == "extended":
+        init_key = "sym_jerk_x" if res.state.n >= cg.SYM_MIN else "rows_jerk_x"
+    else:
+        init_key = ("sym_jerk" if res.state.n >= cg.RT_MIN_JERK
+                    else "rows_jerk")
     expect = {want: per * res.n_steps}
     expect[init_key] = expect.get(init_key, 0) + 1
     for key, n in expect.items():
@@ -626,7 +985,11 @@ def measure_steps(device, n_steps=200):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {}
-    for name in ("c2", "c3", "c4"):
+    full_steps = n_steps
+    for name in ("c2", "c3", "c4", "c5x"):
+        # c5x's step is some twenty times the others': fewer of them
+        n_steps, n_prof = (full_steps // 5, 20) if name == "c5x" \
+            else (full_steps, 100)
         cfg = _load(name)
         scene = build_scene(cfg, device)
         stepper, kind = make_stepper(cfg, scene.force)
@@ -672,12 +1035,13 @@ def measure_steps(device, n_steps=200):
         c = carry
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(100):
+            for _ in range(n_prof):
                 c = stepper.step(c)
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 100 / 1e3
+        busy_ms = sum(e.self_device_time_total
+                      for e in kernels) / n_prof / 1e3
         top = sorted(kernels, key=lambda e: e.self_device_time_total,
                      reverse=True)[:4]
         line = (f"{name} {kind} step (N={scene.state.n}, {n_steps} steps per "
@@ -691,11 +1055,12 @@ def measure_steps(device, n_steps=200):
                      f"the read costs {ms - ms_free:.4f} ms/step")
             out[name + "_read_ms"] = ms - ms_free
         print(line)
-        print(f"{name} device busy {busy_ms:.4f} ms/step (profiler, 100 "
+        print(f"{name} device busy {busy_ms:.4f} ms/step (profiler, {n_prof} "
               f"steps) = {busy_ms / ms:.1%} of the step, idle "
               f"{1 - busy_ms / ms:.1%}; kernels per step "
-              f"{sum(e.count for e in kernels) / 100:.1f}; top: "
-              + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 100:.1f}"
+              f"{sum(e.count for e in kernels) / n_prof:.1f}; top: "
+              + "; ".join(f"{e.key[:40]} "
+                          f"{e.self_device_time_total / n_prof:.1f}"
                           f" us/step" for e in top), flush=True)
         out[name + "_busy"] = busy_ms / ms
         if kind == "block":
@@ -736,6 +1101,7 @@ def main():
             print("  ptxas: " + line.strip())
 
     main_shapes = check_kernels(cg, device)
+    check_kernels_x(cg, device, main_shapes)
     budget = BUDGET_S - (time.perf_counter() - t_start)
     runs, launches = run_main_path(cg, device, budget)
     # K5 at the shape c4's main path gave it on average: its mean active
@@ -747,6 +1113,19 @@ def main():
     main_shapes["rows_jerk_t"] = k5_case(cg, src, svel, mass, nr,
                                          _load("c4").integrator.eps)
     del src, mass, svel
+    # K9 likewise at c4x's mean active rows per micro-step
+    c4x = runs["c4x"]
+    nr = max(1, round(c4x.n_active_sum / c4x.n_steps))
+    print(f"K9 at c4x's mean active rows per micro-step ({nr}):")
+    src = _planes(c4x.state.n, 25, device)
+    main_shapes["rows_jerk_x"] = k9_case(cg, src, nr,
+                                         _load("c4x").integrator.eps)
+    del src
+    print("the tier's cost on this card (extended kernel ms / f32-tier "
+          "kernel ms at the same shape): "
+          + ", ".join(f"{key} {main_shapes[key]['ms'] / main_shapes[key]['f32_ms']:.2f}x"
+                      for key in ("sym_x", "sym_x_phi", "sym_jerk_x",
+                                  "rows_x", "rows_x_phi", "rows_jerk_x")))
     measure_steps(device)
 
     kernels = []
@@ -765,7 +1144,22 @@ def main():
             ("rows_jerk_t", "rows_jerk_t",
              "oc_nbody_tpu_torch/csrc/rows_jerk_t.cu",
              "oc_nbody_tpu/ops/pallas_gravity.py:926 (_sweep_t_jerk :801)",
-             None)):
+             None),
+            ("sym_x", "sym_accel_x", "oc_nbody_tpu_torch/csrc/sym_accel_x.cu",
+             "oc_nbody_tpu/ops/pallas_pair.py:256 (_OP_AX, _pair_accel_x "
+             ":174)",
+             "oc_nbody_tpu/ops/pallas_pair.py:256 (_OP_PX, _pair_phi_x :182)"),
+            ("sym_jerk_x", "sym_jerk_x",
+             "oc_nbody_tpu_torch/csrc/sym_jerk_x.cu",
+             "oc_nbody_tpu/ops/pallas_pair.py:256 (_OP_JX, _pair_jerk_x "
+             ":202)", None),
+            ("rows_x", "rows_accel_x",
+             "oc_nbody_tpu_torch/csrc/rows_accel_x.cu",
+             "oc_nbody_tpu/ops/pallas_gravity.py:1062",
+             "oc_nbody_tpu/ops/pallas_gravity.py:1132"),
+            ("rows_jerk_x", "rows_jerk_x",
+             "oc_nbody_tpu_torch/csrc/rows_jerk_x.cu",
+             "oc_nbody_tpu/ops/pallas_gravity.py:1208", None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

@@ -3,7 +3,7 @@
 The JAX package's ``run`` and ``info`` commands with ``--set a.b=v``
 overrides, plus ``--device cuda|cpu`` (default cuda; with no card it
 raises rather than fall back). ``info`` also prints the stepper the config
-builds. ``--resume`` and ``ensemble`` are not ported yet and raise.
+builds and its pairwise precision tier. ``--resume`` and ``ensemble`` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -53,11 +53,14 @@ def main(argv=None):
         except NotImplementedError as err:
             print(f"stepper: none, the config does not run here: {err}")
             return 0
-        stepper, kind = make_stepper(
-            cfg, make_force_model(cfg.integrator.eps, build_units(cfg).G))
+        force = make_force_model(cfg.integrator.eps, build_units(cfg).G,
+                                 precision=cfg.integrator.precision)
+        stepper, kind = make_stepper(cfg, force)
         fields = {k: v for k, v in vars(stepper).items()
                   if k != "force" and not k.startswith("_")}
         print(f"stepper: {kind} {type(stepper).__name__}({fields})")
+        print(f"pairwise precision tier: {force.precision}; diagnostics "
+              f"potential: {'f64' if cfg.output.diag_f64 else 'the tier'}")
         return 0
 
     from oc_nbody_tpu_torch.run import run

@@ -1,6 +1,7 @@
 // Pair physics shared by the gravity kernels: softened f32 accel, potential
-// and jerk of one source on one row, on centred coordinates, and the tile
-// layout of the pair-symmetric kernels.
+// and jerk of one source on one row, on centred coordinates, in the f32 tier
+// and in the extended (hi/lo) tier, and the tile layout of the
+// pair-symmetric kernels.
 //
 // Conventions (oc_nbody_tpu/ops/gravity.py): d = x_j - x_i points at the
 // source, dv = v_j - v_i, u = |d|^2 + eps^2, inv = u^-1/2,
@@ -10,6 +11,25 @@
 // A source is a float4 (x, y, z, G m), its velocity a float4 (vx, vy, vz, 0).
 // No fast-math: rsqrtf keeps its documented 2-ulp bound; FMA contraction is
 // allowed.
+//
+// Extended tier (oc_nbody_tpu/ops/pallas_pair.py:_hilo_sep_inv): a position
+// is the pair (hi, lo) of f32 with hi + lo the centred f64 coordinate to
+// ~2^-48; the split is made outside the kernels, in f64. A source is two
+// float4, (hi.x, hi.y, hi.z, G m) and (lo.x, lo.y, lo.z, 0), and for the
+// jerk two more, the velocity's hi and lo. Per pair
+//   d = hi_j - hi_i, e = lo_j - lo_i, u = d.d + (2 d.e + eps^2),
+//   inv = rsqrt(u) refined by one Newton step, s = d + e,
+// and the sums use s where the f32 tier uses d. The lo terms matter only
+// for close pairs, where d is a difference of two nearly equal hi values
+// (exact, by Sterbenz) and e is of its size.
+// FMA contraction stays on here too: these kernels hold no error-free
+// transform. Every product and sum above is an ordinary rounded f32
+// operation whose result is used as a value, so fusing a multiply into an
+// add only removes one rounding. A two-float (df32) kernel is different:
+// two_prod and two_sum recover the rounding error of an operation from the
+// exact sequence of roundings, and a contraction the compiler chooses (or
+// declines) changes what they recover; such a kernel must spell out its
+// __fmaf_rn and __fadd_rn / __fmul_rn calls itself.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,6 +88,76 @@ __device__ __forceinline__ void row_jerk_pair(float4 s, float4 sv, float3 xi,
   j.x += w * dvx - sc * dx;
   j.y += w * dvy - sc * dy;
   j.z += w * dvz - sc * dz;
+}
+
+// The extended tier's separation and inverse distance: s = d + e and the
+// Newton-refined inv. With GUARDED and u <= 0 (a coincident pair at eps ==
+// 0, or a u that rounds below zero), inv_r gives 0 and the Newton step
+// leaves 0 * (1.5 - 0) = 0, so the pair adds nothing.
+template <bool GUARDED>
+__device__ __forceinline__ float hilo_sep_inv(float4 sh, float4 sl, float3 xi,
+                                              float3 li, float eps2,
+                                              float3& s) {
+  const float dx = sh.x - xi.x, dy = sh.y - xi.y, dz = sh.z - xi.z;
+  const float ex = sl.x - li.x, ey = sl.y - li.y, ez = sl.z - li.z;
+  const float dd = dx * dx + dy * dy + dz * dz;
+  const float de = dx * ex + dy * ey + dz * ez;
+  const float u = dd + (2.f * de + eps2);
+  float inv = inv_r<GUARDED>(u);
+  inv *= 1.5f - (0.5f * u) * (inv * inv);
+  s = make_float3(dx + ex, dy + ey, dz + ez);
+  return inv;
+}
+
+// The relative velocity of the extended tier, (vhi_j - vhi_i) + (vlo_j -
+// vlo_i).
+__device__ __forceinline__ float3 hilo_dv(float4 vh, float4 vl, float3 vi,
+                                          float3 vli) {
+  return make_float3((vh.x - vi.x) + (vl.x - vli.x),
+                     (vh.y - vi.y) + (vl.y - vli.y),
+                     (vh.z - vi.z) + (vl.z - vli.z));
+}
+
+// One-sided extended pair (pallas_gravity.py:_accel_kernel_x and
+// _accel_phi_kernel_x): the action of the source (sh, sl) on the row at
+// (xi, li). ph accumulates +G m_j inv; the caller stores -ph, which keeps
+// the softened self term (the raw potential of this tier).
+template <bool WITH_PHI, bool GUARDED>
+__device__ __forceinline__ void row_pair_x(float4 sh, float4 sl, float3 xi,
+                                           float3 li, float eps2, float& ax,
+                                           float& ay, float& az, float& ph) {
+  float3 s;
+  const float inv = hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
+  const float gminv = sh.w * inv;
+  const float w = gminv * (inv * inv);
+  ax += w * s.x;
+  ay += w * s.y;
+  az += w * s.z;
+  if (WITH_PHI) ph += gminv;
+}
+
+// One-sided extended accel+jerk pair (pallas_gravity.py:
+// _accel_jerk_kernel_x): hi/lo positions and velocities.
+template <bool GUARDED>
+__device__ __forceinline__ void row_jerk_pair_x(float4 sh, float4 sl,
+                                                float4 vh, float4 vl,
+                                                float3 xi, float3 li,
+                                                float3 vi, float3 vli,
+                                                float eps2, float3& a,
+                                                float3& j) {
+  float3 s;
+  const float inv = hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
+  const float3 dv = hilo_dv(vh, vl, vi, vli);
+  const float inv2 = inv * inv;
+  const float w = sh.w * (inv * inv2);
+  const float rv = s.x * dv.x + s.y * dv.y + s.z * dv.z;
+  const float sc = (3.f * rv) * w * inv2;
+  a.x += w * s.x;
+  a.y += w * s.y;
+  a.z += w * s.z;
+  j.x += w * dv.x - sc * s.x;
+  j.y += w * dv.y - sc * s.y;
+  j.z += w * dv.z - sc * s.z;
 }
 
 // First linear block index of row I of the upper triangle of tile pairs,

@@ -14,6 +14,7 @@ import math
 import torch
 
 from oc_nbody_tpu_torch.forces import ForceModel
+from oc_nbody_tpu_torch.ops import gravity
 from oc_nbody_tpu_torch.ops.gravity import rounded
 from oc_nbody_tpu_torch.state import ParticleState
 
@@ -29,8 +30,24 @@ def kinetic_energy(state: ParticleState) -> torch.Tensor:
     return 0.5 * torch.sum(m * torch.sum(_f64(state.vel) ** 2, dim=1))
 
 
+def pair_and_external_phi(state: ParticleState, force: ForceModel,
+                          f64_pairwise: bool = False):
+    """(phi_pair, phi_ext) per particle: one O(N²) pass. With
+    ``f64_pairwise`` (``output.diag_f64``) the pairwise potential is the
+    plain f64 sum on the state's device, outside any kernel, in row chunks
+    of 512; otherwise the force model's tier computes it."""
+    if not f64_pairwise:
+        _, phi_pair, phi_ext = force.accel_potential(state.pos, state.mass)
+        return phi_pair, phi_ext
+    phi_pair = gravity.potential(state.pos, state.mass, force.eps, force.G,
+                                 compute_dtype=_F64, chunk=512)
+    phi_ext = (force.external.phi(state.pos) if force.external is not None
+               else torch.zeros_like(phi_pair))
+    return phi_pair, phi_ext
+
+
 def energies(state: ParticleState, force: ForceModel,
-             precomputed_phi=None) -> dict:
+             precomputed_phi=None, f64_pairwise: bool = False) -> dict:
     """KE, pairwise PE, external potential energy, total. All f64 scalars.
 
     ``E_int`` is the cluster-internal energy — KE in the mass-weighted COM
@@ -39,9 +56,8 @@ def energies(state: ParticleState, force: ForceModel,
     force = force.at_time(state.time)
     m = _f64(state.mass)
     if precomputed_phi is None:
-        _, phi_pair, phi_ext = force.accel_potential(state.pos, state.mass)
-    else:
-        phi_pair, phi_ext = precomputed_phi
+        precomputed_phi = pair_and_external_phi(state, force, f64_pairwise)
+    phi_pair, phi_ext = precomputed_phi
     ke = kinetic_energy(state)
     pe_pair = 0.5 * torch.sum(m * _f64(phi_pair))
     e_ext = torch.sum(m * _f64(phi_ext))
@@ -275,13 +291,14 @@ def bound_mass_tidal(state: ParticleState, force: ForceModel,
 
 def compute_all(state: ParticleState, force: ForceModel,
                 fractions=(0.1, 0.25, 0.5, 0.75, 0.9),
-                core: bool = True) -> dict:
+                f64_pairwise: bool = False, core: bool = True) -> dict:
     """The full diagnostics row: 0-d device tensors, plus ``time`` as a
-    host float. One pairwise-potential pass, shared by the energies and the
-    bound-mass energy cut. ``core=True`` adds the CH85 columns (r_core,
-    rho_core): a second bounded O(min(N, 65536)²) distance sweep."""
+    host float. One pairwise-potential pass (in f64 under ``f64_pairwise``),
+    shared by the energies and the bound-mass energy cut. ``core=True`` adds
+    the CH85 columns (r_core, rho_core): a second bounded O(min(N, 65536)²)
+    distance sweep."""
     force = force.at_time(state.time)
-    _, phi_pair, phi_ext = force.accel_potential(state.pos, state.mass)
+    phi_pair, phi_ext = pair_and_external_phi(state, force, f64_pairwise)
     e = energies(state, force, precomputed_phi=(phi_pair, phi_ext))
     center = density_center(state)
     L = angular_momentum(state)

@@ -165,7 +165,9 @@ class BlockHermite:
     def _pre(self, force, t_i, dt_i, pos, vel, acc, jerk, mass):
         """Enqueued without a sync: (sched = [t_next, n_active] int64,
         t_next 0-d, active mask, compaction order or None when masked,
-        predicted xp and vp of every particle, centred f32 sources)."""
+        predicted xp and vp of every particle, the centred sources as the
+        force model's pair kernels take them: f32 casts, or at the extended
+        tier the eight hi/lo planes, split here once per micro-step)."""
         tn = t_i + dt_i
         t_next = torch.min(tn)
         active = tn == t_next
@@ -177,27 +179,29 @@ class BlockHermite:
         d2, d3 = d * d, d * d * d
         xp = pos + d * vel + (d2 / 2) * acc + (d3 / 6) * jerk
         vp = vel + d * acc + (d2 / 2) * jerk
-        sources = force.centred_sources(xp, vp, mass)[:3]
+        sources = force.centred_sources(xp, vp, mass)[:-2]
         return sched, t_next, active, idx, xp, vp, sources
 
     @staticmethod
     def _pair(force, sources, idx, n_active, out=None):
         """Pairwise (a, j) as one f32 (2, N, 3) tensor: of the active rows
         and zero elsewhere (compacted), or of every row (masked, ``idx``
-        None). ``out``, if given, is that tensor, zeroed by the caller. A
-        row centred by its gather from the centred sources is the row
-        centred on its own, bit for bit."""
-        src_c, svel_c, _ = sources
+        None). ``out``, if given, is that tensor, zeroed by the caller.
+        ``sources`` are the particles' planes (position and velocity; hi
+        and lo of each at the extended tier) and, last, their masses. A row
+        centred (and split) by its gather from the sources' planes is the
+        row centred on its own, bit for bit."""
+        planes = sources[:-1]
         if out is None:
-            out = torch.zeros((2,) + tuple(src_c.shape), dtype=src_c.dtype,
-                              device=src_c.device)
+            out = torch.zeros((2,) + tuple(planes[0].shape),
+                              dtype=planes[0].dtype, device=planes[0].device)
         if idx is None:
-            a, j = force.pair_accel_jerk_rows(src_c, svel_c, *sources)
+            a, j = force.pair_accel_jerk_rows(*planes, *sources)
             out[0].copy_(a)
             out[1].copy_(j)
             return out
         rows = idx[:n_active]
-        a_r, j_r = force.pair_accel_jerk_rows(src_c[rows], svel_c[rows],
+        a_r, j_r = force.pair_accel_jerk_rows(*(p[rows] for p in planes),
                                               *sources)
         out[0].index_copy_(0, rows, a_r)
         out[1].index_copy_(0, rows, j_r)
@@ -308,7 +312,7 @@ class BlockHermite:
                                      a1, j1)
             am = active[:, None]
             xe, ve = torch.where(am, x1, xp), torch.where(am, v1, vp)
-            sources = force.centred_sources(xe, ve, s.mass)[:3]
+            sources = force.centred_sources(xe, ve, s.mass)[:-2]
             pair = self._pair(force, sources, idx, n_active)
         out = self._finish(force, t_dev, active, xe, ve, pair, s.pos, s.vel,
                            carry.acc, carry.jerk, carry.a_ext, carry.j_ext,

@@ -1,4 +1,4 @@
-"""The pairwise force on the card: five hand-written CUDA kernels for
+"""The pairwise force on the card: nine hand-written CUDA kernels for
 Hopper (``sm_90a``), each beside its plain PyTorch twin.
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
@@ -17,6 +17,23 @@ Hopper (``sm_90a``), each beside its plain PyTorch twin.
     on the other rows of the launch. Replaces ``_accel_jerk_kernel_t`` with
     ``_sweep_t_jerk`` (oc_nbody_tpu/ops/pallas_gravity.py:926, :801).
 
+and the extended (hi/lo) precision tier, on pre-split f32 planes:
+
+  * K6 ``csrc/sym_accel_x.cu`` — pair-symmetric self-interaction, optional
+    raw potential, bitwise deterministic. Replaces ``_make_sym_kernel`` with
+    ``_pair_accel_x`` / ``_pair_phi_x`` (oc_nbody_tpu/ops/pallas_pair.py:256,
+    :174, :182).
+  * K7 ``csrc/sym_jerk_x.cu`` — pair-symmetric self-interaction accel +
+    jerk, bitwise deterministic. Replaces ``_make_sym_kernel`` with
+    ``_pair_jerk_x`` (oc_nbody_tpu/ops/pallas_pair.py:256, :202).
+  * K8 ``csrc/rows_accel_x.cu`` — one-sided rows vs sources, optional raw
+    potential. Replaces ``_accel_kernel_x`` and ``_accel_phi_kernel_x``
+    (oc_nbody_tpu/ops/pallas_gravity.py:1062, :1132).
+  * K9 ``csrc/rows_jerk_x.cu`` — one-sided accel + jerk of rows from
+    sources, the sources split over blocks as in K5; a row's bits do not
+    depend on the other rows of the launch. Replaces
+    ``_accel_jerk_kernel_x`` (oc_nbody_tpu/ops/pallas_gravity.py:1208).
+
 The public wrappers keep the signatures and return contracts of
 ``oc_nbody_tpu.ops.pallas_gravity``: ``accel_rows`` and
 ``accel_potential_rows`` take centred f32 rows and sources and return f32
@@ -29,9 +46,25 @@ rows and sources with their velocities and returns f32 (K5 for at least
 ``accel_jerk_sym`` and ``accel_jerk`` take the state's positions and
 velocities, centre both and return the positions' dtype.
 
+The extended tier follows the same module of the JAX package:
+``accel_rows_x_hilo``, ``accel_potential_rows_x_hilo`` and
+``accel_jerk_rows_x_hilo`` take (hi, lo) f32 planes split under ONE
+centring and gm = G·m in f32, and return f32; ``accel_sym_x``,
+``accel_potential_sym_x``, ``accel_jerk_sym_x``, ``accel_x``,
+``accel_potential_x``, ``accel_jerk_x`` and ``accel_jerk_rows_x`` take the
+f64 state, centre and split it (``gravity.prepare_x``) and return the
+positions' dtype. The potential of this tier is RAW: it keeps the softened
+self term -G m/eps, and the caller adds ``gravity.self_phi`` (in f64). All
+three self-interaction forms take the pair-symmetric kernel from
+``SYM_MIN``, the jerk too. Past ``STREAM_N`` sources or ``RT_MAX_ROWS``
+rows the JAX package streams or chunks; the port raises
+NotImplementedError there (ROADMAP B7).
+
 A wrapper launches its kernel for CUDA tensors and calls the plain twin
 (``rows_plain``, ``sym_plain``, ``rows_jerk_plain``, ``sym_jerk_plain``,
-``rows_jerk_t_plain``, built on ``ops/gravity.py``) for CPU tensors; there
+``rows_jerk_t_plain``, built on ``ops/gravity.py``; ``rows_x_plain``,
+``sym_x_plain``, ``rows_jerk_x_plain``, ``sym_jerk_x_plain``, built on
+``ops/df32.py``) for CPU tensors; there
 is no fallback from one to the other. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls
 of the plain twins, so a run can show which one it went through.
 
@@ -52,7 +85,7 @@ from pathlib import Path
 
 import torch
 
-from oc_nbody_tpu_torch.ops import gravity
+from oc_nbody_tpu_torch.ops import df32, gravity
 
 # Self-interaction dispatch: the pair-symmetric K2 for SYM_MIN <= N <=
 # STREAM_N, the one-sided K1 below. SYM_MIN is the TPU's crossover
@@ -69,17 +102,18 @@ RT_MAX_ROWS = 65536
 # sym kernels, not ported yet (ROADMAP B5).
 STREAM_N = 262144
 
-LAUNCHES = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0,
-            "rows_jerk_t": 0}
-PLAIN_CALLS = {"rows": 0, "sym": 0, "rows_jerk": 0, "sym_jerk": 0,
-               "rows_jerk_t": 0}
+_KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
+            "sym_jerk_x", "rows_x", "rows_jerk_x")
+LAUNCHES = dict.fromkeys(_KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
 _HEADERS = ("pair.cuh",)
 _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
-            "rows_jerk_t.cu")
+            "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
+            "rows_accel_x.cu", "rows_jerk_x.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -168,6 +202,17 @@ def _library():
         lib.ocn_rows_jerk_t.restype = i
         lib.ocn_rows_jerk_t_scratch.argtypes = [i, i]
         lib.ocn_rows_jerk_t_scratch.restype = ctypes.c_longlong
+        lib.ocn_rows_accel_x.argtypes = [p, p, i, p, p, p, i, f, i, p, p, p]
+        lib.ocn_rows_accel_x.restype = i
+        lib.ocn_sym_accel_x.argtypes = [p, p, p, i, f, i, p, p, p, p]
+        lib.ocn_sym_accel_x.restype = i
+        lib.ocn_sym_jerk_x.argtypes = [p, p, p, p, p, i, f, i, p, p, p, p]
+        lib.ocn_sym_jerk_x.restype = i
+        lib.ocn_rows_jerk_x.argtypes = [p, p, p, p, i, p, p, p, p, p, i, f,
+                                        i, p, p, p, p]
+        lib.ocn_rows_jerk_x.restype = i
+        lib.ocn_rows_jerk_x_scratch.argtypes = [i, i]
+        lib.ocn_rows_jerk_x_scratch.restype = ctypes.c_longlong
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]
@@ -270,6 +315,45 @@ def sym_jerk_plain(pos_c, vel_c, mass_c, eps, G=1.0, dtype=torch.float32,
     centred ``pos_c`` / ``vel_c`` summed one-sidedly in ``dtype``."""
     return _jerk_plain("sym_jerk", pos_c, vel_c, pos_c, vel_c, mass_c, eps,
                        G, dtype, chunk)
+
+
+def rows_x_plain(rhi, rlo, shi, slo, gm, eps, with_phi=False,
+                 dtype=torch.float32, chunk=256, guarded=True):
+    """K8's function in plain PyTorch on the same (hi, lo) planes, computed
+    in ``dtype`` (f32: the tier, in the kernel's order of operations per
+    pair; f64: the oracle the kernel is held to on the card). Returns acc,
+    or (acc, raw phi), in ``dtype``."""
+    PLAIN_CALLS["rows_x"] += 1
+    fn = (df32.accel_potential_rows_x_hilo if with_phi
+          else df32.accel_rows_x_hilo)
+    return fn(rhi, rlo, shi, slo, gm, eps, chunk, guarded, dtype)
+
+
+def sym_x_plain(hi, lo, gm, eps, with_phi=False, dtype=torch.float32,
+                chunk=256, guarded=True):
+    """K6's function in plain PyTorch: the self-interaction of the planes
+    summed one-sidedly in ``dtype``; ``rows_x_plain``'s return contract."""
+    PLAIN_CALLS["sym_x"] += 1
+    fn = (df32.accel_potential_rows_x_hilo if with_phi
+          else df32.accel_rows_x_hilo)
+    return fn(hi, lo, hi, lo, gm, eps, chunk, guarded, dtype)
+
+
+def rows_jerk_x_plain(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
+                      dtype=torch.float32, chunk=256, guarded=True):
+    """K9's function in plain PyTorch, computed in ``dtype``; (acc, jerk)."""
+    PLAIN_CALLS["rows_jerk_x"] += 1
+    return df32.accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi,
+                                       svlo, gm, eps, chunk, guarded, dtype)
+
+
+def sym_jerk_x_plain(hi, lo, vhi, vlo, gm, eps, dtype=torch.float32,
+                     chunk=256, guarded=True):
+    """K7's function in plain PyTorch: the accel + jerk self-interaction of
+    the planes summed one-sidedly in ``dtype``."""
+    PLAIN_CALLS["sym_jerk_x"] += 1
+    return df32.accel_jerk_rows_x_hilo(hi, lo, vhi, vlo, hi, lo, vhi, vlo,
+                                       gm, eps, chunk, guarded, dtype)
 
 
 # --------------------------------------------------------------------------
@@ -387,6 +471,102 @@ def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True):
         acc.data_ptr(), jerk.data_ptr(), _stream(pos_c))
     LAUNCHES["sym_jerk"] += 1
     _check_launch(lib, code, "sym_jerk")
+    return acc, jerk
+
+
+def _check_planes(n, **planes):
+    for name, t in planes.items():
+        _check_f32(name, t, (n, 3))
+
+
+def rows_x_kernel(rhi, rlo, shi, slo, gm, eps, with_phi=False, guarded=True):
+    """Launch K8 on (hi, lo) f32 CUDA planes; the same contract as
+    ``rows_x_plain``."""
+    nr, ns = rhi.shape[0], shi.shape[0]
+    _check_planes(nr, rows_hi=rhi, rows_lo=rlo)
+    _check_planes(ns, src_hi=shi, src_lo=slo)
+    _check_f32("gm", gm, (ns,))
+    lib = _library()
+    acc = torch.empty((nr, 3), dtype=torch.float32, device=rhi.device)
+    phi = (torch.empty((nr,), dtype=torch.float32, device=rhi.device)
+           if with_phi else None)
+    code = lib.ocn_rows_accel_x(
+        rhi.data_ptr(), rlo.data_ptr(), nr, shi.data_ptr(), slo.data_ptr(),
+        gm.data_ptr(), ns, _f32(_f32(eps) ** 2), int(guarded),
+        acc.data_ptr(), phi.data_ptr() if with_phi else None, _stream(rhi))
+    LAUNCHES["rows_x"] += 1
+    _check_launch(lib, code, "rows_accel_x")
+    return (acc, phi) if with_phi else acc
+
+
+def sym_x_kernel(hi, lo, gm, eps, with_phi=False, guarded=True):
+    """Launch K6 (both passes) on (hi, lo) f32 CUDA planes; the same
+    contract as ``sym_x_plain``."""
+    n = hi.shape[0]
+    _check_planes(n, pos_hi=hi, pos_lo=lo)
+    _check_f32("gm", gm, (n,))
+    lib = _library()
+    t = lib.ocn_sym_tile()
+    nt = -(-n // t)
+    scratch = torch.empty((nt * nt * t, 4), dtype=torch.float32,
+                          device=hi.device)
+    acc = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
+    phi = (torch.empty((n,), dtype=torch.float32, device=hi.device)
+           if with_phi else None)
+    code = lib.ocn_sym_accel_x(
+        hi.data_ptr(), lo.data_ptr(), gm.data_ptr(), n,
+        _f32(_f32(eps) ** 2), int(guarded), scratch.data_ptr(),
+        acc.data_ptr(), phi.data_ptr() if with_phi else None, _stream(hi))
+    LAUNCHES["sym_x"] += 1
+    _check_launch(lib, code, "sym_accel_x")
+    return (acc, phi) if with_phi else acc
+
+
+def rows_jerk_x_kernel(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
+                       guarded=True):
+    """Launch K9 (both passes) on (hi, lo) f32 CUDA planes; the same
+    contract as ``rows_jerk_x_plain``."""
+    nr, ns = rhi.shape[0], shi.shape[0]
+    _check_planes(nr, rows_hi=rhi, rows_lo=rlo, vel_rows_hi=vhi,
+                  vel_rows_lo=vlo)
+    _check_planes(ns, src_hi=shi, src_lo=slo, src_vel_hi=svhi,
+                  src_vel_lo=svlo)
+    _check_f32("gm", gm, (ns,))
+    lib = _library()
+    scratch = torch.empty((lib.ocn_rows_jerk_x_scratch(nr, ns),),
+                          dtype=torch.float32, device=rhi.device)
+    acc = torch.empty((nr, 3), dtype=torch.float32, device=rhi.device)
+    jerk = torch.empty((nr, 3), dtype=torch.float32, device=rhi.device)
+    code = lib.ocn_rows_jerk_x(
+        rhi.data_ptr(), rlo.data_ptr(), vhi.data_ptr(), vlo.data_ptr(), nr,
+        shi.data_ptr(), slo.data_ptr(), svhi.data_ptr(), svlo.data_ptr(),
+        gm.data_ptr(), ns, _f32(_f32(eps) ** 2), int(guarded),
+        scratch.data_ptr(), acc.data_ptr(), jerk.data_ptr(), _stream(rhi))
+    LAUNCHES["rows_jerk_x"] += 1
+    _check_launch(lib, code, "rows_jerk_x")
+    return acc, jerk
+
+
+def sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=True):
+    """Launch K7 (both passes) on (hi, lo) f32 CUDA planes; the same
+    contract as ``sym_jerk_x_plain``."""
+    n = hi.shape[0]
+    _check_planes(n, pos_hi=hi, pos_lo=lo, vel_hi=vhi, vel_lo=vlo)
+    _check_f32("gm", gm, (n,))
+    lib = _library()
+    t = lib.ocn_sym_tile()
+    nt = -(-n // t)
+    # six floats per slot: a float4 plane, then a float2 plane
+    scratch = torch.empty((nt * nt * t * 6,), dtype=torch.float32,
+                          device=hi.device)
+    acc = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
+    jerk = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
+    code = lib.ocn_sym_jerk_x(
+        hi.data_ptr(), lo.data_ptr(), vhi.data_ptr(), vlo.data_ptr(),
+        gm.data_ptr(), n, _f32(_f32(eps) ** 2), int(guarded),
+        scratch.data_ptr(), acc.data_ptr(), jerk.data_ptr(), _stream(hi))
+    LAUNCHES["sym_jerk_x"] += 1
+    _check_launch(lib, code, "sym_jerk_x")
     return acc, jerk
 
 
@@ -512,3 +692,141 @@ def accel_jerk(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
     acc, jerk = accel_jerk_rows(pos_c, vel_c, pos_c, vel_c, mass_c, eps, G,
                                 0, guarded)
     return acc.to(pos.dtype), jerk.to(pos.dtype)
+
+
+# --------------------------------------------------------------------------
+# the extended (hi/lo) tier: pallas_gravity's *_x and *_x_hilo functions
+# --------------------------------------------------------------------------
+
+def _check_resident(nr: int, ns: int) -> None:
+    if ns > STREAM_N or nr > RT_MAX_ROWS:
+        raise NotImplementedError(
+            f"{nr} rows against {ns} sources: past STREAM_N = {STREAM_N} "
+            f"sources or RT_MAX_ROWS = {RT_MAX_ROWS} rows the extended tier "
+            "runs streamed or chunked kernels that are not ported yet "
+            "(ROADMAP B7: the streamed extended kernels; B5: the chunked "
+            "pair-symmetric forms)")
+
+
+def accel_rows_x_hilo(rhi, rlo, shi, slo, gm, eps, guarded: bool = True):
+    """Extended-tier accel of rows from sources on pre-split (hi, lo) f32
+    planes (one centring for both sets); f32 out (K8)."""
+    _check_resident(rhi.shape[0], shi.shape[0])
+    if _on_cuda(rhi, rlo, shi, slo, gm):
+        return rows_x_kernel(rhi, rlo, shi, slo, gm, eps, False, guarded)
+    return rows_x_plain(rhi, rlo, shi, slo, gm, eps, guarded=guarded)
+
+
+def accel_potential_rows_x_hilo(rhi, rlo, shi, slo, gm, eps,
+                                guarded: bool = True):
+    """Extended-tier (accel, raw phi) of rows from sources on pre-split
+    planes; f32 out (K8). With eps > 0 phi includes the softened self term
+    of a row that is also a source (the caller adds ``self_phi``)."""
+    _check_resident(rhi.shape[0], shi.shape[0])
+    if _on_cuda(rhi, rlo, shi, slo, gm):
+        return rows_x_kernel(rhi, rlo, shi, slo, gm, eps, True, guarded)
+    return rows_x_plain(rhi, rlo, shi, slo, gm, eps, with_phi=True,
+                        guarded=guarded)
+
+
+def accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
+                           guarded: bool = True):
+    """Extended-tier (accel, jerk) of rows from sources on pre-split
+    position and velocity planes; f32 out (K9)."""
+    _check_resident(rhi.shape[0], shi.shape[0])
+    planes = (rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm)
+    if _on_cuda(*planes):
+        return rows_jerk_x_kernel(*planes, eps, guarded)
+    return rows_jerk_x_plain(*planes, eps, guarded=guarded)
+
+
+def accel_sym_x(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Extended-tier pair-symmetric self-interaction accel; f64 in,
+    pos.dtype out (K6)."""
+    hi, lo, gm = gravity.prepare_x(pos, mass, G)
+    if _on_cuda(hi, lo, gm):
+        acc = sym_x_kernel(hi, lo, gm, eps, False, guarded)
+    else:
+        acc = sym_x_plain(hi, lo, gm, eps, guarded=guarded)
+    return acc.to(pos.dtype)
+
+
+def accel_potential_sym_x(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Extended-tier pair-symmetric self-interaction (accel, RAW phi);
+    pos.dtype out (K6). The caller adds ``gravity.self_phi``."""
+    hi, lo, gm = gravity.prepare_x(pos, mass, G)
+    if _on_cuda(hi, lo, gm):
+        acc, phi = sym_x_kernel(hi, lo, gm, eps, True, guarded)
+    else:
+        acc, phi = sym_x_plain(hi, lo, gm, eps, with_phi=True,
+                               guarded=guarded)
+    return acc.to(pos.dtype), phi.to(pos.dtype)
+
+
+def accel_jerk_sym_x(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Extended-tier pair-symmetric self-interaction (accel, jerk);
+    pos.dtype out (K7)."""
+    hi, lo, gm, vhi, vlo = gravity.prepare_x(pos, mass, G, vel=vel)
+    if _on_cuda(hi, lo, vhi, vlo, gm):
+        acc, jerk = sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded)
+    else:
+        acc, jerk = sym_jerk_x_plain(hi, lo, vhi, vlo, gm, eps,
+                                     guarded=guarded)
+    return acc.to(pos.dtype), jerk.to(pos.dtype)
+
+
+def accel_x(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Extended-tier self-interaction accel, f64 in, pos.dtype out: K6 for
+    SYM_MIN <= N, K8 below (the dispatch rule of pallas_gravity.accel_x)."""
+    n = pos.shape[0]
+    _check_resident(0, n)      # the self-interaction has no row cap
+    if n >= SYM_MIN:
+        return accel_sym_x(pos, mass, eps, G, guarded)
+    hi, lo, gm = gravity.prepare_x(pos, mass, G)
+    return accel_rows_x_hilo(hi, lo, hi, lo, gm, eps,
+                             guarded).to(pos.dtype)
+
+
+def accel_potential_x(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Extended-tier self-interaction (accel, RAW phi), pos.dtype out; the
+    dispatch rule of ``accel_x``. The caller adds ``gravity.self_phi``."""
+    n = pos.shape[0]
+    _check_resident(0, n)      # the self-interaction has no row cap
+    if n >= SYM_MIN:
+        return accel_potential_sym_x(pos, mass, eps, G, guarded)
+    hi, lo, gm = gravity.prepare_x(pos, mass, G)
+    acc, phi = accel_potential_rows_x_hilo(hi, lo, hi, lo, gm, eps, guarded)
+    return acc.to(pos.dtype), phi.to(pos.dtype)
+
+
+def split_rows_x(pos_rows, vel_rows, center, vcenter):
+    """(rhi, rlo, vhi, vlo): rows centred on the SOURCES' centres, in f64,
+    and split, so the rows' planes share the sources' frame."""
+    f64 = torch.float64
+    return (*gravity.split_hilo(pos_rows.to(f64) - center),
+            *gravity.split_hilo(vel_rows.to(f64) - vcenter))
+
+
+def accel_jerk_rows_x(pos_rows, vel_rows, src_pos, src_vel, src_mass,
+                      eps=0.0, G=1.0, guarded: bool = True):
+    """Extended-tier (accel, jerk) of a row subset from the full source set
+    (the block-timestep active rows); f64 in, pos_rows.dtype out (K9). Rows
+    and sources are centred on the unweighted SOURCE means before the
+    split."""
+    shi, slo, center = gravity.centre_split(src_pos)
+    svhi, svlo, vcenter = gravity.centre_split(src_vel)
+    acc, jerk = accel_jerk_rows_x_hilo(
+        *split_rows_x(pos_rows, vel_rows, center, vcenter), shi, slo, svhi,
+        svlo, gravity.gm_f32(src_mass, G), eps, guarded)
+    return acc.to(pos_rows.dtype), jerk.to(pos_rows.dtype)
+
+
+def accel_jerk_x(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
+    """Extended-tier self-interaction (accel, jerk), pos.dtype out: K7 for
+    SYM_MIN <= N (not RT_MIN_JERK, the f32 tier's crossover), K9 below (the
+    dispatch rule of pallas_gravity.accel_jerk_x)."""
+    n = pos.shape[0]
+    _check_resident(0, n)      # the self-interaction has no row cap
+    if n >= SYM_MIN:
+        return accel_jerk_sym_x(pos, vel, mass, eps, G, guarded)
+    return accel_jerk_rows_x(pos, vel, pos, vel, mass, eps, G, guarded)

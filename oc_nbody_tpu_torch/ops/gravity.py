@@ -9,7 +9,11 @@ Two tiers, as in the JAX package:
     the production path, f64 where a caller wants an oracle at large N).
 
 The hand-written CUDA kernels (``ops/cuda_gravity.py``) compute the same
-functions; on CPU tensors their wrappers call these.
+functions; on CPU tensors their wrappers call these. The operands of the
+extended (hi/lo) precision tier are prepared here too (``split_hilo``,
+``centre_split``, ``gm_f32``, ``prepare_x``); its pair sums are in
+``ops/df32.py``. ``potential`` is the pair potential alone, the f64
+diagnostics sum.
 
 Conventions: r_ij = x_j - x_i points at the source, v_ij = v_j - v_i;
   a_i   = G sum_j m_j r_ij / (r_ij² + eps²)^{3/2}
@@ -192,6 +196,43 @@ def prepare_f32(pos, mass, vel=None, compute_dtype=torch.float32):
     return pos_c, mass_c, vel_c
 
 
+def split_hilo(c):
+    """A centred f64 tensor as its (hi, lo) pair of f32: hi the rounded
+    value, lo the rounded remainder, so hi + lo holds c to ~2^-48 of it
+    (the JAX package's ``_split_rows`` after its subtraction)."""
+    hi = c.to(torch.float32)
+    lo = (c - hi.to(c.dtype)).to(torch.float32)
+    return hi.contiguous(), lo.contiguous()
+
+
+def centre_split(x):
+    """(hi, lo, centre): ``x`` centred on its unweighted mean in f64, then
+    split."""
+    x = x.to(torch.float64)
+    centre = torch.mean(x, dim=0)
+    return (*split_hilo(x - centre), centre)
+
+
+def gm_f32(mass, G):
+    """G·m formed in f64 and rounded to f32 once (the f32 tier multiplies
+    G32·m32 instead)."""
+    return (G * mass.to(torch.float64)).to(torch.float32).contiguous()
+
+
+def prepare_x(pos, mass, G, vel=None):
+    """Operands of the extended (hi/lo) tier, the counterpart of the JAX
+    package's ``_prep_x_T`` without its padding and transposition: ONE
+    centring on the unweighted mean position (and velocity), in f64, then
+    the hi/lo split, and ``gm_f32``. Returns (hi, lo, gm), or (hi, lo, gm,
+    vhi, vlo) when ``vel`` is given."""
+    hi, lo, _ = centre_split(pos)
+    gm = gm_f32(mass, G)
+    if vel is None:
+        return hi, lo, gm
+    vhi, vlo, _ = centre_split(vel)
+    return hi, lo, gm, vhi, vlo
+
+
 def accel(pos, mass, eps=0.0, G=1.0, *, compute_dtype=torch.float32,
           chunk=1024):
     """Blocked pairwise acceleration; returns (N, 3) in pos.dtype."""
@@ -206,6 +247,26 @@ def accel_potential(pos, mass, eps=0.0, G=1.0, *,
     acc, phi = accel_potential_rows(pos_c, pos_c, mass_c, eps, G, chunk)
     phi = phi + self_phi(mass_c, eps, G)
     return acc.to(pos.dtype), phi.to(pos.dtype)
+
+
+def potential(pos, mass, eps=0.0, G=1.0, *, compute_dtype=torch.float64,
+              chunk=512):
+    """The per-particle pair potential alone, self term removed: what
+    ``accel_potential`` returns as phi, without the acceleration sums. The
+    f64 diagnostics potential (``output.diag_f64``) is this in f64; the
+    (chunk, N) temporaries bound its memory."""
+    pos_c, mass_c = prepare_f32(pos, mass, compute_dtype=compute_dtype)
+    eps2 = rounded(rounded(eps, compute_dtype) ** 2, compute_dtype)
+    gm = (rounded(G, compute_dtype) * mass_c)[None, :]
+    x, y, z = (pos_c[None, :, k] for k in range(3))
+    blocks = []
+    for i0 in range(0, pos_c.shape[0], chunk):
+        pi = pos_c[i0:i0 + chunk]
+        dx, dy, dz = x - pi[:, 0:1], y - pi[:, 1:2], z - pi[:, 2:3]
+        u = dx * dx + dy * dy + dz * dz + eps2
+        blocks.append(-torch.sum(gm * _inv_r(u), dim=1))
+    phi = torch.cat(blocks) if blocks else pos_c.new_zeros((0,))
+    return (phi + self_phi(mass_c, eps, G)).to(pos.dtype)
 
 
 def accel_jerk(pos, vel, mass, eps=0.0, G=1.0, *,

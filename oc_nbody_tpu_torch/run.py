@@ -100,6 +100,7 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
     def diag_row(state):
         return _to_host(diag_mod.compute_all(state, scene.force,
                                              out.fractions,
+                                             f64_pairwise=out.diag_f64,
                                              core=out.core_diag))
 
     def emit(row):

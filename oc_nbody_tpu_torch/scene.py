@@ -4,7 +4,8 @@ Counterpart of ``oc_nbody_tpu/scene.py`` for the slices the port runs: a
 Plummer or King cluster with equal, Kroupa or Salpeter masses, isolated or
 on a circular or eccentric (optionally inclined) orbit in the analytic
 Milky Way, integrated with fixed-dt KDK, shared-dt Hermite-4 or block
-timesteps on one device. Every other config value is refused
+timesteps on one device, at the f32 or the extended (hi/lo) pairwise
+precision tier. Every other config value is refused
 with the ROADMAP item that ports it, so a config never runs as something it
 does not say.
 """
@@ -17,7 +18,8 @@ from typing import Optional
 import torch
 
 from oc_nbody_tpu_torch.config import SimConfig
-from oc_nbody_tpu_torch.forces import ForceModel, make_force_model
+from oc_nbody_tpu_torch.forces import (ForceModel, check_precision,
+                                       make_force_model)
 from oc_nbody_tpu_torch.integrators.block import BlockHermite
 from oc_nbody_tpu_torch.integrators.hermite import Hermite4
 from oc_nbody_tpu_torch.integrators.leapfrog import LeapfrogKDK
@@ -31,10 +33,8 @@ from oc_nbody_tpu_torch.utils.units import UnitSystem
 # (config path, the only value the port runs, ROADMAP item that ports the
 # others)
 _UNPORTED = (
-    ("mesh.n_devices", 1, "A17 (multi-GPU)"),
     ("integrator.macro_batches", 0, "A18 (macro steppers)"),
     ("integrator.pair_dt", False, "A11 (pair_dt: the encounter sweep)"),
-    ("integrator.precision", "f32", "A13 (precision tiers)"),
     ("potential.perturber.kind", "none", "A14 (time-dependent fields)"),
     ("potential.bar.kind", "none", "A14 (time-dependent fields)"),
     ("potential.gas.kind", "none", "A14 (time-dependent fields)"),
@@ -45,7 +45,6 @@ _UNPORTED = (
     ("ic.rotation", 0.0, "A14 (models/rotation.py)"),
     ("ic.segregation", 0.0, "A14 (models/segregation.py)"),
     ("ic.binary_fraction", 0.0, "A14 (models/binaries.py)"),
-    ("output.diag_f64", False, "A13 (f64 diagnostics potential)"),
 )
 _IC_ITEMS = {"dehnen": "A14", "eff": "A14", "file": "A3 (snapshot I/O)"}
 _INTEGRATOR_ITEMS = {"yoshida4": "A14"}
@@ -70,8 +69,22 @@ def _get(cfg, path: str):
     return obj
 
 
-def check_supported(cfg: SimConfig) -> None:
-    """Raise for a config the port cannot run as written."""
+def _check_mesh(cfg: SimConfig, device) -> None:
+    """One device only: ``mesh.n_devices`` must be 1, or 0 (all visible
+    devices) where that is one — a CPU run, or a machine with one card.
+    With ``device`` None the 0 is left to the run to resolve."""
+    n = cfg.mesh.n_devices
+    if n == 0 and device is not None:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n not in (0, 1):
+        raise NotImplementedError(
+            f"mesh.n_devices = {cfg.mesh.n_devices!r} resolves to {n} "
+            "devices; the port runs one (ROADMAP A17, multi-GPU)")
+
+
+def check_supported(cfg: SimConfig, device=None) -> None:
+    """Raise for a config the port cannot run as written (on ``device``,
+    when given)."""
     if cfg.backend != "auto":
         raise ValueError(
             f"backend = {cfg.backend!r} names a JAX backend; the port takes "
@@ -83,6 +96,8 @@ def check_supported(cfg: SimConfig) -> None:
             f"integrator.kind = {kind!r} is not ported yet (ROADMAP "
             f"{_INTEGRATOR_ITEMS[kind]}); the port runs 'kdk', 'hermite' and "
             "'block'")
+    _check_mesh(cfg, device)
+    check_precision(cfg.integrator.precision)
     for path, value, item in _UNPORTED:
         got = _get(cfg, path)
         if got != value and not (got is None and value == "none"):
@@ -204,12 +219,13 @@ def place_on_orbit(state: ParticleState,
 
 
 def build_scene(cfg: SimConfig, device="cuda") -> Scene:
-    check_supported(cfg)
     device = resolve_device(device)
+    check_supported(cfg, device)
     us = build_units(cfg)
     external = build_external_potential(cfg, us)
     state = place_on_orbit(build_ic(cfg, us, device), external, cfg, us)
-    force = make_force_model(cfg.integrator.eps, us.G, external)
+    force = make_force_model(cfg.integrator.eps, us.G, external,
+                             precision=cfg.integrator.precision)
     return Scene(units=us, state=state, force=force, config=cfg)
 
 

@@ -168,6 +168,58 @@ def test_accel_jerk_on_rows_matches_jax():
                               rows_mask=torch.ones(256))
 
 
+def test_accel_jerk_on_rows_extended_matches_jax(monkeypatch):
+    """The same at the extended tier: the JAX package through
+    accel_jerk_rows_x and its Pallas kernel #12 (interpret mode), the port
+    through K9's twin. Held to JAX at the f32 pair tolerances and to the f64
+    rows oracle at the tier's bounds (2e-5 of max|a|, 5e-5 of max|j|). The
+    stepper's split path (the sources' eight hi/lo planes, rows by gather)
+    gives the same numbers, and compacted micro-steps equal masked ones."""
+    import oc_nbody_tpu.ops.pallas_gravity as pg
+    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
+    pg.accel_jerk_rows_x.clear_cache()
+    pos, vel, mass, ids = numpy_plummer(256, seed=13)
+    pos, vel, jext, text = _c4_orbit(pos, vel, mass, ids)
+    rows = np.sort(np.random.default_rng(1).choice(256, 37, replace=False))
+    jf = j_make_force_model(eps=EPS, external=jext, backend="pallas",
+                            precision="extended")
+    tf = t_make_force_model(EPS, 1.0, text, precision="extended")
+    try:
+        want = jf.accel_jerk_on_rows(pos[rows], vel[rows], pos, vel, mass)
+    finally:
+        pg.accel_jerk_rows_x.clear_cache()
+    p64, v64 = torch.from_numpy(pos), torch.from_numpy(vel)
+    m32 = torch.from_numpy(mass)
+    got = tf.accel_jerk_on_rows(p64[rows], v64[rows], p64, v64, m32)
+    pair = jgrav.accel_jerk_rows(pos[rows], vel[rows], pos, vel, mass, EPS)
+    jerk_ext = jext.accel_jerk_ext(pos[rows], vel[rows])
+    for g, w, pr, ex, tol, tol64 in zip(got, want, pair, jerk_ext,
+                                        (5e-6, 1e-5), (2e-5, 5e-5)):
+        assert g.dtype == torch.float64
+        scale = np.abs(np.asarray(pr)).max()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=tol * scale)
+        np.testing.assert_allclose(g.numpy(), np.asarray(pr + ex), rtol=0,
+                                   atol=tol64 * scale)
+    stepper = tblock.BlockHermite(force=tf, **KW)
+    sources = tf.centred_sources(p64, v64, m32)[:-2]
+    assert len(sources) == 5 and all(t.dtype == torch.float32
+                                     for t in sources)
+    idx = torch.from_numpy(rows)
+    pair = stepper._pair(tf, sources, idx, len(rows))
+    assert pair.dtype == torch.float32 and pair.shape == (2, 256, 3)
+    a1, j1, _, _ = stepper._total(tf, p64, v64, pair)
+    for g, w in ((a1[idx], got[0]), (j1[idx], got[1])):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-14, atol=0)
+    state = state_from_numpy(pos, vel, mass, ids, 0.0, "cpu")
+    runs = [tblock.BlockHermite(force=tf, n_buckets=nb, **KW)
+            for nb in (4, 0)]
+    c, m = (r.advance(r.init(state), 12) for r in runs)
+    assert c.n_active_sum == m.n_active_sum and c.state.time == m.state.time
+    assert torch.equal(c.t_i, m.t_i) and torch.equal(c.dt_i, m.dt_i)
+    torch.testing.assert_close(c.state.pos, m.state.pos, rtol=1e-13, atol=0)
+
+
 def test_rung_selector_matches_jax_off_the_powers_of_two():
     js = jblock.BlockHermite(force=None, dt_max=1.0 / 64, n_levels=8)
     ts = tblock.BlockHermite(force=None, dt_max=1.0 / 64, n_levels=8)

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (rows_accel), K2 (sym_accel), K3 (sym_jerk), K4
-(rows_jerk) and K5 (rows_jerk_t) against their plain PyTorch twins in f64,
-on the card. Every test here needs an NVIDIA GPU and
+(rows_jerk), K5 (rows_jerk_t) and, at the extended (hi/lo) tier, K6
+(sym_accel_x), K7 (sym_jerk_x), K8 (rows_accel_x) and K9 (rows_jerk_x)
+against their plain PyTorch twins in f64, on the card. Every test here needs an NVIDIA GPU and
 nvcc, and skips without them; on the card run
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
@@ -13,13 +14,19 @@ jerk sums the difference of two terms of one size, so its f32 rounding is
 about twice the accel's. K5 at 32,768 sources is held to 2e-5 of max|a|
 and max|j|, the bound the port sets past 16,384 sources (PERF.md §2); it is
 also bitwise repeatable and gives a row the same bits whatever other rows
-share the launch.
+share the launch. K6-K9 are held to the f64 evaluation of the same (hi,
+lo) planes at the same tolerances (their f32 sums are of the same length),
+and on the close-pair case to the f64 oracle of the unsplit positions at
+the tier's bounds (2e-5 of max|a|, 5e-5 of max|j|) where the f32 kernels
+err past 1e-3; K6, K7 and K9 repeat bitwise and K9 gives a row the same
+bits whatever other rows share the launch.
 """
 import numpy as np
 import pytest
 import torch
 
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
+from oc_nbody_tpu_torch.ops import gravity
 from oc_nbody_tpu_torch.ops.gravity import prepare_f32
 
 pytestmark = pytest.mark.cuda
@@ -140,6 +147,13 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda):
     pos, mass, vel = _moving_cluster(16384, 1, cuda)
     pos64, vel64 = pos.double(), vel.double()
     launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
+    ax = cg.accel_x(pos64[:8192], mass[:8192], 1.0 / 64)  # N = SYM_MIN: K6
+    cg.accel_potential_x(pos64[:1000], mass[:1000], 1.0 / 64)   # below: K8
+    cg.accel_jerk_x(pos64[:8192], vel64[:8192], mass[:8192],
+                    1.0 / 64)                             # N = SYM_MIN: K7
+    cg.accel_jerk_rows_x(pos64[:64], vel64[:64], pos64, vel64, mass,
+                         1.0 / 64)                        # rows: K9
+    assert ax.dtype == torch.float64
     acc, phi = cg.accel_potential(pos64[:8192], mass[:8192],
                                   1.0 / 64)             # N = SYM_MIN: K2
     cg.accel(pos64[:1000], mass[:1000], 1.0 / 64)       # N < SYM_MIN: K1
@@ -224,17 +238,17 @@ def test_rows_dispatch_launches_k5_on_cuda(cuda):
     assert cg.PLAIN_CALLS == plain
 
 
-def _block_run(cuda, n, n_micro, eager=False, **kw):
+def _block_run(cuda, n, n_micro, eager=False, over=(), **kw):
     """c4's scene (Milky Way, eccentric inclined orbit) at N = n on the
     card, n_micro block micro-steps from init; ``eager`` without the CUDA
-    graphs."""
+    graphs; ``over`` more config overrides."""
     import os
     from oc_nbody_tpu_torch.config import apply_overrides, load_config
     from oc_nbody_tpu_torch.integrators.block import BlockHermite
     from oc_nbody_tpu_torch.scene import build_scene
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "configs", "c4_block_32k_eccentric.toml")
-    cfg = apply_overrides(load_config(path), [f"ic.n={n}"])
+    cfg = apply_overrides(load_config(path), [f"ic.n={n}", *over])
     scene = build_scene(cfg, cuda)
     ic = cfg.integrator
     stepper = BlockHermite(force=scene.force, eta=ic.eta,
@@ -258,6 +272,190 @@ def test_block_graphs_compaction_and_masking_agree_bitwise(cuda, n):
     eager = _block_run(cuda, n, 24, eager=True)
     graphs = _block_run(cuda, n, 24)
     masked = _block_run(cuda, n, 24, n_buckets=0)
+    for other in (graphs, masked):
+        assert other.n_steps == eager.n_steps == 24
+        assert other.n_active_sum == eager.n_active_sum
+        assert other.state.time == eager.state.time
+        for a, b in zip(_carry_fields(other), _carry_fields(eager)):
+            assert torch.equal(a, b)
+
+
+# ---- the extended (hi/lo) tier: K6-K9 --------------------------------------
+
+def _planes(n, seed, device, vel=True):
+    """(hi, lo, gm[, vhi, vlo]) of a cluster 8 kpc from the origin."""
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(rng.normal(size=(n, 3)) + [8000.0, 0.0, 3.0])
+    v = torch.from_numpy(rng.normal(size=(n, 3)) * 0.5 + [0.0, 220.0, 0.0])
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n)
+    out = gravity.prepare_x(pos.to(device), mass.to(device), 1.3,
+                            vel=v.to(device) if vel else None)
+    return out
+
+
+def _check_x(out, ref, tol=(5e-6, 1e-5), phi=False):
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for k, (got, want) in enumerate(zip(out, ref)):
+        assert got.dtype == torch.float32 and want.dtype == torch.float64
+        if phi and k == 1:
+            torch.testing.assert_close(got.double(), want, rtol=3e-5,
+                                       atol=0.0)
+            continue
+        err = float((got.double() - want).abs().max())
+        assert err <= tol[k] * float(want.abs().max())
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("nr,ns", [(1, 1), (127, 129), (1000, 1000),
+                                   (300, 4097)])
+def test_rows_x_kernel_matches_plain(cuda, nr, ns, with_phi, eps):
+    hi, lo, gm = _planes(ns, ns, cuda, vel=False)
+    rows = (hi[:nr].contiguous(), lo[:nr].contiguous())
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0)
+    out = cg.rows_x_kernel(*rows, hi, lo, gm, eps, **kw)
+    ref = cg.rows_x_plain(*rows, hi, lo, gm, eps, dtype=torch.float64, **kw)
+    _check_x(out, ref, phi=with_phi)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 300, 1000, 8191])
+def test_sym_x_kernel_matches_plain_and_repeats_bitwise(cuda, n, with_phi,
+                                                        eps):
+    hi, lo, gm = _planes(n, n, cuda, vel=False)
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0)
+    out = cg.sym_x_kernel(hi, lo, gm, eps, **kw)
+    again = cg.sym_x_kernel(hi, lo, gm, eps, **kw)
+    ref = cg.sym_x_plain(hi, lo, gm, eps, dtype=torch.float64, **kw)
+    _check_x(out, ref, phi=with_phi)
+    pairs = zip(out, again) if with_phi else [(out, again)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 300, 1000, 8191])
+def test_sym_jerk_x_kernel_matches_plain_and_repeats_bitwise(cuda, n, eps):
+    hi, lo, gm, vhi, vlo = _planes(n, n, cuda)
+    guarded = eps == 0.0
+    out = cg.sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=guarded)
+    again = cg.sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=guarded)
+    ref = cg.sym_jerk_x_plain(hi, lo, vhi, vlo, gm, eps,
+                              dtype=torch.float64, guarded=guarded)
+    _check_x(out, ref)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 256])
+@pytest.mark.parametrize("nr,ns", [(1, 1), (37, 300), (1000, 1000),
+                                   (200, 16385), (1, 32768), (64, 32768),
+                                   (8192, 32768)])
+def test_rows_jerk_x_kernel_matches_plain_and_repeats_bitwise(cuda, nr, ns,
+                                                              eps):
+    hi, lo, gm, vhi, vlo = _planes(ns, ns + 7, cuda)
+    rows = tuple(p[:nr].contiguous() for p in (hi, lo, vhi, vlo))
+    guarded = eps == 0.0
+    out = cg.rows_jerk_x_kernel(*rows, hi, lo, vhi, vlo, gm, eps,
+                                guarded=guarded)
+    again = cg.rows_jerk_x_kernel(*rows, hi, lo, vhi, vlo, gm, eps,
+                                  guarded=guarded)
+    ref = cg.rows_jerk_x_plain(*rows, hi, lo, vhi, vlo, gm, eps,
+                               dtype=torch.float64, guarded=guarded)
+    _check_x(out, ref, tol=(2e-5, 2e-5) if ns > 16384 else (5e-6, 1e-5))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("guarded", [True, False])
+def test_rows_jerk_x_rows_are_independent_of_the_launch(cuda, guarded):
+    hi, lo, gm, vhi, vlo = _planes(32768, 5, cuda)
+    eps = 0.0 if guarded else 1.0 / 256
+    src = (hi, lo, vhi, vlo)
+    full = cg.rows_jerk_x_kernel(*src, *src, gm, eps, guarded=guarded)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    for k in (1, 5, 64, 4095):
+        rows = torch.randperm(32768, generator=gen)[:k].to(cuda)
+        sub = cg.rows_jerk_x_kernel(*(p[rows] for p in src), *src, gm, eps,
+                                    guarded=guarded)
+        for got, want in zip(sub, full):
+            assert torch.equal(got, want[rows])
+
+
+def test_close_pairs_tell_the_tiers_apart_on_the_card(cuda):
+    """50 pairs at 1e-5 of the coordinate scale, eps = 1e-4: the f32
+    kernels err past 1e-3 of max|a|, the extended kernels stay inside 2e-5
+    of max|a| and 5e-5 of max|j| of the f64 oracle of the unsplit state."""
+    rng = np.random.default_rng(7)
+    n, eps = 600, 1e-4
+    pos = rng.normal(size=(n, 3))
+    pos[50:100] = pos[:50] + 1e-5 * rng.normal(size=(50, 3))
+    pos = torch.from_numpy(pos).to(cuda)
+    vel = torch.from_numpy(0.3 * rng.normal(size=(n, 3))).to(cuda)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n).to(cuda)
+    a_ref, j_ref = gravity.accel_jerk_direct(pos, vel, mass, eps)
+
+    def rel(got, want):
+        return float(torch.linalg.norm(got - want, dim=1).max()
+                     / torch.linalg.norm(want, dim=1).max())
+
+    hi, lo, gm, vhi, vlo = gravity.prepare_x(pos, mass, 1.0, vel=vel)
+    src = (hi, lo, vhi, vlo)
+    pos_c, mass_c, vel_c = prepare_f32(pos, mass, vel=vel)
+    assert rel(cg.rows_kernel(pos_c, pos_c, mass_c, eps).double(),
+               a_ref) > 1e-3
+    assert rel(cg.sym_kernel(pos_c, mass_c, eps).double(), a_ref) > 1e-3
+    assert rel(cg.rows_jerk_kernel(pos_c, vel_c, pos_c, vel_c, mass_c,
+                                   eps)[0].double(), a_ref) > 1e-3
+    for acc in (cg.rows_x_kernel(hi, lo, hi, lo, gm, eps),
+                cg.sym_x_kernel(hi, lo, gm, eps)):
+        assert rel(acc.double(), a_ref) < 2e-5
+    for acc, jerk in (cg.rows_jerk_x_kernel(*src, *src, gm, eps),
+                      cg.sym_jerk_x_kernel(*src, gm, eps)):
+        assert rel(acc.double(), a_ref) < 2e-5
+        assert rel(jerk.double(), j_ref) < 5e-5
+    # a kernel that dropped lo would be the f32 tier
+    zero = torch.zeros_like(lo)
+    assert rel(cg.rows_x_kernel(hi, zero, hi, zero, gm, eps).double(),
+               a_ref) > 1e-3
+
+
+def test_guarded_coincident_pair_adds_nothing_at_the_extended_tier(cuda):
+    z = torch.zeros((2, 3), dtype=torch.float32, device=cuda)
+    vel = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], dtype=torch.float32,
+                       device=cuda)
+    gm = torch.ones(2, dtype=torch.float32, device=cuda)
+    outs = (cg.sym_jerk_x_kernel(z, z, vel, z, gm, 0.0, guarded=True),
+            cg.rows_jerk_x_kernel(z, z, vel, z, z, z, vel, z, gm, 0.0,
+                                  guarded=True),
+            cg.sym_x_kernel(z, z, gm, 0.0, with_phi=True, guarded=True),
+            cg.rows_x_kernel(z, z, z, z, gm, 0.0, with_phi=True,
+                             guarded=True))
+    for out in outs:
+        assert all(bool((t == 0).all()) for t in out)
+
+
+def test_extended_launchers_check_their_input(cuda):
+    hi, lo, gm = _planes(64, 2, cuda, vel=False)
+    with pytest.raises(TypeError, match="float32"):
+        cg.rows_x_kernel(hi.double(), lo, hi, lo, gm, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        cg.sym_x_kernel(hi, lo[:10], gm, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cg.sym_jerk_x_kernel(hi, lo, hi.t().contiguous().t(), lo, gm, 0.1)
+    with pytest.raises(NotImplementedError, match="B7"):
+        big = torch.zeros((cg.STREAM_N + 1, 3), dtype=torch.float32,
+                          device=cuda)
+        cg.accel_rows_x_hilo(hi, lo, big, big, big[:, 0].contiguous(), 0.1)
+
+
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_block_graphs_compaction_and_masking_agree_bitwise_extended(cuda, n):
+    """The same three-way bitwise agreement of block micro-steps at the
+    extended tier (K9 on the active rows, K9 or K7 at init)."""
+    over = ["integrator.precision=extended"]
+    eager = _block_run(cuda, n, 24, eager=True, over=over)
+    graphs = _block_run(cuda, n, 24, over=over)
+    masked = _block_run(cuda, n, 24, n_buckets=0, over=over)
     for other in (graphs, masked):
         assert other.n_steps == eager.n_steps == 24
         assert other.n_active_sum == eager.n_active_sum

@@ -251,3 +251,49 @@ def test_lands_counts_and_refuses():
     assert aux["n_steps"] == carry.n_steps and aux["jerk"] is carry.jerk
     with pytest.raises(ValueError, match="finite dt_max"):
         thermite.Hermite4(force=force, quantize=True)
+
+
+@pytest.mark.parametrize("scene", ["isolated", "orbit"])
+def test_extended_force_path_matches_jax(scene, monkeypatch):
+    """The Hermite force evaluation at the extended tier: the JAX package's
+    ForceModel(backend="pallas", precision="extended") through Pallas
+    kernel #12 (interpret mode; N < SYM_MIN), the port's through K9's twin.
+    accel and jerk agree to the f32 pair tolerances (5e-6 of max|a|, 1e-5
+    of max|j|, pairwise parts), and advance_to(1/64) lands on that time in
+    as many steps with positions within 1e-8 of the cluster size (the f32
+    force path's bound above: the dt sequences differ by the f32 rounding
+    the Aarseth criterion amplifies)."""
+    import oc_nbody_tpu.ops.pallas_gravity as pg
+    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
+    pg.accel_jerk_rows_x.clear_cache()
+    n = 256
+    pos, vel, mass, ids = kroupa_plummer(n, seed=21)
+    size = float(np.abs(pos).max())
+    jext = text = None
+    if scene == "orbit":
+        pos, vel, jext, text = _milky_way_orbit(pos, vel, mass, ids)
+    jf = j_make_force_model(eps=EPS, external=jext, backend="pallas",
+                            precision="extended")
+    tf = t_make_force_model(EPS, 1.0, text, precision="extended")
+    tstate = state_from_numpy(pos, vel, mass, ids, 0.0, "cpu")
+    try:
+        want = jf.accel_jerk(jnp.asarray(pos), jnp.asarray(vel),
+                             jnp.asarray(mass))
+        js = jhermite.Hermite4(force=jf, **STEPPER)
+        jc = jax.jit(js.advance_to)(
+            js.init(j_make_state(pos, vel, mass, ids)), 1.0 / 64)
+    finally:
+        pg.accel_jerk_rows_x.clear_cache()
+    got = tf.accel_jerk(tstate.pos, tstate.vel, tstate.mass)
+    pair = jgrav.accel_jerk_direct(jnp.asarray(pos), jnp.asarray(vel),
+                                   jnp.asarray(mass), EPS)
+    for g, w, pr, tol in zip(got, want, pair, (5e-6, 1e-5)):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=tol * np.abs(np.asarray(pr)).max())
+    ts = thermite.Hermite4(force=tf, **STEPPER)
+    tc = ts.advance_to(ts.init(tstate), 1.0 / 64)
+    assert tc.n_steps == int(jc.n_steps) > 4
+    assert tc.state.time == float(jc.state.time) == 1.0 / 64
+    np.testing.assert_allclose(tc.state.pos.numpy(), np.asarray(jc.state.pos),
+                               rtol=0, atol=1e-8 * size)

@@ -12,6 +12,15 @@ pair-summation order, so positions agree to 1e-9 of the cluster size
 |L|). Under Hermite both land on the same time in as many steps. Also: the
 CLI on c1, c2 and c3, the refusals of what is not ported, and that the port
 imports no JAX.
+
+The extended (hi/lo) precision tier as a whole: a KDK (c5x's scene), a
+Hermite (c3) and a block (c4) run with ``precision = "extended"`` from the
+same numpy state through the JAX package's ``ForceModel(backend="pallas",
+precision="extended")``, its Pallas kernels in interpret mode, and through
+the port on the CPU (the plain twins of K6-K9): positions to 1e-9 of the
+cluster size, the diagnostics columns as above; the ``diag_f64`` row equal
+to JAX's to 1e-12 relative; ``df32``, N past ``STREAM_N`` and more than one
+device refused with their ROADMAP items.
 """
 import math
 import os
@@ -38,6 +47,7 @@ from oc_nbody_tpu_torch.forces import make_force_model as t_make_force_model
 from oc_nbody_tpu_torch.integrators.leapfrog import LeapfrogKDK
 from oc_nbody_tpu_torch.interop import state_from_numpy, state_to_numpy
 from oc_nbody_tpu_torch.models import imf as timf
+from oc_nbody_tpu_torch.ops import gravity as tgravity
 from oc_nbody_tpu_torch.run import _to_host
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +55,8 @@ C1 = os.path.join(REPO, "configs", "c1_plummer_1k.toml")
 C2 = os.path.join(REPO, "configs", "c2_king_8k_circular.toml")
 C3 = os.path.join(REPO, "configs", "c3_hermite_16k_kroupa.toml")
 NORTH_STAR = os.path.join(REPO, "configs", "north_star_65k_orbit.toml")
+C4 = os.path.join(REPO, "configs", "c4_block_32k_eccentric.toml")
+C5X = os.path.join(REPO, "configs", "c5x_131k_extended.toml")
 N_STEPS = 64
 T_HERMITE = 1.0 / 32
 
@@ -106,10 +118,14 @@ def _numpy_ic(cfg, n, seed):
     return pos, vel, mass, ids
 
 
-def _both(path, n, seed):
+def _both(path, n, seed, precision=None):
     """(JAX row, port row, JAX final pos, port final pos, cluster size, the
-    softened self-potential energy scale G·Σm²/eps)."""
+    softened self-potential energy scale G·Σm²/eps). ``precision``
+    overrides the config's tier; the JAX side then runs its Pallas backend
+    (in interpret mode: the caller sets OCN_PALLAS_INTERPRET)."""
     over = [f"ic.n={n}"]
+    if precision:
+        over.append(f"integrator.precision={precision}")
     cfg_j = jconfig.apply_overrides(jconfig.load_config(path), over)
     cfg_t = tconfig.apply_overrides(tconfig.load_config(path), over)
     pos, vel, mass, ids = _numpy_ic(cfg_j, n, seed)
@@ -119,8 +135,10 @@ def _both(path, n, seed):
     ext = jscene.build_external_potential(cfg_j, us)
     state = jscene.place_on_orbit(j_make_state(pos, vel, mass, ids), ext,
                                   cfg_j, us)
+    tier = cfg_j.integrator.precision
     force = j_make_force_model(eps=cfg_j.integrator.eps, G=us.G,
-                               external=ext, backend="jnp")
+                               external=ext, precision=tier,
+                               backend="jnp" if tier == "f32" else "pallas")
     stepper, kind = jscene.make_stepper(cfg_j, force)
     if kind == "kdk":
         carry = jax.jit(stepper.advance, static_argnums=1)(
@@ -135,9 +153,10 @@ def _both(path, n, seed):
     text = tscene.build_external_potential(cfg_t, tus)
     tstate = tscene.place_on_orbit(
         state_from_numpy(pos, vel, mass, ids, 0.0, "cpu"), text, cfg_t, tus)
-    tforce = t_make_force_model(cfg_t.integrator.eps, tus.G, text)
+    tforce = t_make_force_model(cfg_t.integrator.eps, tus.G, text,
+                                precision=cfg_t.integrator.precision)
     tstepper, tkind = tscene.make_stepper(cfg_t, tforce)
-    assert tkind == kind
+    assert tkind == kind and tforce.precision == tier
     if kind == "kdk":
         tcarry = tstepper.advance(tstepper.init(tstate), N_STEPS)
     else:
@@ -155,7 +174,30 @@ def _both(path, n, seed):
                                     (C3, 512)],
                          ids=["c1", "north_star", "c2", "c3"])
 def test_slice_matches_jax(path, n):
-    row_j, row_t, pos_j, pos_t, size, self_scale = _both(path, n, seed=n)
+    _check_slice(path, n, *_both(path, n, seed=n))
+
+
+@pytest.mark.parametrize("path,n", [(C5X, 384), (C3, 256), (C4, 256)],
+                         ids=["c5x-kdk", "c3x-hermite", "c4x-block"])
+def test_extended_slice_matches_jax(path, n, monkeypatch):
+    """The extended tier end to end: JAX through its Pallas kernels
+    (interpret mode), the port through the twins of K6-K9 on the CPU."""
+    import oc_nbody_tpu.ops.pallas_gravity as pg
+    jitted = (pg.accel_x, pg.accel_potential_x, pg.accel_jerk_rows_x,
+              pg.accel_rows_x_hilo, pg.accel_potential_rows_x_hilo,
+              pg.accel_jerk_rows_x_hilo)
+    monkeypatch.setenv("OCN_PALLAS_INTERPRET", "1")
+    for fn in jitted:
+        fn.clear_cache()
+    try:
+        out = _both(path, n, seed=n + 1, precision="extended")
+    finally:
+        for fn in jitted:
+            fn.clear_cache()
+    _check_slice(path, n, *out)
+
+
+def _check_slice(path, n, row_j, row_t, pos_j, pos_t, size, self_scale):
     np.testing.assert_allclose(pos_t, pos_j, rtol=0, atol=1e-9 * size)
     # c3's Kroupa masses: each f32 phi holds the softened self term
     # -G m_i/eps until self_phi removes it, so the potential-energy columns
@@ -181,6 +223,46 @@ def test_slice_matches_jax(path, n):
         atol = 1e-9 * float(row_j["L_norm"]) if k in ("Lx", "Ly", "Lz") \
             else e_cols.get(k, 0.0)
         np.testing.assert_allclose(v, ref, rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("path", [C5X, C1], ids=["orbit", "isolated"])
+def test_diag_f64_row_matches_jax(path):
+    """``output.diag_f64``: the pairwise potential of the row is the plain
+    f64 sum in both packages (no kernel), shared by the energies and, for
+    an isolated cluster, the bound-mass cut: 1e-12 relative."""
+    n = 300
+    cfg_j = jconfig.apply_overrides(jconfig.load_config(path), [f"ic.n={n}"])
+    cfg_t = tconfig.apply_overrides(tconfig.load_config(path), [f"ic.n={n}"])
+    pos, vel, mass, ids = numpy_plummer(n, seed=31)
+    us = jscene.build_units(cfg_j)
+    ext = jscene.build_external_potential(cfg_j, us)
+    state = jscene.place_on_orbit(j_make_state(pos, vel, mass, ids), ext,
+                                  cfg_j, us)
+    force = j_make_force_model(eps=cfg_j.integrator.eps, G=us.G,
+                               external=ext, backend="jnp")
+    fr = cfg_j.output.fractions
+    row_j = jax.device_get(jax.jit(lambda s: jdiag.compute_all(
+        s, force, fr, f64_pairwise=True))(state))
+    tus = tscene.build_units(cfg_t)
+    text = tscene.build_external_potential(cfg_t, tus)
+    tstate = tscene.place_on_orbit(
+        state_from_numpy(pos, vel, mass, ids, 0.0, "cpu"), text, cfg_t, tus)
+    tforce = t_make_force_model(cfg_t.integrator.eps, tus.G, text,
+                                precision=cfg_t.integrator.precision)
+    row_t = _to_host(tdiag.compute_all(tstate, tforce, fr,
+                                       f64_pairwise=True))
+    for k in ("KE", "PE_pair", "E_ext", "E_tot", "E_int", "M_bound",
+              "N_bound", "Q_virial"):
+        np.testing.assert_allclose(row_t[k], float(row_j[k]), rtol=1e-12,
+                                   err_msg=k)
+    # the f64 potential alone, against the f64 oracle and the accel form
+    tp, tm = tstate.pos, tstate.mass
+    phi = tgravity.potential(tp, tm, tforce.eps, tforce.G, chunk=64)
+    _, phi_ref = tgravity.accel_potential_direct(tp, tm.double(), tforce.eps,
+                                                 tforce.G)
+    torch.testing.assert_close(phi, phi_ref, rtol=1e-12, atol=0)
+    e = tdiag.energies(tstate, tforce, f64_pairwise=True)
+    assert float(e["PE_pair"]) == pytest.approx(row_t["PE_pair"], rel=1e-14)
 
 
 def test_state_round_trips_through_numpy():
@@ -251,6 +333,55 @@ def test_cli_info_and_refusals(capsys):
                     "integrator.macro_batches=4"])
     with pytest.raises(NotImplementedError, match="A14"):
         tmain.main(["run", C1, "--device", "cpu", "--set", "ic.kind=dehnen"])
+    # the precision tiers: extended runs, df32 and what lies past the
+    # resident kernels are refused by name
+    assert tmain.main(["info", C5X]) == 0
+    out = capsys.readouterr().out
+    assert "pairwise precision tier: extended; diagnostics potential: f64" \
+        in out
+    assert tmain.main(["info", C1]) == 0
+    assert "precision tier: f32; diagnostics potential: the tier" \
+        in capsys.readouterr().out
+    assert tmain.main(["info", C1, "--set", "integrator.precision=df32"]) == 0
+    assert "does not run here" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="B8"):
+        tmain.main(["run", C1, "--device", "cpu", "--set",
+                    "integrator.precision=df32"])
+    with pytest.raises(NotImplementedError, match="B8"):
+        t_make_force_model(0.01, precision="df32")
+    with pytest.raises(ValueError, match="unknown precision"):
+        t_make_force_model(0.01, precision="f16")
+    with pytest.raises(NotImplementedError, match="B7"):
+        tmain.main(["run", C5X, "--device", "cpu", "--set", "ic.n=262145"])
+    with pytest.raises(NotImplementedError, match="A17"):
+        tmain.main(["run", C5X, "--device", "cpu", "--set",
+                    "mesh.n_devices=4"])
+
+
+def test_cli_runs_c5x_and_the_extended_overrides_on_cpu(capsys):
+    """c5x as committed but for N and length (mesh.n_devices = 0 resolves to
+    the one CPU; diag_f64 rows), and --set integrator.precision=extended on
+    c1, through the twins of K6/K8 and nothing of the f32 tier."""
+    from oc_nbody_tpu_torch.ops import cuda_gravity as cg
+    for argv, steps in (
+            (["run", C5X, "--device", "cpu", "--set", "ic.n=256", "--set",
+              "output.t_end=0.0625", "--set", "output.diag_every=0.0625"],
+             64),
+            (["run", C1, "--device", "cpu", "--set", "ic.n=128", "--set",
+              "integrator.precision=extended", "--set",
+              "output.t_end=0.0625", "--set", "output.diag_every=0.0625"],
+             128)):
+        before = dict(cg.PLAIN_CALLS)
+        assert tmain.main(argv) == 0
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("t=")]
+        assert len(lines) == 1 and f"steps={steps}" in lines[0]
+        assert abs(float(lines[0].split("dE/E=")[1].split()[0])) < 1e-6
+        ran = {k for k in before if cg.PLAIN_CALLS[k] != before[k]}
+        # c5x's rows are f64 sums outside the twins; c1x's go through K8's
+        assert ran == {"rows_x"}
+        assert cg.PLAIN_CALLS["rows_x"] - before["rows_x"] == \
+            steps + 1 + (0 if argv[1] == C5X else 2)
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
