@@ -24,7 +24,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    independent; and the close-pair case (50 pairs at 1e-5 of the scale,
    eps = 1e-4), where the extended kernels must stay inside 2e-5 of max|a|
    and 5e-5 of max|j| of the f64 oracle and the f32 kernels must err past
-   1e-3;
+   1e-3. Then the two-float (df32) tier: the device's two_sum and two_prod
+   exact and its df_rsqrt inside 1e-13 on 1e5 values; K10 rows_accel_df at
+   N = 1,024, 16,384 and 131,072 (beside K8/K6 and K1/K2) and K11
+   rows_jerk_df at 4,096, 8,192 and 16,384 (beside K9/K7 and K4/K3), eps >
+   0 and eps = 0, each against the f64 evaluation of the same planes inside
+   1e-9 of max|a| and 1e-8 of max|j|, launched twice and bitwise equal;
+   eager f64 PyTorch (the blocked accel + jerk sum) timed beside K11 at
+   8,192 and 16,384; and K10 and K11 on the close-pair case inside 1e-9 /
+   1e-8 of the f64 oracle;
 4. the paths, each through ``python -m oc_nbody_tpu_torch run`` (via
    ``__main__.main``) with the launch counters set to 0 just before it and
    read just after: c1 (KDK, K1), the north star (KDK, K2), c2 (King IC,
@@ -36,16 +44,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows) to t = 2, and c1, c3 and c4 with ``integrator.precision=extended``
    (c1x: K8; c3x at N = 16,384: K7 per step, K6 with the potential per row;
    c4x at N = 32,768: K9 once per micro-step, K7 at init; c3x and c4x at
-   N = 4,096: K9), each to t of about 1. If the runs would not fit the time
-   budget, c4's t_end is cut first (to the longest whole multiple of
+   N = 4,096: K9), each to t of about 1. Before those, at fixed lengths,
+   the df32 tier: c5d (c5x with ``integrator.precision=df32`` at full N =
+   131,072, 64 KDK steps, K10 once per step, f64 diagnostics rows), c1d
+   (K10), c3d (N = 16,384 to t = 0.25, K11 per Hermite step) and c4d (N =
+   32,768 to t = 0.25: K11 at init, the active rows as f64 sums, no K5 or
+   K9); and ``configs/binaries_8k.toml`` as committed but for its length
+   (t = 0.125: 10,650 stars, block + extended + pec2 on 12 rungs, K9 twice
+   per micro-step, K7 at init), which must hold |dE/E_int| <= 1e-3 and
+   keep at least 95% of its pairs bound, then the same run at the f32 and
+   the df32 tier, the three drifts and micro-step times side by side. If
+   the runs would not fit the time budget, c4's t_end is cut first (to the longest whole multiple of
    dt_max that fits, at least t = 8), then c1's and the north star's, and
    c5x's last, each cut printed. Each path must launch its kernel, the plain twins must
    not run, no diagnostic may be NaN, and the drift must stay inside its
    bound; c2 must strip 5-40% of its bound mass, and c4, when it runs its
    full length, 5-30%; under block steps the active-row kernel launches
    once per micro-step;
-5. the steps of c2 (KDK), c3 (Hermite), c4 (block) and c5x (KDK at the
-   extended tier, N = 131,072) alone: ms/step, for
+5. the steps of c2 (KDK), c3 (Hermite), c4 (block), c5x (KDK at the
+   extended tier, N = 131,072) and c5d (the same at the df32 tier) alone:
+   ms/step, for
    Hermite and block also without the per-step read (the shared dt; t_next
    and the active count), i.e. the cost of that device sync, and the
    device's busy time per step under torch.profiler over the unprofiled
@@ -67,7 +85,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 C3 = "configs/c3_hermite_16k_kroupa.toml"
 C4 = "configs/c4_block_32k_eccentric.toml"
+C5X = "configs/c5x_131k_extended.toml"
+BIN = "configs/binaries_8k.toml"
 EXT = "integrator.precision=extended"
+DF = "integrator.precision=df32"
+# binaries_8k's length here (its own t_end is 8)
+BIN_T = ["output.t_end=0.125", "output.diag_every=0.125"]
 # path name -> (config, overrides, the kernel it must launch)
 PATHS = {
     "c1": ("configs/c1_plummer_1k.toml", [], "rows"),
@@ -78,7 +101,7 @@ PATHS = {
     "c4": (C4, [], "rows_jerk_t"),
     "c4_n4096": (C4, ["ic.n=4096", "output.t_end=0.25"], "rows_jerk"),
     # the extended (hi/lo) tier: c5x as committed but for its length
-    "c5x": ("configs/c5x_131k_extended.toml", ["output.t_end=2.0"], "sym_x"),
+    "c5x": (C5X, ["output.t_end=2.0"], "sym_x"),
     "c1x": ("configs/c1_plummer_1k.toml",
             [EXT, "output.t_end=2.8284271247"], "rows_x"),
     "c3x": (C3, [EXT, "output.t_end=1.0"], "sym_jerk_x"),
@@ -86,6 +109,19 @@ PATHS = {
     "c3x_n4096": (C3, [EXT, "ic.n=4096", "output.t_end=1.0"], "rows_jerk_x"),
     "c4x_n4096": (C4, [EXT, "ic.n=4096", "output.t_end=0.25"],
                   "rows_jerk_x"),
+}
+# the df32 tier and the binaries config, at fixed lengths, run first
+PATHS_DF = {
+    "c5d": (C5X, [DF, "output.t_end=0.0625", "output.diag_every=0.0625"],
+            "rows_df"),
+    "c1d": ("configs/c1_plummer_1k.toml", [DF, "output.t_end=2.8284271247"],
+            "rows_df"),
+    "c3d": (C3, [DF, "output.t_end=0.25"], "rows_jerk_df"),
+    "c4d": (C4, [DF, "output.t_end=0.25"], "rows_jerk_df"),
+    "binaries_8k": (BIN, BIN_T, "rows_jerk_x"),
+    "binaries_8k_f32": (BIN, BIN_T + ["integrator.precision=f32"],
+                        "rows_jerk"),
+    "binaries_8k_df32": (BIN, BIN_T + [DF], "rows_jerk_df"),
 }
 # if the runs would not fit the budget, c4's t_end is cut first, to a whole
 # multiple of dt_max, but not below this
@@ -95,7 +131,7 @@ CUTTABLE = ("c1", "north_star")
 # and c5x's last, to whole diagnostics intervals
 # the script must finish in 1200 s with the build included; the paths are
 # cut to this so that the whole run ends in about half of that
-BUDGET_S = 620.0
+BUDGET_S = 640.0
 DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                "north_star": ("dE_over_E_int", 1e-5),
                "c2": ("dE_over_E_int", 1e-5),
@@ -110,7 +146,18 @@ DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                "c3x": ("dE_over_E", 1e-6),
                "c3x_n4096": ("dE_over_E", 1e-6),
                "c4x": ("dE_over_E_int", 2e-5),
-               "c4x_n4096": ("dE_over_E_int", 2e-5)}
+               "c4x_n4096": ("dE_over_E_int", 2e-5),
+               "c5d": ("dE_over_E_int", 1e-6),
+               "c1d": ("dE_over_E", 1e-6),
+               "c3d": ("dE_over_E", 1e-6),
+               "c4d": ("dE_over_E_int", 2e-5),
+               # the config's header: -3.9e-4 by t = 1 is its honest
+               # envelope; the f32 tier's drift is printed, not bounded
+               "binaries_8k": ("dE_over_E_int", 1e-3),
+               "binaries_8k_f32": ("dE_over_E_int", math.inf),
+               "binaries_8k_df32": ("dE_over_E_int", 1e-3)}
+# pairs of binaries_8k still mutually bound at the end of its run
+BOUND_PAIRS_MIN = 0.95
 # c2's bound mass stripped over the run: the JAX package's recorded run
 # stripped 18.3% (RESULTS.md:713); outside this range the tide is broken
 STRIP_RANGE = (0.05, 0.40)
@@ -135,11 +182,14 @@ PEAK_BYTES = 3.35e12
 # (row_pair_x), accel+jerk 65 (row_jerk_pair_x); pair-symmetric accel 44
 # and 46 with phi (sym_accel_x.cu:sym_pair_x), accel+jerk 77
 # (sym_jerk_x.cu:sym_jerk_pair_x)
+# the df32 tier, counted in df.cuh's header from its functions (two_sum 6,
+# two_prod 3, df_add 11, df_mul 10, df_sqr 9, df_rsqrt 39 without its
+# seed): accel 233 (df_accel_pair), accel+jerk 481 (df_jerk_pair)
 FLOPS_PER_PAIR = {"rows": 18, "rows_phi": 19, "rows_jerk": 41,
                   "rows_jerk_t": 41, "sym": 26, "sym_phi": 28,
                   "sym_jerk": 53, "rows_x": 36, "rows_x_phi": 37,
                   "rows_jerk_x": 65, "sym_x": 44, "sym_x_phi": 46,
-                  "sym_jerk_x": 77}
+                  "sym_jerk_x": 77, "rows_df": 233, "rows_jerk_df": 481}
 # K5's shapes: c4's 32,768 sources against these active-row counts
 K5_ROWS = (1, 64, 1024, 8192, 32768)
 K5_NS = 32768
@@ -149,6 +199,9 @@ K6_N = 131072
 K7_N = 16384
 K8_N = 1024
 K9_SELF_N = 4096
+# the df32 kernels: c1's, c3's and c5x's N (K10); below and at c3's N (K11)
+K10_NS = (1024, 16384, 131072)
+K11_NS = (4096, 8192, 16384)
 
 
 def _fail(msg):
@@ -169,6 +222,19 @@ def _median_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _once_ms(fn):
+    """ms of one call, no warm-up: for a plain twin that takes seconds."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
 
 
 def _graph_ms(fn, calls=20, reps=5):
@@ -605,7 +671,6 @@ def check_kernels_x(cg, device, main):
         for eps in (0.0, 1.0 / 256):
             k9_case(cg, src, nr, eps)
     check_row_independence_x(cg, src)
-    check_close_pairs(cg, device)
 
 
 def k9_case(cg, src, nr, eps, shift=True):
@@ -682,8 +747,10 @@ def check_close_pairs(cg, device):
     """The case that tells the tiers apart (the JAX package's, from a numpy
     seed): 600 particles, 50 of them 1e-5 of the coordinate scale from a
     partner, eps = 1e-4, against the f64 oracle of the unsplit state. The
-    extended kernels must stay inside 2e-5·max|a| and 5e-5·max|j|; the f32
-    kernels must err past 1e-3·max|a| (a kernel that ignored lo would)."""
+    df32 kernels must stay inside 1e-9·max|a| and 1e-8·max|j|, the extended
+    kernels inside 2e-5·max|a| and 5e-5·max|j|; the f32 kernels must err
+    past 1e-3·max|a| (a kernel that ignored lo would). Returns the worst
+    accel error of each tier."""
     import numpy as np
     import torch
     from oc_nbody_tpu_torch.ops import gravity
@@ -714,12 +781,20 @@ def check_close_pairs(cg, device):
              "K8": rel(cg.rows_x_kernel(hi, lo, hi, lo, gm, eps), a_ref),
              "K9": rel(a9, a_ref)}
     ext_j = {"K7": rel(j7, j_ref), "K9": rel(j9, j_ref)}
+    from oc_nbody_tpu_torch.ops import cuda_df
+    a11, j11 = cuda_df.accel_jerk_df(pos, vel, mass, eps, guarded=False)
+    df_a = {"K10": rel(cuda_df.accel_df(pos, mass, eps, guarded=False),
+                       a_ref), "K11": rel(a11, a_ref)}
+    df_j = {"K11": rel(j11, j_ref)}
     print("close pairs (N=600, 50 pairs at 1e-5, eps=1e-4), max row error "
           "over max row size against the f64 oracle: f32 kernels accel "
           + ", ".join(f"{k} {v:.3e}" for k, v in f32.items())
           + "; extended kernels accel "
           + ", ".join(f"{k} {v:.3e}" for k, v in ext_a.items())
-          + "; jerk " + ", ".join(f"{k} {v:.3e}" for k, v in ext_j.items()))
+          + "; jerk " + ", ".join(f"{k} {v:.3e}" for k, v in ext_j.items())
+          + "; df32 kernels accel "
+          + ", ".join(f"{k} {v:.3e}" for k, v in df_a.items())
+          + "; jerk " + ", ".join(f"{k} {v:.3e}" for k, v in df_j.items()))
     if not all(v > 1e-3 for v in f32.values()):
         raise AssertionError(f"close pairs: an f32 kernel is inside 1e-3: "
                              f"{f32}; the case does not tell the tiers apart")
@@ -727,11 +802,190 @@ def check_close_pairs(cg, device):
         raise AssertionError(f"close pairs: extended accel past 2e-5: {ext_a}")
     if not all(v < 5e-5 for v in ext_j.values()):
         raise AssertionError(f"close pairs: extended jerk past 5e-5: {ext_j}")
+    if not all(v < 1e-9 for v in df_a.values()):
+        raise AssertionError(f"close pairs: df32 accel past 1e-9: {df_a}")
+    if not all(v < 1e-8 for v in df_j.values()):
+        raise AssertionError(f"close pairs: df32 jerk past 1e-8: {df_j}")
+    return {"f32": max(f32.values()), "extended": max(ext_a.values()),
+            "df32": max(df_a.values())}
+
+
+def check_eft(cdf, device):
+    """The device's error-free transforms (csrc/df.cuh, through
+    csrc/df_selftest.cu): s + e == a + b and p + e == a·b exactly in f64 on
+    1e5 f32 pairs of magnitudes 2^-12 .. 2^12 (so both f64 checks are
+    exact), and df_rsqrt inside 1e-13 relative on 1e5 values over nine
+    decades."""
+    import numpy as np
+    import torch
+    from oc_nbody_tpu_torch.ops.df32 import df_from_f64
+    rng = np.random.default_rng(3)
+    n = 100_000
+    a, b = (torch.from_numpy(
+        (rng.normal(size=n) * np.exp2(rng.integers(-12, 13, n)))
+        .astype(np.float32)).to(device) for _ in range(2))
+    x = torch.from_numpy(np.exp(rng.uniform(-14.0, 7.0, n))).to(device)
+    s, se, p, pe, yh, yl = (t.double() for t in cdf.eft_selftest_kernel(
+        a, b, *df_from_f64(x)))
+    bad_sum = int((s + se != a.double() + b.double()).sum())
+    bad_prod = int((p + pe != a.double() * b.double()).sum())
+    rs_err = float((((yh + yl) - x ** -0.5) * x ** 0.5).abs().max())
+    print(f"error-free transforms on the card, {n} f32 pairs: two_sum "
+          f"inexact on {bad_sum}, two_prod inexact on {bad_prod}; df_rsqrt "
+          f"max relative error {rs_err:.3e} (bound 1e-13)")
+    if bad_sum or bad_prod or not rs_err < 1e-13:
+        raise AssertionError("the device's error-free transforms are not "
+                             "exact")
+
+
+def _df_planes(n, seed, device, eps):
+    """((hi, lo, vhi, vlo), (gm_hi, gm_lo, eps2_hi, eps2_lo)) of a
+    Hénon-unit Plummer sphere: the operands of the df32 tier."""
+    import torch
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    from oc_nbody_tpu_torch.ops.df32 import _df_prepare
+    state = plummer(n, torch.Generator().manual_seed(seed), device=device)
+    hi, lo, gm_hi, gm_lo, e2h, e2l, vhi, vlo = _df_prepare(
+        state.pos, state.mass, eps, 1.0, vel=state.vel)
+    return (hi, lo, vhi, vlo), (gm_hi, gm_lo, e2h, e2l)
+
+
+def check_kernels_df(cg, cdf, device, main):
+    """Phase 3, the two-float tier: the EFT self-test, then K10 and K11
+    against the f64 evaluation of the same planes (1e-9·max|a|, 1e-8·max|j|),
+    launched twice and bitwise equal, timed beside the extended and the f32
+    kernel of the same self-interaction (the hi planes and gm_hi are those
+    tiers' operands), the df twin and eager f64 PyTorch; adds their entries
+    to ``main``."""
+    import torch
+    from oc_nbody_tpu_torch.ops import gravity
+    f64 = torch.float64
+    check_eft(cdf, device)
+    print("kernel        shape      eps        max|da|    rel_a     ms        "
+          "twin_ms     extended ms     f32 ms          eager f64 ms")
+    for n in K10_NS:
+        for eps in (1.0 / 512, 0.0):
+            (hi, lo, _, _), rest = _df_planes(n, 31, device, eps)
+            guarded = eps == 0.0
+            args = (hi, lo, hi, lo, *rest)
+            out = cdf.rows_df_kernel(*args, guarded=guarded)
+            if not torch.equal(out, cdf.rows_df_kernel(*args,
+                                                       guarded=guarded)):
+                raise AssertionError(f"rows_accel_df N={n} eps={eps}: two "
+                                     "launches differ bitwise")
+            ref = cdf.rows_df_plain(*args, dtype=f64, guarded=guarded)
+            err, rel, _ = _compare(out, ref, False, 1e-9)
+            del ref
+            ms = _median_ms(lambda: cdf.rows_df_kernel(*args,
+                                                       guarded=guarded))
+            line = (f"rows_accel_df ({n}){'':<{9 - len(str(n))}}{eps:<11.6g}"
+                    f"{err:<11.3e}{rel:<10.2e}{ms:<10.4f}")
+            if eps > 0:
+                gm = rest[0]
+                timer = _once_ms if n > 16384 else _median_ms
+                pms = timer(lambda: cdf.rows_df_plain(*args, guarded=False))
+                if n >= cg.SYM_MIN:
+                    ext = _median_ms(lambda: cg.sym_x_kernel(hi, lo, gm, eps))
+                    f32 = _median_ms(lambda: cg.sym_kernel(hi, gm, eps))
+                    names = ("K6", "K2")
+                else:
+                    ext = _median_ms(lambda: cg.rows_x_kernel(hi, lo, hi, lo,
+                                                              gm, eps))
+                    f32 = _median_ms(lambda: cg.rows_kernel(hi, hi, gm, eps))
+                    names = ("K8", "K1")
+                pos64 = hi.to(f64) + lo.to(f64)
+                e64 = timer(lambda: gravity.accel(pos64, gm, eps,
+                                                  compute_dtype=f64,
+                                                  chunk=256))
+                line += (f"{pms:<12.4f}{ext:<9.4f}({names[0]})   {f32:<9.4f}"
+                         f"({names[1]})   {e64:.4f}")
+                entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, ext_ms=ext,
+                             f32_ms=f32, f64_eager_ms=e64, shape=[n],
+                             bound=_bound(n * n, FLOPS_PER_PAIR["rows_df"],
+                                          80 * n))
+                main[f"rows_df_{n}"] = entry
+                if n == K10_NS[-1]:
+                    main["rows_df"] = entry
+            print(line + "   bitwise-repeatable", flush=True)
+            torch.cuda.empty_cache()
+    print("kernel        shape      eps        max|da|    rel_a     rel_j     "
+          "ms        twin_ms     extended ms     f32 ms          "
+          "eager f64 ms")
+    for n in K11_NS:
+        for eps in (1.0 / 256, 0.0):
+            planes, rest = _df_planes(n, 32, device, eps)
+            hi, lo, vhi, vlo = planes
+            guarded = eps == 0.0
+            args = (*planes, *planes, *rest)
+            out = cdf.rows_jerk_df_kernel(*args, guarded=guarded)
+            if not _same_bits(out, cdf.rows_jerk_df_kernel(*args,
+                                                           guarded=guarded)):
+                raise AssertionError(f"rows_jerk_df N={n} eps={eps}: two "
+                                     "launches differ bitwise")
+            ref = cdf.rows_jerk_df_plain(*args, dtype=f64, guarded=guarded)
+            err, rel_a, rel_j = _compare_jerk(out, ref, 1e-9, 1e-8)
+            del ref
+            ms = _median_ms(lambda: cdf.rows_jerk_df_kernel(*args,
+                                                            guarded=guarded))
+            line = (f"rows_jerk_df  ({n}){'':<{9 - len(str(n))}}{eps:<11.6g}"
+                    f"{err:<11.3e}{rel_a:<10.2e}{rel_j:<10.2e}{ms:<10.4f}")
+            if eps > 0:
+                gm = rest[0]
+                pms = _median_ms(lambda: cdf.rows_jerk_df_plain(
+                    *args, guarded=False), reps=2)
+                if n >= cg.SYM_MIN:
+                    ext = _median_ms(lambda: cg.sym_jerk_x_kernel(*planes, gm,
+                                                                  eps))
+                    xname = "K7"
+                else:
+                    ext = _median_ms(lambda: cg.rows_jerk_x_kernel(
+                        *planes, *planes, gm, eps))
+                    xname = "K9"
+                if n >= cg.RT_MIN_JERK:
+                    f32 = _median_ms(lambda: cg.sym_jerk_kernel(hi, vhi, gm,
+                                                                eps))
+                    fname = "K3"
+                else:
+                    f32 = _median_ms(lambda: cg.rows_jerk_kernel(
+                        hi, vhi, hi, vhi, gm, eps))
+                    fname = "K4"
+                pos64, vel64 = hi.to(f64) + lo.to(f64), vhi.to(f64) + vlo.to(f64)
+                e64 = _median_ms(lambda: gravity.accel_jerk(
+                    pos64, vel64, gm, eps, compute_dtype=f64, chunk=256),
+                    reps=2)
+                line += (f"{pms:<12.4f}{ext:<9.4f}({xname})   {f32:<9.4f}"
+                         f"({fname})   {e64:.4f}")
+                entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, ext_ms=ext,
+                             f32_ms=f32, f64_eager_ms=e64, shape=[n],
+                             bound=_bound(n * n,
+                                          FLOPS_PER_PAIR["rows_jerk_df"],
+                                          152 * n))
+                main[f"rows_jerk_df_{n}"] = entry
+                if n == K11_NS[-1]:
+                    main["rows_jerk_df"] = entry
+            print(line + "   bitwise-repeatable", flush=True)
+            torch.cuda.empty_cache()
+    close = check_close_pairs(cg, device)
+    print("the precision tiers on this card (self-interaction kernel ms; "
+          "close-pair accel error against the f64 oracle):")
+    for n in (16384, 131072):
+        m = main[f"rows_df_{n}"]
+        print(f"  accel N={n}: f32 {m['f32_ms']:.4f}, extended "
+              f"{m['ext_ms']:.4f}, df32 (K10) {m['ms']:.4f}, eager f64 "
+              f"PyTorch {m['f64_eager_ms']:.4f}")
+    for n in (8192, 16384):
+        m = main[f"rows_jerk_df_{n}"]
+        print(f"  accel+jerk N={n}: f32 {m['f32_ms']:.4f}, extended "
+              f"{m['ext_ms']:.4f}, df32 (K11) {m['ms']:.4f}, eager f64 "
+              f"PyTorch {m['f64_eager_ms']:.4f}")
+    print(f"  close pairs: f32 {close['f32']:.3e}, extended "
+          f"{close['extended']:.3e}, df32 {close['df32']:.3e}, f64 exact",
+          flush=True)
 
 
 def _load(name):
     from oc_nbody_tpu_torch.config import apply_overrides, load_config
-    path, over, _ = PATHS[name]
+    path, over, _ = {**PATHS, **PATHS_DF}[name]
     return apply_overrides(load_config(os.path.join(ROOT, path)), over)
 
 
@@ -769,15 +1023,144 @@ def _estimate_s(cfg, device):
     return steps * per_step + n_rows * per_row
 
 
-def run_main_path(cg, device, budget_s):
-    """Phase 4: the CLI on every path, each with the launch counters set to
-    0 just before it and read just after; returns ({name: RunResult},
-    {name: launches})."""
-    import numpy as np
+def _drive(cg, paths, overrides):
+    """The CLI on each of ``paths`` with ``overrides``, the launch counters
+    set to 0 just before each and read just after; checks the launches and
+    the results; returns ({name: RunResult}, {name: launches})."""
     import oc_nbody_tpu_torch.run as run_mod
     from oc_nbody_tpu_torch.__main__ import main as cli_main
-    from oc_nbody_tpu_torch.utils.profiling import interactions_per_sec
 
+    # record the RunResult that the CLI's run() returns
+    results = []
+    real_run = run_mod.run
+
+    def recording_run(*args, **kw):
+        res = real_run(*args, **kw)
+        results.append(res)
+        return res
+
+    run_mod.run = recording_run
+    runs, launches = {}, {}
+    try:
+        for k, (path, _, want) in paths.items():
+            print(f"--- main path: python -m oc_nbody_tpu_torch run {path} "
+                  f"--device cuda "
+                  f"{' '.join('--set ' + o for o in overrides[k])}",
+                  flush=True)
+            argv = ["run", os.path.join(ROOT, path), "--device", "cuda"]
+            for o in overrides[k]:
+                argv += ["--set", o]
+            for key in cg.LAUNCHES:
+                cg.LAUNCHES[key] = 0
+            for key in cg.PLAIN_CALLS:
+                cg.PLAIN_CALLS[key] = 0
+            if cli_main(argv) != 0:
+                raise AssertionError(f"{k}: the CLI returned non-zero")
+            launches[k] = dict(cg.LAUNCHES)
+            runs[k] = results[-1]
+            print(f"{k}: kernel launches {launches[k]}, plain-twin calls "
+                  f"{cg.PLAIN_CALLS}", flush=True)
+            if launches[k][want] <= 0:
+                raise AssertionError(f"{k}: the {want} kernel never launched")
+            if any(cg.PLAIN_CALLS.values()):
+                raise AssertionError(f"{k}: plain twins ran on the path: "
+                                     f"{cg.PLAIN_CALLS}")
+            integ = _load(k).integrator
+            if integ.kind == "block":
+                _check_block_launches(cg, k, results[-1], launches[k])
+            if want.endswith("_x"):
+                _check_extended_launches(cg, k, results[-1], launches[k])
+            if integ.precision == "df32":
+                _check_df_launches(k, results[-1], launches[k])
+    finally:
+        run_mod.run = real_run
+    for k, res in runs.items():
+        _check_run(k, res)
+    return runs, launches
+
+
+def _check_run(k, res):
+    """A path's result: finite state, no NaN diagnostic, the drift inside
+    its bound; prints its line."""
+    import numpy as np
+    from oc_nbody_tpu_torch.utils.profiling import interactions_per_sec
+    n = res.state.n
+    for name in ("pos", "vel"):
+        t = getattr(res.state, name)
+        if tuple(t.shape) != (n, 3) or not bool(t.isfinite().all()):
+            raise AssertionError(f"{k}: final {name} not finite (n, 3)")
+    nan_cols = [c for c, v in res.diagnostics.items() if np.isnan(v).any()]
+    if nan_cols:
+        raise AssertionError(f"{k}: NaN in diagnostics {nan_cols}")
+    col, bound = DRIFT_BOUND[k]
+    drift = float(np.abs(res.diagnostics[col]).max())
+    advance_s = res.phase_s["advance"]
+    rate = interactions_per_sec(n, res.n_steps, advance_s)
+    print(f"{k}: N={n} steps={res.n_steps} t={res.state.time:.6g} "
+          f"max|{col}|={drift:.3e} (bound {bound:g})  "
+          f"{advance_s / res.n_steps * 1e3:.4f} ms/step  "
+          f"{rate:.4e} N^2-equivalent interactions/s  "
+          f"run {res.wall_time_s:.1f} s", flush=True)
+    if not drift <= bound:
+        raise AssertionError(f"{k}: max|{col}| = {drift:.3e} > {bound:g}")
+    cfg = _load(k)
+    if cfg.integrator.kind == "block":
+        _report_block(k, res, advance_s)
+    if cfg.output.diag_f64:
+        rows = len(res.diagnostics["time"])
+        print(f"{k}: f64 diagnostics potential (plain PyTorch, row chunks "
+              f"of 512): {res.phase_s['diagnostics'] / rows:.3f} s per "
+              f"row over {rows} rows (the whole row, N={n})", flush=True)
+
+
+def run_df_paths(cg, device):
+    """Phase 4, first part: the df32 paths and the binaries config at their
+    fixed lengths; returns ({name: RunResult}, {name: launches})."""
+    import numpy as np
+    import torch
+    from oc_nbody_tpu_torch import scene
+    from oc_nbody_tpu_torch.models.binaries import orbital_elements
+    runs, launches = _drive(cg, PATHS_DF,
+                            {k: over for k, (_, over, _) in PATHS_DF.items()})
+    # binaries_8k: the pairs that the IC made, still bound at the end?
+    cfg = _load("binaries_8k")
+    us = scene.build_units(cfg)
+    pop = scene.build_binaries(cfg, us, scene.build_singles(cfg, us))
+    p1 = pop.primary_idx.to(device=device, dtype=torch.int64)
+    p2 = pop.secondary_idx.to(device=device, dtype=torch.int64)
+    if runs["binaries_8k"].state.n != 10650 or len(p1) != 2458:
+        raise AssertionError("binaries_8k: expected 10,650 stars in 2,458 "
+                             f"pairs, got {runs['binaries_8k'].state.n} and "
+                             f"{len(p1)}")
+    n_levels = cfg.integrator.n_levels
+    print("binaries_8k at the three tiers to t = "
+          f"{runs['binaries_8k'].state.time:g} (10,650 stars, 2,458 pairs):")
+    for k in ("binaries_8k_f32", "binaries_8k", "binaries_8k_df32"):
+        res = runs[k]
+        st = res.state
+        gm = us.G * (st.mass[p1] + st.mass[p2]).to(torch.float64)
+        a, e = orbital_elements(st.pos[p1] - st.pos[p2],
+                                st.vel[p1] - st.vel[p2], gm)
+        bound = float(((a > 0) & (e < 1)).to(torch.float64).mean())
+        drift = float(np.abs(res.diagnostics["dE_over_E_int"]).max())
+        rungs = [int(res.diagnostics[f"rung_{i:02d}"][-1])
+                 for i in range(n_levels)]
+        print(f"  {_load(k).integrator.precision:<9} max|dE/E_int| "
+              f"{drift:.3e}  {res.n_steps} micro-steps  "
+              f"{res.phase_s['advance'] / res.n_steps * 1e3:.4f} ms each  "
+              f"{res.n_active_sum / res.n_steps:.1f} active rows each  "
+              f"pairs still bound {bound:.2%}  rungs (dt_max/2^k, k = 0..) "
+              f"{rungs}", flush=True)
+        if bound < BOUND_PAIRS_MIN:
+            raise AssertionError(f"{k}: only {bound:.2%} of the pairs are "
+                                 "still bound")
+    return runs, launches
+
+
+def run_main_path(cg, device, budget_s):
+    """Phase 4, second part: the CLI on the paths of ``PATHS``, their
+    lengths cut to the budget; returns ({name: RunResult}, {name:
+    launches})."""
     est = {k: _estimate_s(_load(k), device) for k in PATHS}
     print("estimated full-length run time: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in est.items())
@@ -819,74 +1202,7 @@ def run_main_path(cg, device, budget_s):
         print(f"CUT: c5x output.t_end {out.t_end} -> {cut} to fit the time "
               "budget (N unchanged)")
 
-    # record the RunResult that the CLI's run() returns
-    results = []
-    real_run = run_mod.run
-
-    def recording_run(*args, **kw):
-        res = real_run(*args, **kw)
-        results.append(res)
-        return res
-
-    run_mod.run = recording_run
-    runs, launches = {}, {}
-    try:
-        for k, (path, _, want) in PATHS.items():
-            print(f"--- main path: python -m oc_nbody_tpu_torch run {path} "
-                  f"--device cuda "
-                  f"{' '.join('--set ' + o for o in overrides[k])}",
-                  flush=True)
-            argv = ["run", os.path.join(ROOT, path), "--device", "cuda"]
-            for o in overrides[k]:
-                argv += ["--set", o]
-            for key in cg.LAUNCHES:
-                cg.LAUNCHES[key] = 0
-            for key in cg.PLAIN_CALLS:
-                cg.PLAIN_CALLS[key] = 0
-            if cli_main(argv) != 0:
-                raise AssertionError(f"{k}: the CLI returned non-zero")
-            launches[k] = dict(cg.LAUNCHES)
-            runs[k] = results[-1]
-            print(f"{k}: kernel launches {launches[k]}, plain-twin calls "
-                  f"{cg.PLAIN_CALLS}", flush=True)
-            if launches[k][want] <= 0:
-                raise AssertionError(f"{k}: the {want} kernel never launched")
-            if any(cg.PLAIN_CALLS.values()):
-                raise AssertionError(f"{k}: plain twins ran on the path: "
-                                     f"{cg.PLAIN_CALLS}")
-            if k.startswith("c4"):
-                _check_block_launches(cg, k, results[-1], launches[k])
-            if want.endswith("_x"):
-                _check_extended_launches(cg, k, results[-1], launches[k])
-    finally:
-        run_mod.run = real_run
-    for k, res in runs.items():
-        n = res.state.n
-        for name in ("pos", "vel"):
-            t = getattr(res.state, name)
-            if tuple(t.shape) != (n, 3) or not bool(t.isfinite().all()):
-                raise AssertionError(f"{k}: final {name} not finite (n, 3)")
-        nan_cols = [c for c, v in res.diagnostics.items() if np.isnan(v).any()]
-        if nan_cols:
-            raise AssertionError(f"{k}: NaN in diagnostics {nan_cols}")
-        col, bound = DRIFT_BOUND[k]
-        drift = float(np.abs(res.diagnostics[col]).max())
-        advance_s = res.phase_s["advance"]
-        rate = interactions_per_sec(n, res.n_steps, advance_s)
-        print(f"{k}: N={n} steps={res.n_steps} t={res.state.time:.6g} "
-              f"max|{col}|={drift:.3e} (bound {bound:g})  "
-              f"{advance_s / res.n_steps * 1e3:.4f} ms/step  "
-              f"{rate:.4e} N^2-equivalent interactions/s  "
-              f"run {res.wall_time_s:.1f} s", flush=True)
-        if not drift <= bound:
-            raise AssertionError(f"{k}: max|{col}| = {drift:.3e} > {bound:g}")
-        if k.startswith("c4"):
-            _report_block(k, res, advance_s)
-        if _load(k).output.diag_f64:
-            rows = len(res.diagnostics["time"])
-            print(f"{k}: f64 diagnostics potential (plain PyTorch, row chunks "
-                  f"of 512): {res.phase_s['diagnostics'] / rows:.3f} s per "
-                  f"row over {rows} rows (the whole row, N={n})", flush=True)
+    runs, launches = _drive(cg, PATHS, overrides)
     mb = runs["c2"].diagnostics["M_bound"]
     stripped = 1.0 - mb[-1] / mb[0]
     print(f"c2: bound mass {mb[0]:.6g} -> {mb[-1]:.6g}: {stripped:.2%} "
@@ -921,7 +1237,7 @@ def _check_extended_launches(cg, k, res, launches):
         raise AssertionError(f"{k}: f32-tier kernels launched on an "
                              f"extended path: {stray}")
     cfg = _load(k)
-    want = PATHS[k][2]
+    want = {**PATHS, **PATHS_DF}[k][2]
     if cfg.integrator.kind == "kdk":
         rows = 0 if cfg.output.diag_f64 else len(res.diagnostics["time"])
         if launches[want] != res.n_steps + 1 + rows:
@@ -934,12 +1250,43 @@ def _check_extended_launches(cg, k, res, launches):
                                  f"times in {res.n_steps} steps")
 
 
+def _check_df_launches(k, res, launches):
+    """On a path of the df32 tier only the two-float kernels launch (the
+    potential and the block stepper's active rows are f64 sums outside any
+    kernel): K10 once per KDK step and once at init, K11 at least once per
+    Hermite step; the block path's count is ``_check_block_launches``'s."""
+    stray = {key: n for key, n in launches.items()
+             if n and not key.endswith("_df")}
+    if stray:
+        raise AssertionError(f"{k}: other tiers' kernels launched on a df32 "
+                             f"path: {stray}")
+    kind = _load(k).integrator.kind
+    if kind == "kdk" and launches["rows_df"] != res.n_steps + 1:
+        raise AssertionError(
+            f"{k}: rows_df launched {launches['rows_df']} times, expected "
+            f"{res.n_steps} steps + 1 (init)")
+    if kind == "hermite" and launches["rows_jerk_df"] < res.n_steps + 1:
+        raise AssertionError(f"{k}: rows_jerk_df launched "
+                             f"{launches['rows_jerk_df']} times in "
+                             f"{res.n_steps} steps")
+
+
 def _check_block_launches(cg, k, res, launches):
     """Under block steps the active-row kernel launches once per micro-step
-    (twice with pec2) and the self-interaction kernel once, at init."""
+    (twice with pec2) and the self-interaction kernel once, at init; at the
+    df32 tier the active rows are f64 sums and only K11 launches, at
+    init."""
     ic = _load(k).integrator
-    want = PATHS[k][2]
+    want = {**PATHS, **PATHS_DF}[k][2]
     per = 2 if ic.pec2 else 1
+    if ic.precision == "df32":
+        expect = {"rows_jerk_df": 1, "rows_jerk": 0, "rows_jerk_t": 0,
+                  "rows_jerk_x": 0}
+        for key, n in expect.items():
+            if launches[key] != n:
+                raise AssertionError(f"{k}: {key} launched {launches[key]} "
+                                     f"times, expected {n}")
+        return
     if ic.precision == "extended":
         init_key = "sym_jerk_x" if res.state.n >= cg.SYM_MIN else "rows_jerk_x"
     else:
@@ -970,8 +1317,9 @@ def _report_block(k, res, advance_s):
 
 
 def measure_steps(device, n_steps=200):
-    """Phase 5, off the main path: the step of c2 (KDK), c3 (Hermite) and
-    c4 (block) on the card. Times n_steps steps on the host clock; for
+    """Phase 5, off the main path: the step of c2 (KDK), c3 (Hermite), c4
+    (block), c5x and c5d (KDK at the extended and the df32 tier) on the
+    card. Times n_steps steps on the host clock; for
     Hermite also without the per-step read of the shared dt (the same device
     work through ``Hermite4.propose`` at the carried dt, one sync at the
     end), and for block steps without the per-micro-step read of (t_next,
@@ -986,14 +1334,16 @@ def measure_steps(device, n_steps=200):
             torch.profiler.ProfilerActivity.CUDA]
     out = {}
     full_steps = n_steps
-    for name in ("c2", "c3", "c4", "c5x"):
-        # c5x's step is some twenty times the others': fewer of them
-        n_steps, n_prof = (full_steps // 5, 20) if name == "c5x" \
-            else (full_steps, 100)
+    for name in ("c2", "c3", "c4", "c5x", "c5d"):
+        # c5x's step is some twenty times the others' and c5d's some two
+        # hundred times: fewer of them (timed steps, profiled, warm-up)
+        n_steps, n_prof, n_warm = {
+            "c5x": (full_steps // 5, 20, 20),
+            "c5d": (full_steps // 20, 5, 2)}.get(name, (full_steps, 100, 20))
         cfg = _load(name)
         scene = build_scene(cfg, device)
         stepper, kind = make_stepper(cfg, scene.force)
-        carry = stepper.advance(stepper.init(scene.state), 20)
+        carry = stepper.advance(stepper.init(scene.state), n_warm)
 
         schedule = []
         if kind == "block":     # the (t_next, n_active) each step reads
@@ -1100,10 +1450,15 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas: " + line.strip())
 
+    from oc_nbody_tpu_torch.ops import cuda_df
     main_shapes = check_kernels(cg, device)
     check_kernels_x(cg, device, main_shapes)
+    check_kernels_df(cg, cuda_df, device, main_shapes)
+    runs, launches = run_df_paths(cg, device)
     budget = BUDGET_S - (time.perf_counter() - t_start)
-    runs, launches = run_main_path(cg, device, budget)
+    more_runs, more_launches = run_main_path(cg, device, budget)
+    runs.update(more_runs)
+    launches.update(more_launches)
     # K5 at the shape c4's main path gave it on average: its mean active
     # rows per micro-step against its 32,768 sources, eps = 1/256
     c4 = runs["c4"]
@@ -1159,7 +1514,13 @@ def main():
              "oc_nbody_tpu/ops/pallas_gravity.py:1132"),
             ("rows_jerk_x", "rows_jerk_x",
              "oc_nbody_tpu_torch/csrc/rows_jerk_x.cu",
-             "oc_nbody_tpu/ops/pallas_gravity.py:1208", None)):
+             "oc_nbody_tpu/ops/pallas_gravity.py:1208", None),
+            ("rows_df", "rows_accel_df",
+             "oc_nbody_tpu_torch/csrc/rows_accel_df.cu",
+             "oc_nbody_tpu/ops/pallas_df.py:121", None),
+            ("rows_jerk_df", "rows_jerk_df",
+             "oc_nbody_tpu_torch/csrc/rows_jerk_df.cu",
+             "oc_nbody_tpu/ops/pallas_df.py:186", None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

@@ -158,16 +158,19 @@ class BlockHermite:
     # A micro-step is three parts: _pre (schedule and predict; static
     # shapes), the pairwise force on the active rows (its shape is the
     # active count, known only after the read), and _finish (external
-    # field, corrector, re-rung; static shapes). On a CUDA device the two
-    # static parts replay as CUDA graphs (_StepGraphs): the micro-step is
-    # some three hundred small O(N) kernels, bound by launching them.
+    # field, corrector, re-rung; static shapes); with pec2 a fourth,
+    # _recorrect (static shapes), and a second pairwise force lie between.
+    # On a CUDA device the static parts replay as CUDA graphs
+    # (_StepGraphs): the micro-step is some three hundred small O(N)
+    # kernels, bound by launching them.
 
     def _pre(self, force, t_i, dt_i, pos, vel, acc, jerk, mass):
         """Enqueued without a sync: (sched = [t_next, n_active] int64,
         t_next 0-d, active mask, compaction order or None when masked,
         predicted xp and vp of every particle, the centred sources as the
-        force model's pair kernels take them: f32 casts, or at the extended
-        tier the eight hi/lo planes, split here once per micro-step)."""
+        force model's pair kernels take them: f32 casts, at the extended
+        tier the eight hi/lo planes, split here once per micro-step, at the
+        df32 tier the f64 predictions themselves)."""
         tn = t_i + dt_i
         t_next = torch.min(tn)
         active = tn == t_next
@@ -184,13 +187,14 @@ class BlockHermite:
 
     @staticmethod
     def _pair(force, sources, idx, n_active, out=None):
-        """Pairwise (a, j) as one f32 (2, N, 3) tensor: of the active rows
-        and zero elsewhere (compacted), or of every row (masked, ``idx``
-        None). ``out``, if given, is that tensor, zeroed by the caller.
-        ``sources`` are the particles' planes (position and velocity; hi
-        and lo of each at the extended tier) and, last, their masses. A row
-        centred (and split) by its gather from the sources' planes is the
-        row centred on its own, bit for bit."""
+        """Pairwise (a, j) as one (2, N, 3) tensor in the pair sum's dtype
+        (f32; f64 at the df32 tier): of the active rows and zero elsewhere
+        (compacted), or of every row (masked, ``idx`` None). ``out``, if
+        given, is that tensor, zero outside the active rows. ``sources``
+        are the particles' planes (position and velocity; hi and lo of each
+        at the extended tier) and, last, their masses. A row centred (and
+        split) by its gather from the sources' planes is the row centred on
+        its own, bit for bit."""
         planes = sources[:-1]
         if out is None:
             out = torch.zeros((2,) + tuple(planes[0].shape),
@@ -213,10 +217,23 @@ class BlockHermite:
         x1 = pos + (h / 2) * (vel + v1) + (h2 / 12) * (a0 - a1)
         return x1, v1
 
+    def _recorrect(self, force, active, xp, vp, pair, pos, vel, acc, jerk,
+                   dt_i, mass):
+        """PEC²'s part between the two force evaluations: correct the
+        active rows with the first evaluation and return (xe, ve, sources),
+        the state the second evaluation sees (inactive particles keep their
+        prediction) and its sources as ``_pre`` gives them."""
+        h = (dt_i.to(torch.float64) * self.dt_min)[:, None]
+        a1, j1, _, _ = self._total(force, xp, vp, pair)
+        x1, v1 = self._corrector(h, pos, vel, acc, jerk, a1, j1)
+        am = active[:, None]
+        xe, ve = torch.where(am, x1, xp), torch.where(am, v1, vp)
+        return xe, ve, force.centred_sources(xe, ve, mass)[:-2]
+
     def _total(self, force, xe, ve, pair):
         """(a1, j1, a_ext1, j_ext1): total force at the evaluation state,
-        the pairwise part (``_pair``'s f32 tensor, cast to xe's dtype) plus
-        the external field at the raw positions."""
+        the pairwise part (``_pair``'s tensor, cast to xe's dtype) plus the
+        external field at the raw positions."""
         a_pair, j_pair = pair.to(xe.dtype).unbind(0)
         a_ext1, j_ext1 = self._ext_parts(force, xe, ve, a_pair)
         if force.external is None:
@@ -259,9 +276,8 @@ class BlockHermite:
                 torch.where(active, dt_new, dt_i))
 
     def _use_graphs(self, carry: BlockCarry) -> bool:
-        """CUDA graphs on a CUDA device; pec2's extra evaluation between
-        the two static parts runs eagerly."""
-        return carry.t_i.device.type == "cuda" and not self.pec2
+        """CUDA graphs on a CUDA device."""
+        return carry.t_i.device.type == "cuda"
 
     def _graphs(self, carry: BlockCarry) -> "_StepGraphs":
         key = (carry.t_i.device, carry.state.n)
@@ -286,6 +302,9 @@ class BlockHermite:
                 return None
             force = self.force.at_time(carry.t_origin + t_next * self.dt_min)
             self._pair(force, sources, idx, n_active, out=g.pair)
+            if self.pec2:
+                g.mid.replay()
+                self._pair(force, g.mid_out[2], idx, n_active, out=g.pair)
             g.post.replay()
             f, i = g.f64.clone(), g.i64.clone()
             pos, vel, acc, jerk, a_ext, j_ext = f.unbind(0)
@@ -306,13 +325,9 @@ class BlockHermite:
         if self.pec2:
             # re-evaluate at the corrected active rows (inactive sources
             # keep their prediction, as pass 1 saw them), correct once more
-            h = (carry.dt_i.to(torch.float64) * self.dt_min)[:, None]
-            a1, j1, _, _ = self._total(force, xp, vp, pair)
-            x1, v1 = self._corrector(h, s.pos, s.vel, carry.acc, carry.jerk,
-                                     a1, j1)
-            am = active[:, None]
-            xe, ve = torch.where(am, x1, xp), torch.where(am, v1, vp)
-            sources = force.centred_sources(xe, ve, s.mass)[:-2]
+            xe, ve, sources = self._recorrect(
+                force, active, xp, vp, pair, s.pos, s.vel, carry.acc,
+                carry.jerk, carry.dt_i, s.mass)
             pair = self._pair(force, sources, idx, n_active)
         out = self._finish(force, t_dev, active, xe, ve, pair, s.pos, s.vel,
                            carry.acc, carry.jerk, carry.a_ext, carry.j_ext,
@@ -420,14 +435,15 @@ class BlockHermite:
 
 
 class _StepGraphs:
-    """The micro-step's two static-shape parts (``_pre`` and ``_finish``)
-    captured as CUDA graphs over buffers of one carry shape. The carry's six
-    f64 (N, 3) fields live in one (6, N, 3) buffer and t_i, dt_i in one
-    (2, N) int64 buffer; ``post`` writes the new carry back into them, so a
-    run of micro-steps loads its carry once and clones two buffers per
-    micro-step for the carry it returns. ``pair`` is the (2, N, 3) f32
-    buffer the eager pairwise force fills between the replays; ``pre``
-    zeroes it."""
+    """The micro-step's static-shape parts (``_pre`` and ``_finish``, and
+    with pec2 ``_recorrect`` between them) captured as CUDA graphs over
+    buffers of one carry shape. The carry's six f64 (N, 3) fields live in
+    one (6, N, 3) buffer and t_i, dt_i in one (2, N) int64 buffer; ``post``
+    writes the new carry back into them, so a run of micro-steps loads its
+    carry once and clones two buffers per micro-step for the carry it
+    returns. ``pair`` is the (2, N, 3) buffer, in the pair sum's dtype, that
+    the eager pairwise force fills between the replays; ``pre`` zeroes it,
+    and pec2's second evaluation overwrites the same active rows."""
 
     def __init__(self, stepper: BlockHermite, carry: BlockCarry):
         s = carry.state
@@ -436,7 +452,8 @@ class _StepGraphs:
         self.f64 = torch.empty((6, s.n, 3), dtype=torch.float64, device=dev)
         self.i64 = torch.empty((2, s.n), dtype=torch.int64, device=dev)
         self.mass = torch.empty_like(s.mass)
-        self.pair = torch.zeros((2, s.n, 3), dtype=torch.float32, device=dev)
+        self.pair = torch.zeros((2, s.n, 3), dtype=force.pair_dtype,
+                                device=dev)
         self.last = None
         self.load(carry)
         pos, vel, acc, jerk, a_ext, j_ext = self.f64.unbind(0)
@@ -447,9 +464,18 @@ class _StepGraphs:
             return stepper._pre(force, t_i, dt_i, pos, vel, acc, jerk,
                                 self.mass)
 
-        def post(pre_out):
-            _, t_next, active, _, xp, vp, _ = pre_out
-            out = stepper._finish(force, t_next, active, xp, vp, self.pair,
+        def mid(pre_out):
+            if not stepper.pec2:
+                return None
+            _, _, active, _, xp, vp, _ = pre_out
+            return stepper._recorrect(force, active, xp, vp, self.pair, pos,
+                                      vel, acc, jerk, dt_i, self.mass)
+
+        def post(pre_out, mid_out):
+            _, t_next, active, _, xe, ve, _ = pre_out
+            if mid_out is not None:
+                xe, ve, _ = mid_out
+            out = stepper._finish(force, t_next, active, xe, ve, self.pair,
                                   pos, vel, acc, jerk, a_ext, j_ext, t_i,
                                   dt_i)
             self.f64.copy_(torch.stack(out[:6]))
@@ -461,14 +487,20 @@ class _StepGraphs:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(2):
-                post(pre())
+                pre_out = pre()
+                post(pre_out, mid(pre_out))
         torch.cuda.current_stream(dev).wait_stream(side)
         self.load(carry, force=True)
         self.pre, self.post = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.pre):
             self.pre_out = pre()
+        self.mid, self.mid_out = None, None
+        if stepper.pec2:
+            self.mid = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.mid, pool=self.pre.pool()):
+                self.mid_out = mid(self.pre_out)
         with torch.cuda.graph(self.post, pool=self.pre.pool()):
-            post(self.pre_out)
+            post(self.pre_out, self.mid_out)
 
     def load(self, carry: BlockCarry, force: bool = False) -> None:
         """Copy the carry into the buffers unless they hold it already."""

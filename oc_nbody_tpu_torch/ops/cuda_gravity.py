@@ -1,5 +1,8 @@
-"""The pairwise force on the card: nine hand-written CUDA kernels for
-Hopper (``sm_90a``), each beside its plain PyTorch twin.
+"""The pairwise force on the card: hand-written CUDA kernels for Hopper
+(``sm_90a``), each beside its plain PyTorch twin. This module holds the f32
+tier (K1-K5) and the extended tier (K6-K9) and builds the one library all
+kernels live in; the two-float tier's K10 and K11 are wrapped in
+``ops/cuda_df.py``.
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
     potential. Replaces the Pallas row-grid kernels ``_accel_kernel`` and
@@ -103,17 +106,18 @@ RT_MAX_ROWS = 65536
 STREAM_N = 262144
 
 _KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
-            "sym_jerk_x", "rows_x", "rows_jerk_x")
+            "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
-_HEADERS = ("pair.cuh",)
+_HEADERS = ("pair.cuh", "df.cuh")
 _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
-            "rows_accel_x.cu", "rows_jerk_x.cu")
+            "rows_accel_x.cu", "rows_jerk_x.cu", "rows_accel_df.cu",
+            "rows_jerk_df.cu", "df_selftest.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -213,6 +217,18 @@ def _library():
         lib.ocn_rows_jerk_x.restype = i
         lib.ocn_rows_jerk_x_scratch.argtypes = [i, i]
         lib.ocn_rows_jerk_x_scratch.restype = ctypes.c_longlong
+        lib.ocn_rows_accel_df.argtypes = [p, p, i, p, p, p, p, i, f, f, i, p,
+                                          p, p, p]
+        lib.ocn_rows_accel_df.restype = i
+        lib.ocn_rows_accel_df_scratch.argtypes = [i, i]
+        lib.ocn_rows_accel_df_scratch.restype = ctypes.c_longlong
+        lib.ocn_rows_jerk_df.argtypes = [p, p, p, p, i, p, p, p, p, p, p, i,
+                                         f, f, i, p, p, p, p, p, p]
+        lib.ocn_rows_jerk_df.restype = i
+        lib.ocn_rows_jerk_df_scratch.argtypes = [i, i]
+        lib.ocn_rows_jerk_df_scratch.restype = ctypes.c_longlong
+        lib.ocn_df_selftest.argtypes = [p, p, p, p, i, p, p]
+        lib.ocn_df_selftest.restype = i
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]

@@ -1,10 +1,11 @@
 """Scene building: units, the external field, the IC and its orbit.
 
 Counterpart of ``oc_nbody_tpu/scene.py`` for the slices the port runs: a
-Plummer or King cluster with equal, Kroupa or Salpeter masses, isolated or
-on a circular or eccentric (optionally inclined) orbit in the analytic
-Milky Way, integrated with fixed-dt KDK, shared-dt Hermite-4 or block
-timesteps on one device, at the f32 or the extended (hi/lo) pairwise
+Plummer or King cluster with equal, Kroupa or Salpeter masses and
+optionally a primordial binary population, isolated or on a circular or
+eccentric (optionally inclined) orbit in the analytic Milky Way,
+integrated with fixed-dt KDK, shared-dt Hermite-4 or block timesteps on one
+device, at the f32, the extended (hi/lo) or the two-float (df32) pairwise
 precision tier. Every other config value is refused
 with the ROADMAP item that ports it, so a config never runs as something it
 does not say.
@@ -25,6 +26,8 @@ from oc_nbody_tpu_torch.integrators.hermite import Hermite4
 from oc_nbody_tpu_torch.integrators.leapfrog import LeapfrogKDK
 from oc_nbody_tpu_torch.models import imf as imf_mod
 from oc_nbody_tpu_torch.models import potentials as pot_mod
+from oc_nbody_tpu_torch.models.binaries import (BinaryPopulation,
+                                                 add_binaries)
 from oc_nbody_tpu_torch.models.king import king
 from oc_nbody_tpu_torch.models.plummer import plummer
 from oc_nbody_tpu_torch.state import ParticleState
@@ -44,13 +47,13 @@ _UNPORTED = (
     ("ic.vel_scale", 1.0, "A8 (scene options)"),
     ("ic.rotation", 0.0, "A14 (models/rotation.py)"),
     ("ic.segregation", 0.0, "A14 (models/segregation.py)"),
-    ("ic.binary_fraction", 0.0, "A14 (models/binaries.py)"),
 )
 _IC_ITEMS = {"dehnen": "A14", "eff": "A14", "file": "A3 (snapshot I/O)"}
 _INTEGRATOR_ITEMS = {"yoshida4": "A14"}
-# the IMF draws from its own generator, so an equal-mass IC's stream is
-# the same whatever the IMF
+# the IMF and the binaries draw from their own generators, so an IC's
+# stream is the same whatever the IMF and the binary fraction
 _IMF_STREAM = 0x494D46
+_BINARY_STREAM = 0x42494E
 _POTENTIAL_ITEMS = {"point_mass": "A4", "log_halo": "A4"}
 
 
@@ -142,10 +145,10 @@ def build_external_potential(cfg: SimConfig,
     raise ValueError(f"unknown potential kind {kind!r}")
 
 
-def build_ic(cfg: SimConfig, us: UnitSystem, device) -> ParticleState:
-    """The Plummer IC (from a generator seeded with ``ic.seed``) or the
-    King IC (numpy, ``ic.seed``), with IMF masses from a second generator
-    when ``ic.imf`` is not ``equal``."""
+def build_singles(cfg: SimConfig, us: UnitSystem) -> ParticleState:
+    """The IC's systems on the CPU: the Plummer IC (from a generator seeded
+    with ``ic.seed``) or the King IC (numpy, ``ic.seed``), with IMF masses
+    from a second generator when ``ic.imf`` is not ``equal``."""
     ic = cfg.ic
     if ic.kind in _IC_ITEMS:
         raise NotImplementedError(f"ic.kind {ic.kind!r} is not ported yet "
@@ -162,11 +165,42 @@ def build_ic(cfg: SimConfig, us: UnitSystem, device) -> ParticleState:
     if ic.kind == "plummer":
         gen = torch.Generator().manual_seed(ic.seed)
         return plummer(ic.n, gen, a=ic.a, total_mass=ic.total_mass, G=us.G,
-                       masses=masses, device=device)
+                       masses=masses)
     if ic.kind == "king":
         return king(ic.n, ic.w0, seed=ic.seed, total_mass=ic.total_mass,
-                    G=us.G, masses=masses, device=device)
+                    G=us.G, masses=masses)
     raise ValueError(f"unknown IC kind {ic.kind!r}")
+
+
+def build_binaries(cfg: SimConfig, us: UnitSystem,
+                   singles: ParticleState) -> BinaryPopulation:
+    """``ic.binary_fraction`` of ``singles`` split into binaries, from a
+    third generator (seed + a constant): the state and which particles
+    pair up. Comes after the JAX package's rotation and segregation steps,
+    which are not ported."""
+    ic = cfg.ic
+    if not ic.binary_fraction > 0.0:
+        return add_binaries(singles, None, 0.0, 1.0, 1.0)    # no pairs
+    if ic.binary_a_min is None or ic.binary_a_max is None:
+        raise ValueError(
+            "ic.binary_fraction > 0 requires ic.binary_a_min and "
+            "ic.binary_a_max (semi-major-axis bounds, code units)")
+    if ic.binary_a_min < 2.0 * cfg.integrator.eps:
+        raise ValueError(
+            f"ic.binary_a_min = {ic.binary_a_min} is below twice the "
+            f"softening eps = {cfg.integrator.eps}: such pairs are "
+            "softened away, not binaries — raise a_min or lower eps")
+    gen = torch.Generator().manual_seed(ic.seed + _BINARY_STREAM)
+    return add_binaries(
+        singles, gen, fraction=ic.binary_fraction, a_min=ic.binary_a_min,
+        a_max=ic.binary_a_max, G=us.G, q_min=ic.binary_q_min,
+        e_max=ic.binary_e_max)
+
+
+def build_ic(cfg: SimConfig, us: UnitSystem, device) -> ParticleState:
+    """The configured IC: the systems, then their binaries. Built on the
+    CPU, so it is the same whatever the device, and moved at the end."""
+    return build_binaries(cfg, us, build_singles(cfg, us)).state.to(device)
 
 
 def eccentric_orbit_ic(potential: pot_mod.Potential, r_apo: float,

@@ -19,14 +19,22 @@ lo) planes at the same tolerances (their f32 sums are of the same length),
 and on the close-pair case to the f64 oracle of the unsplit positions at
 the tier's bounds (2e-5 of max|a|, 5e-5 of max|j|) where the f32 kernels
 err past 1e-3; K6, K7 and K9 repeat bitwise and K9 gives a row the same
-bits whatever other rows share the launch.
+bits whatever other rows share the launch. K10 (rows_accel_df) and K11
+(rows_jerk_df), the two-float tier, are held to the f64 evaluation of their
+planes at 1e-9 of max|a| and 1e-8 of max|j| (the tier's ~48-bit arithmetic
+leaves ~1e-11; the bounds leave room for cancellation in a row's sum),
+repeat bitwise, and on the close-pair case stay inside 1e-9 / 1e-8 of the
+f64 oracle; the device's two_sum and two_prod are exact and its df_rsqrt is
+inside 1e-13. The ragged sizes 1,000 and 10,650 (the binaries config's N)
+run through K6, K7, K9, K10 and K11.
 """
 import numpy as np
 import pytest
 import torch
 
+from oc_nbody_tpu_torch.ops import cuda_df
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
-from oc_nbody_tpu_torch.ops import gravity
+from oc_nbody_tpu_torch.ops import df32, gravity
 from oc_nbody_tpu_torch.ops.gravity import prepare_f32
 
 pytestmark = pytest.mark.cuda
@@ -163,6 +171,9 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda):
                   1.0 / 64)                             # below: K4
     cg.accel_jerk_rows(pos[:64], vel[:64], pos, vel, mass,
                        1.0 / 64)                        # rows: K5
+    cuda_df.accel_df(pos64[:1000], mass[:1000], 1.0 / 64)         # K10
+    cuda_df.accel_jerk_df(pos64[:1000], vel64[:1000], mass[:1000],
+                          1.0 / 64)                               # K11
     torch.cuda.synchronize()
     assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
     assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}
@@ -462,3 +473,231 @@ def test_block_graphs_compaction_and_masking_agree_bitwise_extended(cuda, n):
         assert other.state.time == eager.state.time
         for a, b in zip(_carry_fields(other), _carry_fields(eager)):
             assert torch.equal(a, b)
+
+
+# ---- the two-float (df32) tier: K10, K11 -----------------------------------
+
+def _df_planes(n, seed, device, eps, close=0):
+    """(hi, lo, vhi, vlo, gm_hi, gm_lo, e2h, e2l) of a cluster 8 kpc from
+    the origin, ``close`` of its particles 1e-5 from a partner."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=(n, 3))
+    pos[close:2 * close] = pos[:close] + 1e-5 * rng.normal(size=(close, 3))
+    pos = torch.from_numpy(pos + [8000.0, 0.0, 3.0]).to(device)
+    vel = torch.from_numpy(rng.normal(size=(n, 3)) * 0.5
+                           + [0.0, 220.0, 0.0]).to(device)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n).to(device)
+    hi, lo, gm_hi, gm_lo, e2h, e2l, vhi, vlo = df32._df_prepare(
+        pos, mass, eps, 1.3, vel=vel)
+    return hi, lo, vhi, vlo, gm_hi, gm_lo, e2h, e2l
+
+
+def _check_df(out, ref, tols):
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for got, want, tol in zip(out, ref, tols):
+        assert got.dtype == want.dtype == torch.float64
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (err, tol)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 4096])
+@pytest.mark.parametrize("n", [1, 33, 255, 257, 1000, 10650])
+def test_rows_df_kernel_matches_f64_and_repeats_bitwise(cuda, n, eps):
+    hi, lo, _, _, *rest = _df_planes(n, n, cuda, eps, close=n // 20)
+    guarded = eps == 0.0
+    out = cuda_df.rows_df_kernel(hi, lo, hi, lo, *rest, guarded=guarded)
+    again = cuda_df.rows_df_kernel(hi, lo, hi, lo, *rest, guarded=guarded)
+    ref = cuda_df.rows_df_plain(hi, lo, hi, lo, *rest, dtype=torch.float64,
+                                guarded=guarded)
+    _check_df(out, ref, (1e-9,))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 4096])
+@pytest.mark.parametrize("n", [1, 33, 255, 257, 1000, 10650])
+def test_rows_jerk_df_kernel_matches_f64_and_repeats_bitwise(cuda, n, eps):
+    hi, lo, vhi, vlo, *rest = _df_planes(n, n + 1, cuda, eps, close=n // 20)
+    planes = (hi, lo, vhi, vlo)
+    guarded = eps == 0.0
+    out = cuda_df.rows_jerk_df_kernel(*planes, *planes, *rest,
+                                      guarded=guarded)
+    again = cuda_df.rows_jerk_df_kernel(*planes, *planes, *rest,
+                                        guarded=guarded)
+    ref = cuda_df.rows_jerk_df_plain(*planes, *planes, *rest,
+                                     dtype=torch.float64, guarded=guarded)
+    _check_df(out, ref, (1e-9, 1e-8))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("nr,ns", [(37, 300), (1000, 4097)])
+def test_df_kernels_on_rows_that_are_not_the_sources(cuda, nr, ns):
+    hi, lo, vhi, vlo, *rest = _df_planes(ns, ns, cuda, 1e-3)
+    src = (hi, lo, vhi, vlo)
+    # shifted rows: the hi words move, the lo words stay (a valid pair)
+    rows = ((hi[:nr] + 0.01).contiguous(), lo[:nr].contiguous(),
+            (vhi[:nr] - 0.01).contiguous(), vlo[:nr].contiguous())
+    _check_df(cuda_df.rows_df_kernel(*rows[:2], hi, lo, *rest),
+              cuda_df.rows_df_plain(*rows[:2], hi, lo, *rest,
+                                    dtype=torch.float64), (1e-9,))
+    _check_df(cuda_df.rows_jerk_df_kernel(*rows, *src, *rest),
+              cuda_df.rows_jerk_df_plain(*rows, *src, *rest,
+                                         dtype=torch.float64), (1e-9, 1e-8))
+
+
+def test_df_kernels_match_their_f32_twins(cuda):
+    """The kernels and the twins are the same tier: they agree far inside
+    the tier's distance from f64 (the kernels fuse the products' cross
+    terms, the twins round them apart)."""
+    hi, lo, vhi, vlo, *rest = _df_planes(600, 9, cuda, 1e-4, close=50)
+    planes = (hi, lo, vhi, vlo)
+    _check_df(cuda_df.rows_df_kernel(hi, lo, hi, lo, *rest),
+              cuda_df.rows_df_plain(hi, lo, hi, lo, *rest), (1e-10,))
+    _check_df(cuda_df.rows_jerk_df_kernel(*planes, *planes, *rest),
+              cuda_df.rows_jerk_df_plain(*planes, *planes, *rest),
+              (1e-10, 1e-9))
+
+
+def test_device_error_free_transforms_are_exact(cuda):
+    """s + e == a + b and p + e == a b exactly in f64 on 1e5 f32 pairs of
+    mixed magnitude (2^-12 .. 2^12, so both f64 checks are exact), and
+    df_rsqrt inside 1e-13 relative."""
+    rng = np.random.default_rng(3)
+    n = 100_000
+    a, b = (torch.from_numpy(
+        (rng.normal(size=n) * np.exp2(rng.integers(-12, 13, n)))
+        .astype(np.float32)).to(cuda) for _ in range(2))
+    x = torch.from_numpy(np.exp(rng.uniform(-14.0, 7.0, n))).to(cuda)
+    xh, xl = df32.df_from_f64(x)
+    s, se, p, pe, yh, yl = (t.double() for t in
+                            cuda_df.eft_selftest_kernel(a, b, xh, xl))
+    assert torch.equal(s + se, a.double() + b.double())
+    assert torch.equal(p + pe, a.double() * b.double())
+    assert float((((yh + yl) - x ** -0.5) * x ** 0.5).abs().max()) < 1e-13
+    # the twins' transforms on the same inputs give the same words
+    for got, want in zip(cuda_df.eft_selftest_kernel(a, b, xh, xl)[:4],
+                         cuda_df.eft_selftest_plain(a, b, xh, xl)[:4]):
+        assert torch.equal(got, want)
+
+
+def test_close_pairs_at_the_df32_tier_on_the_card(cuda):
+    """The close-pair case: K10 and K11 inside 1e-9 of max|a| and 1e-8 of
+    max|j| of the f64 oracle of the unsplit state (the extended kernels:
+    ~1e-6, the f32 kernels: ~5e-3)."""
+    rng = np.random.default_rng(7)
+    n, eps = 600, 1e-4
+    pos = rng.normal(size=(n, 3))
+    pos[50:100] = pos[:50] + 1e-5 * rng.normal(size=(50, 3))
+    pos = torch.from_numpy(pos).to(cuda)
+    vel = torch.from_numpy(0.3 * rng.normal(size=(n, 3))).to(cuda)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n).to(cuda)
+    a_ref, j_ref = gravity.accel_jerk_direct(pos, vel, mass, eps)
+
+    def rel(got, want):
+        return float(torch.linalg.norm(got - want, dim=1).max()
+                     / torch.linalg.norm(want, dim=1).max())
+
+    launches = dict(cg.LAUNCHES)
+    assert rel(cuda_df.accel_df(pos, mass, eps, guarded=False), a_ref) < 1e-9
+    acc, jerk = cuda_df.accel_jerk_df(pos, vel, mass, eps, guarded=False)
+    assert rel(acc, a_ref) < 1e-9 and rel(jerk, j_ref) < 1e-8
+    assert cg.LAUNCHES["rows_df"] == launches["rows_df"] + 1
+    assert cg.LAUNCHES["rows_jerk_df"] == launches["rows_jerk_df"] + 1
+    # a kernel that dropped the lo planes would be the f32 tier
+    hi, lo, *rest = df32._df_prepare(pos, mass, eps, 1.0)
+    zero = torch.zeros_like(lo)
+    assert rel(cuda_df.rows_df_kernel(hi, zero, hi, zero, *rest),
+               a_ref) > 1e-3
+
+
+def test_guarded_coincident_pair_adds_nothing_at_the_df32_tier(cuda):
+    z = torch.zeros((2, 3), dtype=torch.float32, device=cuda)
+    vel = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], dtype=torch.float32,
+                       device=cuda)
+    gm = torch.ones(2, dtype=torch.float32, device=cuda)
+    gl = torch.zeros(2, dtype=torch.float32, device=cuda)
+    outs = (cuda_df.rows_df_kernel(z, z, z, z, gm, gl, 0.0, 0.0,
+                                   guarded=True),
+            *cuda_df.rows_jerk_df_kernel(z, z, vel, z, z, z, vel, z, gm, gl,
+                                         0.0, 0.0, guarded=True))
+    for out in outs:
+        assert bool((out == 0).all())
+
+
+def test_df_launchers_check_their_input(cuda):
+    hi, lo, vhi, vlo, *rest = _df_planes(64, 2, cuda, 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_df.rows_df_kernel(hi.double(), lo, hi, lo, *rest)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_df.rows_jerk_df_kernel(hi, lo, vhi, vlo[:10], hi, lo, vhi, vlo,
+                                    *rest)
+    with pytest.raises(NotImplementedError, match="STREAM_N"):
+        big = torch.zeros((cg.STREAM_N + 1, 3), dtype=torch.float64,
+                          device=cuda)
+        cuda_df.accel_df(big, big[:, 0], 0.1)
+
+
+@pytest.mark.parametrize("n", [1000, 10650])
+def test_extended_kernels_at_ragged_sizes(cuda, n):
+    """K6 with the potential, K7 and K9 at sizes that fill no tile, chunk
+    or stage evenly (10,650: the binaries config's star count)."""
+    hi, lo, gm, vhi, vlo = _planes(n, n + 3, cuda)
+    src = (hi, lo, vhi, vlo)
+    eps = 1.0 / 4096
+    f64 = torch.float64
+    _check_x(cg.sym_x_kernel(hi, lo, gm, eps, with_phi=True, guarded=False),
+             cg.sym_x_plain(hi, lo, gm, eps, with_phi=True, dtype=f64),
+             phi=True)
+    out = cg.sym_jerk_x_kernel(*src, gm, eps, guarded=False)
+    _check_x(out, cg.sym_jerk_x_plain(*src, gm, eps, dtype=f64))
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, cg.sym_jerk_x_kernel(*src, gm, eps, guarded=False)))
+    full = cg.rows_jerk_x_kernel(*src, *src, gm, eps, guarded=False)
+    _check_x(full, cg.rows_jerk_x_plain(*src, *src, gm, eps, dtype=f64))
+    rows = torch.arange(n - 37, n, device=cuda)       # the ragged tail
+    sub = cg.rows_jerk_x_kernel(*(p[rows] for p in src), *src, gm, eps,
+                                guarded=False)
+    assert all(torch.equal(a, b[rows]) for a, b in zip(sub, full))
+
+
+@pytest.mark.parametrize("over", [[], ["integrator.precision=extended"]],
+                         ids=["f32", "extended"])
+def test_block_graphs_with_pec2_agree_bitwise(cuda, over):
+    """With pec2 the micro-step replays three CUDA graphs around two force
+    launches: equal to the eager micro-step and to the masked evaluation,
+    bit for bit."""
+    eager = _block_run(cuda, 4096, 16, eager=True, over=over, pec2=True)
+    graphs = _block_run(cuda, 4096, 16, over=over, pec2=True)
+    masked = _block_run(cuda, 4096, 16, n_buckets=0, over=over, pec2=True)
+    plain = _block_run(cuda, 4096, 16, over=over)
+    assert not torch.equal(plain.state.pos, graphs.state.pos)
+    for other in (graphs, masked):
+        assert other.n_steps == eager.n_steps == 16
+        assert other.n_active_sum == eager.n_active_sum
+        for a, b in zip(_carry_fields(other), _carry_fields(eager)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pec2", [False, True])
+def test_block_graphs_at_df32_agree_with_eager(cuda, pec2):
+    """At the df32 tier K11 launches once, at init, and the active rows are
+    eager f64 sums into an f64 pair buffer between the graph replays: the
+    same bits as the eager micro-step; the masked evaluation sums other
+    shapes, so it agrees to f64 rounding."""
+    over = ["integrator.precision=df32"]
+    launches = dict(cg.LAUNCHES)
+    eager = _block_run(cuda, 4096, 16, eager=True, over=over, pec2=pec2)
+    assert cg.LAUNCHES["rows_jerk_df"] == launches["rows_jerk_df"] + 1
+    assert cg.LAUNCHES["rows_jerk_x"] == launches["rows_jerk_x"]
+    assert cg.LAUNCHES["rows_jerk"] == launches["rows_jerk"]
+    graphs = _block_run(cuda, 4096, 16, over=over, pec2=pec2)
+    masked = _block_run(cuda, 4096, 16, n_buckets=0, over=over, pec2=pec2)
+    assert graphs.n_active_sum == eager.n_active_sum == masked.n_active_sum
+    for a, b in zip(_carry_fields(graphs), _carry_fields(eager)):
+        assert torch.equal(a, b)
+    for a, b in zip(_carry_fields(masked), _carry_fields(eager)):
+        if a.dtype == torch.int64:
+            assert torch.equal(a, b)
+        else:
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 1e-11 * scale

@@ -19,7 +19,7 @@ same numpy state through the JAX package's ``ForceModel(backend="pallas",
 precision="extended")``, its Pallas kernels in interpret mode, and through
 the port on the CPU (the plain twins of K6-K9): positions to 1e-9 of the
 cluster size, the diagnostics columns as above; the ``diag_f64`` row equal
-to JAX's to 1e-12 relative; ``df32``, N past ``STREAM_N`` and more than one
+to JAX's to 1e-12 relative; N past ``STREAM_N`` and more than one
 device refused with their ROADMAP items.
 """
 import math
@@ -333,8 +333,8 @@ def test_cli_info_and_refusals(capsys):
                     "integrator.macro_batches=4"])
     with pytest.raises(NotImplementedError, match="A14"):
         tmain.main(["run", C1, "--device", "cpu", "--set", "ic.kind=dehnen"])
-    # the precision tiers: extended runs, df32 and what lies past the
-    # resident kernels are refused by name
+    # the precision tiers: extended and df32 run, what lies past the
+    # resident kernels is refused by name
     assert tmain.main(["info", C5X]) == 0
     out = capsys.readouterr().out
     assert "pairwise precision tier: extended; diagnostics potential: f64" \
@@ -343,12 +343,14 @@ def test_cli_info_and_refusals(capsys):
     assert "precision tier: f32; diagnostics potential: the tier" \
         in capsys.readouterr().out
     assert tmain.main(["info", C1, "--set", "integrator.precision=df32"]) == 0
-    assert "does not run here" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="B8"):
-        tmain.main(["run", C1, "--device", "cpu", "--set",
-                    "integrator.precision=df32"])
-    with pytest.raises(NotImplementedError, match="B8"):
-        t_make_force_model(0.01, precision="df32")
+    assert "precision tier: df32; diagnostics potential: the tier" \
+        in capsys.readouterr().out
+    assert tmain.main(["run", C1, "--device", "cpu", "--set", "ic.n=64",
+                       "--set", "integrator.precision=df32", "--set",
+                       "output.t_end=0.0078125", "--set",
+                       "output.diag_every=0.0078125"]) == 0
+    assert "steps=16" in capsys.readouterr().out
+    assert t_make_force_model(0.01, precision="df32").precision == "df32"
     with pytest.raises(ValueError, match="unknown precision"):
         t_make_force_model(0.01, precision="f16")
     with pytest.raises(NotImplementedError, match="B7"):
