@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from the sources in the checkout (one nvcc per
    source, all at once);
 3. each kernel (K1 rows_accel, K2 sym_accel, K3 sym_jerk, K4 rows_jerk,
-   K5 rows_jerk_t) against its plain PyTorch twin in f64 on the same
-   inputs, with max error, tolerance and times (CUDA events, median of 5)
-   for the kernel and the f32 plain twin (K5 and K4 beside it as CUDA-graph
+   K5 rows_jerk_t; K6-K14 below) against its plain PyTorch twin in f64 on
+   the same inputs, with max error, tolerance and times (CUDA events,
+   median of 5) for the kernel and the f32 plain twin (K5 and K4 beside it as CUDA-graph
    replays of 20 calls); K2, K3 and K5 are launched twice
    and must be bitwise equal, and K5 must give a row the same bits alone,
    in a subset and among all rows; K5 is timed beside K4 at the same
@@ -32,7 +32,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-9 of max|a| and 1e-8 of max|j|, launched twice and bitwise equal;
    eager f64 PyTorch (the blocked accel + jerk sum) timed beside K11 at
    8,192 and 16,384; and K10 and K11 on the close-pair case inside 1e-9 /
-   1e-8 of the f64 oracle;
+   1e-8 of the f64 oracle. Then the f32 tier past STREAM_N: K12
+   cross_accel (with and without the potential) at a full chunk pair
+   (131,072²) and a ragged one (131,072 x 82,496), K13 cross_jerk at
+   98,304² and 98,304 x 65,536, and K14 (K5 compensated) on 1 to 4,096
+   rows against 1,048,576 sources, each against its f64 twin inside 2e-5
+   of max (phi rtol 3e-5), launched twice and bitwise equal, K14 row-set
+   independent; the chunked evaluation at N = 1,048,576 (accel, accel +
+   phi, accel + jerk) against the f64 oracle rows sum on 4,096 sampled
+   rows against all sources inside 2e-5 of max (phi rtol 3e-5), bitwise
+   repeatable, timed at 1M and 2,097,152 beside K1 as a one-sided
+   self-interaction at 1M;
 4. the paths, each through ``python -m oc_nbody_tpu_torch run`` (via
    ``__main__.main``) with the launch counters set to 0 just before it and
    read just after: c1 (KDK, K1), the north star (KDK, K2), c2 (King IC,
@@ -53,7 +63,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (t = 0.125: 10,650 stars, block + extended + pec2 on 12 rungs, K9 twice
    per micro-step, K7 at init), which must hold |dE/E_int| <= 1e-3 and
    keep at least 95% of its pairs bound, then the same run at the f32 and
-   the df32 tier, the three drifts and micro-step times side by side. If
+   the df32 tier, the three drifts and micro-step times side by side;
+   and past STREAM_N, at fixed lengths: c6 (N = 1,048,576) and c7 (N =
+   2,097,152) as committed but cut to four KDK steps (chunked K2 + K12
+   every step, K12<phi> every diagnostics row), c3 at N = 1,048,576
+   (Hermite, chunked K3 + K13 every step) and c4 at N = 1,048,576 (block
+   steps to t = one dt_max: chunked K3 + K13 at init, K14 once per
+   micro-step), each with its kernels' exact launch counts, no K1, K4 or
+   K5, and |dE/E_int| <= 1e-6. If
    the runs would not fit the time budget, c4's t_end is cut first (to the longest whole multiple of
    dt_max that fits, at least t = 8), then c1's and the north star's, and
    c5x's last, each cut printed. Each path must launch its kernel, the plain twins must
@@ -69,10 +86,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    device's busy time per step under torch.profiler over the unprofiled
    step time.
 
-Then the card's name and power limit, one JSON line with the kernels'
-numbers, and as the last line ``{"ok": true, "device": {...}}``. Without a
-CUDA device, or without the package beside it, the script exits non-zero
-and prints no result.
+Between phases 4 and 5: K5, K9 and K14 timed at the mean active rows of
+c4, c4x and c4 at 1M. Then the card's name and power limit, one JSON line
+with the kernels' numbers (K1-K14), and as the last line ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or without the package beside
+it, the script exits non-zero and prints no result.
 """
 import json
 import math
@@ -155,7 +173,13 @@ DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                # envelope; the f32 tier's drift is printed, not bounded
                "binaries_8k": ("dE_over_E_int", 1e-3),
                "binaries_8k_f32": ("dE_over_E_int", math.inf),
-               "binaries_8k_df32": ("dE_over_E_int", 1e-3)}
+               "binaries_8k_df32": ("dE_over_E_int", 1e-3),
+               # past STREAM_N: the JAX package's c6 held 2.61e-7 over 256
+               # steps and c7 2.0e-9 over 16 (RESULTS.md:522-537)
+               "c6": ("dE_over_E_int", 1e-6),
+               "c7": ("dE_over_E_int", 1e-6),
+               "c3_1m": ("dE_over_E_int", 1e-6),
+               "c4_1m": ("dE_over_E_int", 1e-6)}
 # pairs of binaries_8k still mutually bound at the end of its run
 BOUND_PAIRS_MIN = 0.95
 # c2's bound mass stripped over the run: the JAX package's recorded run
@@ -185,11 +209,16 @@ PEAK_BYTES = 3.35e12
 # the df32 tier, counted in df.cuh's header from its functions (two_sum 6,
 # two_prod 3, df_add 11, df_mul 10, df_sqr 9, df_rsqrt 39 without its
 # seed): accel 233 (df_accel_pair), accel+jerk 481 (df_jerk_pair)
+# the cross kernels K12 and K13 run K2's and K3's pair functions on every
+# pair of two sets (26, 28 with phi, 53); K14 is K5's pair (41) plus a Kahan
+# step of 4 flops per component and stage of 32 pairs (24 / 32 = 0.75)
 FLOPS_PER_PAIR = {"rows": 18, "rows_phi": 19, "rows_jerk": 41,
                   "rows_jerk_t": 41, "sym": 26, "sym_phi": 28,
                   "sym_jerk": 53, "rows_x": 36, "rows_x_phi": 37,
                   "rows_jerk_x": 65, "sym_x": 44, "sym_x_phi": 46,
-                  "sym_jerk_x": 77, "rows_df": 233, "rows_jerk_df": 481}
+                  "sym_jerk_x": 77, "rows_df": 233, "rows_jerk_df": 481,
+                  "cross": 26, "cross_phi": 28, "cross_jerk": 53,
+                  "rows_jerk_stream": 41.75}
 # K5's shapes: c4's 32,768 sources against these active-row counts
 K5_ROWS = (1, 64, 1024, 8192, 32768)
 K5_NS = 32768
@@ -202,6 +231,36 @@ K9_SELF_N = 4096
 # the df32 kernels: c1's, c3's and c5x's N (K10); below and at c3's N (K11)
 K10_NS = (1024, 16384, 131072)
 K11_NS = (4096, 8192, 16384)
+# past STREAM_N (the f32 tier's chunked self-interaction, K12-K14): c6's N,
+# c7's, a full chunk pair of each op and a ragged one (1,000,000 stars end
+# in a chunk of 82,496; c6's jerk chunks in one of 65,536), the sample of
+# rows the chunked evaluation is held to the f64 oracle on, and K14's row
+# counts against c6's 1M sources
+BIG_N = 1048576
+BIG_N2 = 2097152
+K12_PAIRS = ((131072, 131072), (131072, 82496))
+K13_PAIRS = ((98304, 98304), (98304, 65536))
+BIG_SAMPLE = 4096
+K14_ROWS = (1, 64, 1024, 4096)
+C6 = "configs/c6_1m_streamed.toml"
+C7 = "configs/c7_2m_chunked.toml"
+# c3 at 1M: its Hermite run to this t. The Aarseth criterion sets the
+# shared dt by the closest pair, 2.66e-6 at t = 0 at this N (measured on
+# an H100), so 2^-16 is about five steps
+C3_1M_T = 2.0 ** -16
+# the paths past STREAM_N, at fixed lengths, run before the main paths: c6
+# and c7 as committed but cut to four KDK steps; c3 and c4 at N = 1M, c4
+# to t = one dt_max
+PATHS_BIG = {
+    "c6": (C6, ["output.t_end=0.015625", "output.diag_every=0.0078125"],
+           "cross"),
+    "c7": (C7, ["output.t_end=0.015625", "output.diag_every=0.015625"],
+           "cross"),
+    "c3_1m": (C3, ["ic.n=1048576", f"output.t_end={C3_1M_T!r}",
+                   f"output.diag_every={C3_1M_T!r}"], "cross_jerk"),
+    "c4_1m": (C4, ["ic.n=1048576", "output.t_end=0.015625",
+                   "output.diag_every=0.015625"], "rows_jerk_stream"),
+}
 
 
 def _fail(msg):
@@ -512,26 +571,30 @@ def k5_case(cg, src, svel, mass, nr, eps):
                 shape=[nr, ns], bound=bound)
 
 
-def check_row_independence(cg, src, svel, mass):
-    """K5 gives a row the same bits alone, in a random subset and among all
-    rows (what makes compacted and masked block steps agree)."""
+def check_row_independence(cg, src, svel, mass, kernel=None,
+                           name="rows_jerk_t", rows_of=None):
+    """K5 (or ``kernel``) gives a row the same bits alone, in a random
+    subset and among all rows (what makes compacted and masked block steps
+    agree); the rows are the first ``rows_of`` sources (all by default)."""
     import torch
+    kernel = kernel or cg.rows_jerk_t_kernel
     ns = src.shape[0]
+    nr = rows_of or ns
     gen = torch.Generator().manual_seed(16)
     for guarded, eps in ((True, 0.0), (False, 1.0 / 256)):
-        full = cg.rows_jerk_t_kernel(src, svel, src, svel, mass, eps,
-                                     guarded=guarded)
+        full = kernel(src[:nr], svel[:nr], src, svel, mass, eps,
+                      guarded=guarded)
         for k in (1, 64, 1024, 8191):
-            rows = torch.randperm(ns, generator=gen)[:k].to(src.device)
-            sub = cg.rows_jerk_t_kernel(src[rows].contiguous(),
-                                        svel[rows].contiguous(), src, svel,
-                                        mass, eps, guarded=guarded)
+            rows = torch.randperm(nr, generator=gen)[:k].to(src.device)
+            sub = kernel(src[rows].contiguous(), svel[rows].contiguous(), src,
+                         svel, mass, eps, guarded=guarded)
             if not all(torch.equal(a, b[rows]) for a, b in zip(sub, full)):
-                raise AssertionError(f"rows_jerk_t: {k} rows launched apart "
+                raise AssertionError(f"{name}: {k} rows launched apart "
                                      "differ bitwise from the same rows "
                                      "among all")
-    print(f"rows_jerk_t: rows of 1, 64, 1024 and 8191 launched apart are "
-          f"bitwise equal to the same rows among all {ns} (eps 0 and 1/256)")
+    print(f"{name}: rows of 1, 64, 1024 and 8191 launched apart are bitwise "
+          f"equal to the same rows among {nr} against {ns} sources (eps 0 "
+          "and 1/256)")
 
 
 def _planes(n, seed, device):
@@ -983,9 +1046,221 @@ def check_kernels_df(cg, cdf, device, main):
           flush=True)
 
 
+def check_kernels_big(cg, device, main):
+    """Phase 3, past STREAM_N: K12 (with and without the potential) and K13
+    at a full chunk pair and a ragged one, K14 on K5's row counts against
+    1M sources, each against its f64 twin (2e-5 of max, phi rtol 3e-5),
+    launched twice and bitwise equal, K14 row-set independent; then the
+    chunked evaluation at N = 1M against the f64 oracle rows sum on a
+    sample of rows against all sources (accel and jerk 2e-5 of max, phi
+    rtol 3e-5) and bitwise repeatable, timed at 1M and 2M beside K1 as a
+    one-sided self-interaction at 1M. Adds K12's and K13's entries to
+    ``main`` (K14's comes at c4_1m's mean active rows, after the paths)."""
+    import torch
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    from oc_nbody_tpu_torch.ops import gravity
+    f64 = torch.float64
+    eps = 1.0 / 256
+    print("kernel      shape            phi  max|da| A  max|da| B  rel      "
+          "phi_rel    ms        plain_ms  bound_ms")
+    pos, mass = _cluster(sum(K12_PAIRS[0]), 41, device)
+    for nA, nB in K12_PAIRS:
+        pA, pB = pos[:nA].contiguous(), pos[nA:nA + nB].contiguous()
+        mA, mB = mass[:nA].contiguous(), mass[nA:nA + nB].contiguous()
+        for with_phi in (False, True):
+            kw = dict(with_phi=with_phi, guarded=False)
+            out = cg.cross_kernel(pA, pB, mA, mB, eps, **kw)
+            if not _same_bits(out, cg.cross_kernel(pA, pB, mA, mB, eps,
+                                                   **kw)):
+                raise AssertionError(f"cross_accel ({nA},{nB}) phi="
+                                     f"{with_phi}: two launches differ "
+                                     "bitwise")
+            ref = cg.cross_plain(pA, pB, mA, mB, eps, with_phi=with_phi,
+                                 dtype=f64, chunk=256)
+            h = len(out) // 2
+            errs = [_compare(out[:h] if with_phi else out[0],
+                             ref[:h] if with_phi else ref[0], with_phi, 2e-5),
+                    _compare(out[h:] if with_phi else out[1],
+                             ref[h:] if with_phi else ref[1], with_phi, 2e-5)]
+            del ref
+            line = (f"cross_accel ({nA},{nB}){'':<{13 - len(str(nA)) - len(str(nB))}}"
+                    f"{int(with_phi):<5}{errs[0][0]:<11.3e}{errs[1][0]:<11.3e}"
+                    f"{max(e[1] for e in errs):<9.2e}"
+                    f"{max(e[2] for e in errs):<11.2e}")
+            if nA == nB:
+                key = "cross_phi" if with_phi else "cross"
+                ms = _median_ms(lambda: cg.cross_kernel(pA, pB, mA, mB, eps,
+                                                        **kw))
+                pms = _once_ms(lambda: cg.cross_plain(pA, pB, mA, mB, eps,
+                                                      with_phi=with_phi))
+                bound = _bound(nA * nB, FLOPS_PER_PAIR[key],
+                               (32 if with_phi else 28) * (nA + nB))
+                main[key] = dict(max_abs_err=max(e[0] for e in errs), ms=ms,
+                                 plain_ms=pms, shape=[nA, nB], bound=bound)
+                line += f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f}"
+            print(line + "   bitwise-repeatable", flush=True)
+            torch.cuda.empty_cache()
+    del pos, mass
+    print("kernel      shape            max|da| A  max|da| B  rel_a    "
+          "rel_j    ms        plain_ms  bound_ms")
+    pos, mass, vel = _moving_cluster(sum(K13_PAIRS[0]), 42, device)
+    for nA, nB in K13_PAIRS:
+        args = tuple(t[a:b].contiguous() for t, (a, b) in zip(
+            (pos, vel, pos, vel, mass, mass),
+            ((0, nA), (0, nA), (nA, nA + nB), (nA, nA + nB), (0, nA),
+             (nA, nA + nB))))
+        out = cg.cross_jerk_kernel(*args, eps, guarded=False)
+        if not _same_bits(out, cg.cross_jerk_kernel(*args, eps,
+                                                    guarded=False)):
+            raise AssertionError(f"cross_jerk ({nA},{nB}): two launches "
+                                 "differ bitwise")
+        ref = cg.cross_jerk_plain(*args, eps, dtype=f64, chunk=256)
+        ea = _compare_jerk(out[:2], ref[:2], 2e-5, 2e-5)
+        eb = _compare_jerk(out[2:], ref[2:], 2e-5, 2e-5)
+        del ref
+        line = (f"cross_jerk  ({nA},{nB}){'':<{13 - len(str(nA)) - len(str(nB))}}"
+                f"{ea[0]:<11.3e}{eb[0]:<11.3e}{max(ea[1], eb[1]):<9.2e}"
+                f"{max(ea[2], eb[2]):<9.2e}")
+        if nA == nB:
+            ms = _median_ms(lambda: cg.cross_jerk_kernel(*args, eps,
+                                                         guarded=False))
+            pms = _once_ms(lambda: cg.cross_jerk_plain(*args, eps))
+            bound = _bound(nA * nB, FLOPS_PER_PAIR["cross_jerk"],
+                           52 * (nA + nB))
+            main["cross_jerk"] = dict(max_abs_err=max(ea[0], eb[0]), ms=ms,
+                                      plain_ms=pms, shape=[nA, nB],
+                                      bound=bound)
+            line += f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f}"
+        print(line + "   bitwise-repeatable", flush=True)
+        torch.cuda.empty_cache()
+    del pos, mass, vel
+    # K14 against c6's 1M sources
+    print("kernel           shape            eps        max|da|    rel_a    "
+          "rel_j    ms        plain_ms  bound_ms")
+    src, mass, svel = _moving_cluster(BIG_N, 43, device)
+    for nr in K14_ROWS:
+        for e in (0.0, eps):
+            k14_case(cg, src, svel, mass, nr, e, plain=e > 0)
+    check_row_independence(cg, src, svel, mass, cg.rows_jerk_stream_kernel,
+                           "rows_jerk_stream", rows_of=131072)
+    del src, mass, svel
+    torch.cuda.empty_cache()
+
+    # the chunked evaluation at 1M against the f64 oracle on sampled rows
+    state = plummer(BIG_N, torch.Generator().manual_seed(44), device=device)
+    pos, mass, vel = state.pos, state.mass, state.vel
+    pos_c, mass_c, vel_c = gravity.prepare_f32(pos, mass, vel=vel)
+    rows = torch.randperm(BIG_N, generator=torch.Generator().manual_seed(45))[
+        :BIG_SAMPLE].to(device)
+    acc, phi = cg.accel_potential_sym_chunked(pos, mass, eps, guarded=False)
+    ref_a, ref_phi = cg.rows_plain(pos_c[rows], pos_c, mass_c, eps,
+                                   with_phi=True, dtype=f64, chunk=256)
+    ref_phi = ref_phi + gravity.self_phi(mass_c[rows].to(f64), eps, 1.0)
+    err_p = _compare((acc[rows], phi[rows]), (ref_a, ref_phi), True, 2e-5)
+    a1 = cg.accel_sym_chunked(pos, mass, eps, guarded=False)
+    if not torch.equal(a1, cg.accel_sym_chunked(pos, mass, eps,
+                                                guarded=False)):
+        raise AssertionError("the chunked accel at 1M: two evaluations "
+                             "differ bitwise")
+    err_a = _compare(a1[rows], ref_a, False, 2e-5)
+    aj, jk = cg.accel_jerk_sym_chunked(pos, vel, mass, eps, guarded=False)
+    if not _same_bits((aj, jk), cg.accel_jerk_sym_chunked(pos, vel, mass, eps,
+                                                          guarded=False)):
+        raise AssertionError("the chunked accel + jerk at 1M: two "
+                             "evaluations differ bitwise")
+    ref_j = cg.rows_jerk_plain(pos_c[rows], vel_c[rows], pos_c, vel_c,
+                               mass_c, eps, dtype=f64, chunk=256)
+    err_j = _compare_jerk((aj[rows], jk[rows]), ref_j, 2e-5, 2e-5)
+    k1 = cg.rows_kernel(pos_c, pos_c, mass_c, eps, guarded=False)
+    err_k1 = _compare(k1[rows], ref_a, False, 2e-5)
+    del acc, phi, a1, aj, jk, k1, ref_a, ref_phi, ref_j
+    torch.cuda.empty_cache()
+    t = {"accel": _median_ms(lambda: cg.accel_sym_chunked(
+             pos, mass, eps, guarded=False), reps=2),
+         "accel+phi": _median_ms(lambda: cg.accel_potential_sym_chunked(
+             pos, mass, eps, guarded=False), reps=1),
+         "accel+jerk": _median_ms(lambda: cg.accel_jerk_sym_chunked(
+             pos, vel, mass, eps, guarded=False), reps=1),
+         "K1": _median_ms(lambda: cg.rows_kernel(pos_c, pos_c, mass_c, eps,
+                                                 guarded=False), reps=2)}
+    print(f"chunked self-interaction at N={BIG_N} (eps 1/256) against the f64 "
+          f"oracle on {BIG_SAMPLE} sampled rows: accel {err_a[1]:.3e} of "
+          f"max|a| (K2 + K12 with phi: {err_p[1]:.3e}, phi rel "
+          f"{err_p[2]:.3e}), accel + jerk {err_j[1]:.3e} / {err_j[2]:.3e} of "
+          f"max|a| / max|j| (K3 + K13); K1 one-sided {err_k1[1]:.3e}; "
+          "each chunked form bitwise repeatable", flush=True)
+    del state, pos, mass, vel, pos_c, mass_c, vel_c
+    torch.cuda.empty_cache()
+    state = plummer(BIG_N2, torch.Generator().manual_seed(46), device=device)
+    t["accel 2M"] = _median_ms(lambda: cg.accel_sym_chunked(
+        state.pos, state.mass, 0.003, guarded=False), reps=1)
+    del state
+    torch.cuda.empty_cache()
+    for name, ms in t.items():
+        n = BIG_N2 if name.endswith("2M") else BIG_N
+        print(f"  {name:<11} at N={n}: {ms:.2f} ms, "
+              f"{n * n / (ms * 1e-3):.4e} N^2-equivalent interactions/s",
+              flush=True)
+
+
+def k14_case(cg, src, svel, mass, nr, eps, plain=True):
+    """K14 on nr rows (the first nr sources, shifted) against the f64 twin
+    and launched twice (bitwise); timed (CUDA-graph replays below 4,096
+    rows, where the kernel is shorter than its wrapper) beside its f32 twin
+    (once, unless ``plain`` is False); prints one line and returns
+    dict(max_abs_err, ms, plain_ms, shape, bound)."""
+    import torch
+    ns = src.shape[0]
+    rows = (src[:nr] + 1e-3).contiguous()
+    vrows = (svel[:nr] - 1e-3).contiguous()
+    guarded = eps == 0.0
+    args = (rows, vrows, src, svel, mass, eps)
+    out = cg.rows_jerk_stream_kernel(*args, guarded=guarded)
+    if not _same_bits(out, cg.rows_jerk_stream_kernel(*args,
+                                                      guarded=guarded)):
+        raise AssertionError(f"rows_jerk_stream ({nr},{ns}) eps={eps}: two "
+                             "launches differ bitwise")
+    ref = cg.rows_jerk_stream_plain(*args, dtype=torch.float64, chunk=256)
+    err, rel_a, rel_j = _compare_jerk(out, ref, 2e-5, 2e-5)
+    del ref, out
+    timer = _graph_ms if nr < 4096 else _median_ms
+    ms = timer(lambda: cg.rows_jerk_stream_kernel(*args, guarded=guarded))
+    pms = (_once_ms(lambda: cg.rows_jerk_stream_plain(*args, chunk=256))
+           if plain else float("nan"))
+    bound = _bound(nr * ns, FLOPS_PER_PAIR["rows_jerk_stream"],
+                   28 * ns + 48 * nr)
+    print(f"rows_jerk_stream ({nr},{ns}){'':<{13 - len(str(nr)) - len(str(ns))}}"
+          f"{eps:<11.6g}{err:<11.3e}{rel_a:<9.2e}{rel_j:<9.2e}"
+          f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.5f}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, shape=[nr, ns],
+                bound=bound)
+
+
+def run_big_paths(cg, device):
+    """Phase 4, past STREAM_N: c6 and c7 as committed but cut to four KDK
+    steps, c3 at N = 1M (Hermite, chunked K3 + K13 every step) and c4 at N
+    = 1M (block steps: chunked K3 + K13 at init, K14 once per micro-step)
+    to t = one dt_max, through the CLI; returns ({name: RunResult}, {name:
+    launches})."""
+    runs, launches = _drive(cg, PATHS_BIG,
+                            {k: over for k, (_, over, _) in PATHS_BIG.items()})
+    for k, res in runs.items():
+        per = {key: n / max(1, res.n_steps) for key, n in launches[k].items()
+               if n and key in ("sym", "cross", "sym_jerk", "cross_jerk",
+                                "rows_jerk_stream")}
+        print(f"{k}: launches per step, diagnostics rows included: "
+              + ", ".join(f"{key} {v:.2f}" for key, v in per.items())
+              + f"; set-up and run {res.wall_time_s:.1f} s, init "
+              f"{res.phase_s['init']:.2f} s, diagnostics "
+              f"{res.phase_s['diagnostics']:.2f} s over "
+              f"{len(res.diagnostics['time'])} rows", flush=True)
+    return runs, launches
+
+
 def _load(name):
     from oc_nbody_tpu_torch.config import apply_overrides, load_config
-    path, over, _ = {**PATHS, **PATHS_DF}[name]
+    path, over, _ = {**PATHS, **PATHS_DF, **PATHS_BIG}[name]
     return apply_overrides(load_config(os.path.join(ROOT, path)), over)
 
 
@@ -1068,6 +1343,8 @@ def _drive(cg, paths, overrides):
             integ = _load(k).integrator
             if integ.kind == "block":
                 _check_block_launches(cg, k, results[-1], launches[k])
+            if results[-1].state.n > cg.STREAM_N:
+                _check_big_launches(cg, k, results[-1], launches[k])
             if want.endswith("_x"):
                 _check_extended_launches(cg, k, results[-1], launches[k])
             if integ.precision == "df32":
@@ -1237,7 +1514,7 @@ def _check_extended_launches(cg, k, res, launches):
         raise AssertionError(f"{k}: f32-tier kernels launched on an "
                              f"extended path: {stray}")
     cfg = _load(k)
-    want = {**PATHS, **PATHS_DF}[k][2]
+    want = {**PATHS, **PATHS_DF, **PATHS_BIG}[k][2]
     if cfg.integrator.kind == "kdk":
         rows = 0 if cfg.output.diag_f64 else len(res.diagnostics["time"])
         if launches[want] != res.n_steps + 1 + rows:
@@ -1277,7 +1554,7 @@ def _check_block_launches(cg, k, res, launches):
     df32 tier the active rows are f64 sums and only K11 launches, at
     init."""
     ic = _load(k).integrator
-    want = {**PATHS, **PATHS_DF}[k][2]
+    want = {**PATHS, **PATHS_DF, **PATHS_BIG}[k][2]
     per = 2 if ic.pec2 else 1
     if ic.precision == "df32":
         expect = {"rows_jerk_df": 1, "rows_jerk": 0, "rows_jerk_t": 0,
@@ -1288,16 +1565,63 @@ def _check_block_launches(cg, k, res, launches):
                                      f"times, expected {n}")
         return
     if ic.precision == "extended":
-        init_key = "sym_jerk_x" if res.state.n >= cg.SYM_MIN else "rows_jerk_x"
+        init = {"sym_jerk_x" if res.state.n >= cg.SYM_MIN
+                else "rows_jerk_x": 1}
     else:
-        init_key = ("sym_jerk" if res.state.n >= cg.RT_MIN_JERK
-                    else "rows_jerk")
+        init = _self_launches(cg, res.state.n, jerk=True)
     expect = {want: per * res.n_steps}
-    expect[init_key] = expect.get(init_key, 0) + 1
+    for key, n in init.items():
+        expect[key] = expect.get(key, 0) + n
     for key, n in expect.items():
         if launches[key] != n:
             raise AssertionError(f"{k}: {key} launched {launches[key]} times, "
                                  f"expected {n} ({res.n_steps} micro-steps)")
+
+
+def _self_launches(cg, n, jerk=False):
+    """{kernel: launches} of one f32 self-interaction evaluation at N = n:
+    past STREAM_N one K2 (K3) per chunk and one K12 (K13) per chunk pair."""
+    if n > cg.STREAM_N:
+        c = -(-n // (cg.CHUNK_SYMJ if jerk else cg.CHUNK_SYM))
+        return ({"sym_jerk": c, "cross_jerk": c * (c - 1) // 2} if jerk
+                else {"sym": c, "cross": c * (c - 1) // 2})
+    if jerk:
+        return {"sym_jerk" if n >= cg.RT_MIN_JERK else "rows_jerk": 1}
+    return {"sym" if n >= cg.SYM_MIN else "rows": 1}
+
+
+def _check_big_launches(cg, k, res, launches):
+    """Past STREAM_N: every evaluation is chunked. Under KDK the accel form
+    runs once at init and once per step, the potential form once per
+    diagnostics row, each with the same K2 and K12 counts; under Hermite
+    the accel + jerk form at least once per step and at init. No K1, K4 or
+    K5 launches (their routes end at STREAM_N)."""
+    kind = _load(k).integrator.kind
+    rows = len(res.diagnostics["time"])
+    n = res.state.n
+    if kind == "kdk":
+        expect = {key: v * (res.n_steps + 1 + rows)
+                  for key, v in _self_launches(cg, n).items()}
+    else:
+        expect = {key: v * rows for key, v in _self_launches(cg, n).items()}
+        if kind == "hermite":
+            per = _self_launches(cg, n, jerk=True)
+            for key, v in per.items():
+                if launches[key] < v * (res.n_steps + 1):
+                    raise AssertionError(
+                        f"{k}: {key} launched {launches[key]} times in "
+                        f"{res.n_steps} steps, expected at least "
+                        f"{v * (res.n_steps + 1)}")
+    stray = {key: launches[key] for key in ("rows", "rows_jerk",
+                                            "rows_jerk_t")
+             if launches[key]}
+    if stray:
+        raise AssertionError(f"{k}: resident-route kernels launched past "
+                             f"STREAM_N: {stray}")
+    for key, v in expect.items():
+        if launches[key] != v:
+            raise AssertionError(f"{k}: {key} launched {launches[key]} "
+                                 f"times, expected {v}")
 
 
 def _report_block(k, res, advance_s):
@@ -1454,7 +1778,11 @@ def main():
     main_shapes = check_kernels(cg, device)
     check_kernels_x(cg, device, main_shapes)
     check_kernels_df(cg, cuda_df, device, main_shapes)
+    check_kernels_big(cg, device, main_shapes)
     runs, launches = run_df_paths(cg, device)
+    big_runs, big_launches = run_big_paths(cg, device)
+    runs.update(big_runs)
+    launches.update(big_launches)
     budget = BUDGET_S - (time.perf_counter() - t_start)
     more_runs, more_launches = run_main_path(cg, device, budget)
     runs.update(more_runs)
@@ -1467,6 +1795,14 @@ def main():
     src, mass, svel = _moving_cluster(c4.state.n, 15, device)
     main_shapes["rows_jerk_t"] = k5_case(cg, src, svel, mass, nr,
                                          _load("c4").integrator.eps)
+    del src, mass, svel
+    # K14 likewise at c4_1m's, against its 1M sources
+    c4b = runs["c4_1m"]
+    nr = max(1, round(c4b.n_active_sum / c4b.n_steps))
+    print(f"K14 at c4_1m's mean active rows per micro-step ({nr}):")
+    src, mass, svel = _moving_cluster(c4b.state.n, 43, device)
+    main_shapes["rows_jerk_stream"] = k14_case(cg, src, svel, mass, nr,
+                                               _load("c4_1m").integrator.eps)
     del src, mass, svel
     # K9 likewise at c4x's mean active rows per micro-step
     c4x = runs["c4x"]
@@ -1520,7 +1856,16 @@ def main():
              "oc_nbody_tpu/ops/pallas_df.py:121", None),
             ("rows_jerk_df", "rows_jerk_df",
              "oc_nbody_tpu_torch/csrc/rows_jerk_df.cu",
-             "oc_nbody_tpu/ops/pallas_df.py:186", None)):
+             "oc_nbody_tpu/ops/pallas_df.py:186", None),
+            ("cross", "cross_accel", "oc_nbody_tpu_torch/csrc/cross_accel.cu",
+             "oc_nbody_tpu/ops/pallas_pair.py:296 (_OP_A)",
+             "oc_nbody_tpu/ops/pallas_pair.py:296 (_OP_P)"),
+            ("cross_jerk", "cross_jerk",
+             "oc_nbody_tpu_torch/csrc/cross_jerk.cu",
+             "oc_nbody_tpu/ops/pallas_pair.py:296 (_OP_J)", None),
+            ("rows_jerk_stream", "rows_jerk_stream",
+             "oc_nbody_tpu_torch/csrc/rows_jerk_t.cu",
+             "oc_nbody_tpu/ops/pallas_gravity.py:586", None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

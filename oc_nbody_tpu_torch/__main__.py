@@ -3,7 +3,10 @@
 The JAX package's ``run`` and ``info`` commands with ``--set a.b=v``
 overrides, plus ``--device cuda|cpu`` (default cuda; with no card it
 raises rather than fall back). ``info`` also prints the stepper the config
-builds and its pairwise precision tier. ``--resume`` and ``ensemble`` are not ported yet and raise.
+builds, at the f32 tier the kernels it runs on the card at the config's N,
+and its pairwise precision tier; a config the port does not run yet is
+reported as such (NotImplementedError from ``check_supported``).
+``--resume`` and ``ensemble`` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -45,8 +48,9 @@ def main(argv=None):
     cfg = apply_overrides(load_config(args.config), args.overrides)
     if args.command == "info":
         from oc_nbody_tpu_torch.forces import make_force_model
+        from oc_nbody_tpu_torch.ops import cuda_gravity
         from oc_nbody_tpu_torch.scene import (build_units, check_supported,
-                                              make_stepper)
+                                              make_stepper, n_particles)
         print(cfg.to_json())
         try:
             check_supported(cfg)
@@ -59,6 +63,10 @@ def main(argv=None):
         fields = {k: v for k, v in vars(stepper).items()
                   if k != "force" and not k.startswith("_")}
         print(f"stepper: {kind} {type(stepper).__name__}({fields})")
+        if force.precision == "f32":
+            n = n_particles(cfg)
+            print(f"kernels on the card at N = {n}: "
+                  f"{cuda_gravity.route(n, kind)}")
         print(f"pairwise precision tier: {force.precision}; diagnostics "
               f"potential: {'f64' if cfg.output.diag_f64 else 'the tier'}")
         return 0
@@ -66,8 +74,11 @@ def main(argv=None):
     from oc_nbody_tpu_torch.run import run
 
     result = run(cfg, device=args.device, resume=args.resume)
+    drift = max(abs(float(x)) for x in result.diagnostics["dE_over_E_int"])
+    per_step = result.phase_s.get("advance", 0.0) / max(1, result.n_steps)
     print(f"done: t={result.state.time:.6g} steps={result.n_steps} "
-          f"wall={result.wall_time_s:.1f}s")
+          f"wall={result.wall_time_s:.1f}s max|dE/E_int|={drift:.3e} "
+          f"advance={per_step:.6g} s/step")
     return 0
 
 

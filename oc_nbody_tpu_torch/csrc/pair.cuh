@@ -36,8 +36,8 @@
 
 namespace ocn {
 
-// Tile edge of the pair-symmetric kernels (K2, K3): one block of kSymTile
-// threads per tile pair.
+// Tile edge of the pair-symmetric kernels (K2, K3) and of the cross kernels
+// (K12, K13): one block of kSymTile threads per tile pair.
 constexpr int kSymTile = 128;
 
 // Zero-guarded rsqrt (ops/pallas_pair.py:_inv_r). GUARDED is for eps == 0,
@@ -88,6 +88,69 @@ __device__ __forceinline__ void row_jerk_pair(float4 s, float4 sv, float3 xi,
   j.x += w * dvx - sc * dx;
   j.y += w * dvy - sc * dy;
   j.z += w * dvz - sc * dz;
+}
+
+// Pair-symmetric pair (K2, K12): the action of source s on the row at (xi,
+// yi, zi) into (ax, ay, az, ph), and the row's reaction on the source,
+// -G m_i d inv^3 (and -G m_i inv for the potential), into col. ph
+// accumulates +G m_j inv; the caller stores -ph.
+template <bool WITH_PHI, bool GUARDED>
+__device__ __forceinline__ void sym_pair(float4 s, float xi, float yi,
+                                         float zi, float gmi, float eps2,
+                                         float& ax, float& ay, float& az,
+                                         float& ph, float4& col) {
+  const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
+  const float u = dx * dx + dy * dy + dz * dz + eps2;
+  const float inv = inv_r<GUARDED>(u);
+  const float inv2 = inv * inv;
+  const float gjinv = s.w * inv;
+  const float giinv = gmi * inv;
+  const float w = gjinv * inv2;
+  const float wi = giinv * inv2;
+  ax += w * dx;
+  ay += w * dy;
+  az += w * dz;
+  col.x -= wi * dx;
+  col.y -= wi * dy;
+  col.z -= wi * dz;
+  if (WITH_PHI) {
+    ph += gjinv;
+    col.w -= giinv;
+  }
+}
+
+// Pair-symmetric accel + jerk pair (K3, K13): with w = G m_j inv^3, rv =
+// d.dv and B = dv - 3 rv inv^2 d, the action (w d, w B) into (a, j) and the
+// reaction -G m_i inv^3 (d, B) into (ca.xyz, ca.w, cj.xy).
+template <bool GUARDED>
+__device__ __forceinline__ void sym_jerk_pair(float4 s, float4 sv, float3 xi,
+                                              float3 vi, float gmi,
+                                              float eps2, float3& a,
+                                              float3& j, float4& ca,
+                                              float2& cj) {
+  const float dx = s.x - xi.x, dy = s.y - xi.y, dz = s.z - xi.z;
+  const float dvx = sv.x - vi.x, dvy = sv.y - vi.y, dvz = sv.z - vi.z;
+  const float u = dx * dx + dy * dy + dz * dz + eps2;
+  const float inv = inv_r<GUARDED>(u);
+  const float inv2 = inv * inv;
+  const float inv3 = inv * inv2;
+  const float w = s.w * inv3;
+  const float wi = gmi * inv3;
+  const float rv = dx * dvx + dy * dvy + dz * dvz;
+  const float uu = (3.f * rv) * inv2;
+  const float bx = dvx - uu * dx, by = dvy - uu * dy, bz = dvz - uu * dz;
+  a.x += w * dx;
+  a.y += w * dy;
+  a.z += w * dz;
+  j.x += w * bx;
+  j.y += w * by;
+  j.z += w * bz;
+  ca.x -= wi * dx;
+  ca.y -= wi * dy;
+  ca.z -= wi * dz;
+  ca.w -= wi * bx;
+  cj.x -= wi * by;
+  cj.y -= wi * bz;
 }
 
 // The extended tier's separation and inverse distance: s = d + e and the
@@ -177,5 +240,68 @@ __device__ __forceinline__ void tile_pair(long long b, int nt, int& I,
   I = i;
   J = i + static_cast<int>(b - triangle_start(i, nt));
 }
+
+// Second pass of the tile-pair kernels (K2, K3, K12, K13): row i of n sums
+// its np tile partials scratch[i / T][P][i % T], P = 0 .. np-1, in that
+// order (T = kSymTile), one thread a row; no atomics, so the sum is bitwise
+// the same from launch to launch. The float4 form carries (a, -phi) or (a,
+// j.x); the jerk form adds a float2 plane (j.y, j.z) at the same slots.
+template <bool WITH_PHI>
+__global__ void tile_reduce(const float4* __restrict__ scratch, int n,
+                            int np, float* __restrict__ acc,
+                            float* __restrict__ phi) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float4* p =
+      scratch + static_cast<size_t>(i / kSymTile) * np * kSymTile +
+      (i % kSymTile);
+  float4 s = p[0];
+  for (int P = 1; P < np; ++P) {
+    const float4 v = p[static_cast<size_t>(P) * kSymTile];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  acc[3 * i] = s.x;
+  acc[3 * i + 1] = s.y;
+  acc[3 * i + 2] = s.z;
+  if (WITH_PHI) phi[i] = s.w;
+}
+
+// (A template, like tile_reduce, so that every source including this header
+// may define it: Plane2 is float2.)
+template <typename Plane2>
+__global__ void tile_reduce_jerk(const float4* __restrict__ sc4,
+                                 const Plane2* __restrict__ sc2, int n,
+                                 int np, float* __restrict__ acc,
+                                 float* __restrict__ jerk) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t base =
+      static_cast<size_t>(i / kSymTile) * np * kSymTile + (i % kSymTile);
+  float4 s4 = sc4[base];
+  Plane2 s2 = sc2[base];
+  for (int P = 1; P < np; ++P) {
+    const size_t at = base + static_cast<size_t>(P) * kSymTile;
+    const float4 v4 = sc4[at];
+    const Plane2 v2 = sc2[at];
+    s4.x += v4.x;
+    s4.y += v4.y;
+    s4.z += v4.z;
+    s4.w += v4.w;
+    s2.x += v2.x;
+    s2.y += v2.y;
+  }
+  acc[3 * i] = s4.x;
+  acc[3 * i + 1] = s4.y;
+  acc[3 * i + 2] = s4.z;
+  jerk[3 * i] = s4.w;
+  jerk[3 * i + 1] = s2.x;
+  jerk[3 * i + 2] = s2.y;
+}
+
+// Threads per block of tile_reduce and tile_reduce_jerk.
+constexpr int kReduceThreads = 256;
 
 }  // namespace ocn

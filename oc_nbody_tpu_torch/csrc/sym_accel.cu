@@ -31,8 +31,8 @@
 //    The block writes its row partial to scratch[I][J] and, off the
 //    diagonal, the sum of its warps' reaction partials, taken in warp order,
 //    to scratch[J][I].
-//  * sym_reduce: row r of tile X sums scratch[X][P][r] for P = 0 .. nt-1 in
-//    that order.
+//  * ocn::tile_reduce (pair.cuh): row r of tile X sums scratch[X][P][r] for
+//    P = 0 .. nt-1 in that order.
 //
 // Scratch is nt x nt x T float4, i.e. 16 N nt bytes: 0.54 GB at N = 65,536
 // and 8.6 GB at N = 262,144 with T = 128. Every slot a row of the output
@@ -47,31 +47,6 @@ namespace {
 constexpr int T = ocn::kSymTile;
 constexpr int kWarps = T / 32;
 static_assert((T & (T - 1)) == 0, "the rotating diagonal needs T = 2^k");
-
-template <bool WITH_PHI, bool GUARDED>
-__device__ __forceinline__ void sym_pair(float4 s, float xi, float yi,
-                                         float zi, float gmi, float eps2,
-                                         float& ax, float& ay, float& az,
-                                         float& ph, float4& col) {
-  const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
-  const float u = dx * dx + dy * dy + dz * dz + eps2;
-  const float inv = ocn::inv_r<GUARDED>(u);
-  const float inv2 = inv * inv;
-  const float gjinv = s.w * inv;
-  const float giinv = gmi * inv;
-  const float w = gjinv * inv2;
-  const float wi = giinv * inv2;
-  ax += w * dx;
-  ay += w * dy;
-  az += w * dz;
-  col.x -= wi * dx;
-  col.y -= wi * dy;
-  col.z -= wi * dz;
-  if (WITH_PHI) {
-    ph += gjinv;
-    col.w -= giinv;
-  }
-}
 
 template <bool WITH_PHI, bool GUARDED>
 __global__ void __launch_bounds__(T)
@@ -115,8 +90,8 @@ __global__ void __launch_bounds__(T)
       const int c = (r + k) & (T - 1);
       if (c < ncol) {
         float4 a = mine[c];
-        sym_pair<WITH_PHI, GUARDED>(src[c], xi, yi, zi, gmi, eps2, ax, ay, az,
-                                    ph, a);
+        ocn::sym_pair<WITH_PHI, GUARDED>(src[c], xi, yi, zi, gmi, eps2, ax, ay,
+                                         az, ph, a);
         mine[c] = a;
       }
       __syncwarp();
@@ -139,26 +114,6 @@ __global__ void __launch_bounds__(T)
   }
 }
 
-template <bool WITH_PHI>
-__global__ void sym_reduce(const float4* __restrict__ scratch, int n, int nt,
-                           float* __restrict__ acc, float* __restrict__ phi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float4* p = scratch + static_cast<size_t>(i / T) * nt * T + (i % T);
-  float4 s = p[0];
-  for (int P = 1; P < nt; ++P) {
-    const float4 v = p[static_cast<size_t>(P) * T];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  acc[3 * i] = s.x;
-  acc[3 * i + 1] = s.y;
-  acc[3 * i + 2] = s.z;
-  if (WITH_PHI) phi[i] = s.w;
-}
-
 template <bool WITH_PHI, bool GUARDED>
 void launch(const float* pos, const float* mass, int n, float G, float eps2,
             float4* scratch, float* acc, float* phi, cudaStream_t stream) {
@@ -166,8 +121,8 @@ void launch(const float* pos, const float* mass, int n, float G, float eps2,
   const long long pairs = static_cast<long long>(nt) * (nt + 1) / 2;
   sym_tiles<WITH_PHI, GUARDED><<<static_cast<unsigned>(pairs), T, 0, stream>>>(
       pos, mass, n, nt, G, eps2, scratch);
-  constexpr int kReduce = 256;
-  sym_reduce<WITH_PHI><<<(n + kReduce - 1) / kReduce, kReduce, 0, stream>>>(
+  constexpr int kR = ocn::kReduceThreads;
+  ocn::tile_reduce<WITH_PHI><<<(n + kR - 1) / kR, kR, 0, stream>>>(
       scratch, n, nt, acc, phi);
 }
 

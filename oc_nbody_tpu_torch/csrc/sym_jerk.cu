@@ -26,8 +26,8 @@
 //    the TPU; the self pair adds nothing. The block writes its row partial
 //    to scratch[I][J] and, off the diagonal, the sum of its warps' reaction
 //    partials, taken in warp order, to scratch[J][I].
-//  * sym_jerk_reduce: row r of tile X sums scratch[X][P][r] for P = 0 ..
-//    nt-1 in that order.
+//  * ocn::tile_reduce_jerk (pair.cuh): row r of tile X sums scratch[X][P][r]
+//    for P = 0 .. nt-1 in that order.
 //
 // No float atomics anywhere, so the result is bitwise the same from launch
 // to launch. Scratch is nt x nt x T slots of six floats (a float4 plane
@@ -44,38 +44,6 @@ namespace {
 constexpr int T = ocn::kSymTile;
 constexpr int kWarps = T / 32;
 static_assert((T & (T - 1)) == 0, "the rotating diagonal needs T = 2^k");
-
-// The pair (row, source c): action into (a, j), reaction into (ca, cj).
-template <bool GUARDED>
-__device__ __forceinline__ void sym_jerk_pair(float4 s, float4 sv, float3 xi,
-                                              float3 vi, float gmi,
-                                              float eps2, float3& a,
-                                              float3& j, float4& ca,
-                                              float2& cj) {
-  const float dx = s.x - xi.x, dy = s.y - xi.y, dz = s.z - xi.z;
-  const float dvx = sv.x - vi.x, dvy = sv.y - vi.y, dvz = sv.z - vi.z;
-  const float u = dx * dx + dy * dy + dz * dz + eps2;
-  const float inv = ocn::inv_r<GUARDED>(u);
-  const float inv2 = inv * inv;
-  const float inv3 = inv * inv2;
-  const float w = s.w * inv3;
-  const float wi = gmi * inv3;
-  const float rv = dx * dvx + dy * dvy + dz * dvz;
-  const float uu = (3.f * rv) * inv2;
-  const float bx = dvx - uu * dx, by = dvy - uu * dy, bz = dvz - uu * dz;
-  a.x += w * dx;
-  a.y += w * dy;
-  a.z += w * dz;
-  j.x += w * bx;
-  j.y += w * by;
-  j.z += w * bz;
-  ca.x -= wi * dx;
-  ca.y -= wi * dy;
-  ca.z -= wi * dz;
-  ca.w -= wi * bx;
-  cj.x -= wi * by;
-  cj.y -= wi * bz;
-}
 
 template <bool GUARDED>
 __global__ void __launch_bounds__(T)
@@ -132,8 +100,8 @@ __global__ void __launch_bounds__(T)
       if (c < ncol) {
         float4 ca = mine4[c];
         float2 cj = mine2[c];
-        sym_jerk_pair<GUARDED>(src[c], svel[c], xi, vi, gmi, eps2, a, jk, ca,
-                               cj);
+        ocn::sym_jerk_pair<GUARDED>(src[c], svel[c], xi, vi, gmi, eps2, a, jk,
+                                    ca, cj);
         mine4[c] = ca;
         mine2[c] = cj;
       }
@@ -164,34 +132,6 @@ __global__ void __launch_bounds__(T)
   }
 }
 
-__global__ void sym_jerk_reduce(const float4* __restrict__ sc4,
-                                const float2* __restrict__ sc2, int n, int nt,
-                                float* __restrict__ acc,
-                                float* __restrict__ jerk) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t base = static_cast<size_t>(i / T) * nt * T + (i % T);
-  float4 s4 = sc4[base];
-  float2 s2 = sc2[base];
-  for (int P = 1; P < nt; ++P) {
-    const size_t at = base + static_cast<size_t>(P) * T;
-    const float4 v4 = sc4[at];
-    const float2 v2 = sc2[at];
-    s4.x += v4.x;
-    s4.y += v4.y;
-    s4.z += v4.z;
-    s4.w += v4.w;
-    s2.x += v2.x;
-    s2.y += v2.y;
-  }
-  acc[3 * i] = s4.x;
-  acc[3 * i + 1] = s4.y;
-  acc[3 * i + 2] = s4.z;
-  jerk[3 * i] = s4.w;
-  jerk[3 * i + 1] = s2.x;
-  jerk[3 * i + 2] = s2.y;
-}
-
 template <bool GUARDED>
 void launch(const float* pos, const float* vel, const float* mass, int n,
             float G, float eps2, float4* sc4, float2* sc2, float* acc,
@@ -200,8 +140,8 @@ void launch(const float* pos, const float* vel, const float* mass, int n,
   const long long pairs = static_cast<long long>(nt) * (nt + 1) / 2;
   sym_jerk_tiles<GUARDED><<<static_cast<unsigned>(pairs), T, 0, stream>>>(
       pos, vel, mass, n, nt, G, eps2, sc4, sc2);
-  constexpr int kReduce = 256;
-  sym_jerk_reduce<<<(n + kReduce - 1) / kReduce, kReduce, 0, stream>>>(
+  constexpr int kR = ocn::kReduceThreads;
+  ocn::tile_reduce_jerk<float2><<<(n + kR - 1) / kR, kR, 0, stream>>>(
       sc4, sc2, n, nt, acc, jerk);
 }
 

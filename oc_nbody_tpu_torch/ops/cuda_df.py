@@ -155,7 +155,8 @@ def _check_resident(n: int) -> None:
         raise NotImplementedError(
             f"N = {n} exceeds STREAM_N = {cg.STREAM_N}: the two-float "
             "kernels hold their sources resident, as the TPU kernels do, "
-            "and the JAX package has no streamed form of them to port")
+            "and the JAX package has no streamed form of them to port "
+            "(ROADMAP B10: the df32 tier past STREAM_N)")
 
 
 def accel_df(pos, mass, eps=0.0, G=1.0, guarded: bool = True):

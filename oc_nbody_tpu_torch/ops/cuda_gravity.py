@@ -1,8 +1,8 @@
 """The pairwise force on the card: hand-written CUDA kernels for Hopper
 (``sm_90a``), each beside its plain PyTorch twin. This module holds the f32
-tier (K1-K5) and the extended tier (K6-K9) and builds the one library all
-kernels live in; the two-float tier's K10 and K11 are wrapped in
-``ops/cuda_df.py``.
+tier (K1-K5, K12-K14) and the extended tier (K6-K9) and builds the one
+library all kernels live in; the two-float tier's K10 and K11 are wrapped
+in ``ops/cuda_df.py``.
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
     potential. Replaces the Pallas row-grid kernels ``_accel_kernel`` and
@@ -19,6 +19,16 @@ kernels live in; the two-float tier's K10 and K11 are wrapped in
     many sources, the sources split over blocks; a row's bits do not depend
     on the other rows of the launch. Replaces ``_accel_jerk_kernel_t`` with
     ``_sweep_t_jerk`` (oc_nbody_tpu/ops/pallas_gravity.py:926, :801).
+  * K12 ``csrc/cross_accel.cu`` — two disjoint sets, each pair once, A's
+    action and B's reaction, optional potential, bitwise deterministic.
+    Replaces ``_make_cross_kernel`` with ``_pair_accel`` / ``_pair_phi``
+    (oc_nbody_tpu/ops/pallas_pair.py:296).
+  * K13 ``csrc/cross_jerk.cu`` — the same for accel + jerk. Replaces
+    ``_make_cross_kernel`` with ``_pair_jerk`` (pallas_pair.py:296, :137).
+  * K14, K5's compensated variant (``csrc/rows_jerk_t.cu``, Kahan steps
+    across source stages and chunks) — accel + jerk of any number of rows
+    from more than ``STREAM_N`` sources. Replaces
+    ``_accel_jerk_stream_kernel`` (pallas_gravity.py:586).
 
 and the extended (hi/lo) precision tier, on pre-split f32 planes:
 
@@ -44,10 +54,22 @@ The public wrappers keep the signatures and return contracts of
 ``accel_potential_sym``, ``accel`` and ``accel_potential`` take the state's
 positions, centre and cast them, and return the positions' dtype with the
 self term removed from the potential. ``accel_jerk_rows`` takes centred f32
-rows and sources with their velocities and returns f32 (K5 for at least
-``RT_MIN_JERK`` sources and at most ``RT_MAX_ROWS`` rows, K4 otherwise);
-``accel_jerk_sym`` and ``accel_jerk`` take the state's positions and
-velocities, centre both and return the positions' dtype.
+rows and sources with their velocities and returns f32 (K14 past
+``STREAM_N`` sources; K5 for at least ``RT_MIN_JERK`` sources and at most
+``RT_MAX_ROWS`` rows; K4 otherwise); ``accel_jerk_sym`` and ``accel_jerk``
+take the state's positions and velocities, centre both and return the
+positions' dtype.
+
+Past ``STREAM_N`` particles the f32 self-interaction is chunked as in the
+JAX package (``accel_sym_chunked``, ``accel_potential_sym_chunked``,
+``accel_jerk_sym_chunked``): ONE centring of the whole set, then chunks of
+``CHUNK_SYM`` (``CHUNK_SYMJ`` for the jerk) particles, the last one ragged;
+each diagonal chunk through K2 or K3, each unordered chunk pair (i < j)
+through K12 or K13, added in the JAX package's order (the diagonal outputs,
+then the pairs in lexicographic order, A into chunk i, B into chunk j), and
+``self_phi`` once at the end. ``accel_cross_pair``,
+``accel_potential_cross_pair`` and ``accel_jerk_cross_pair`` are the
+disjoint-set forms on f32-ready inputs centred in one frame.
 
 The extended tier follows the same module of the JAX package:
 ``accel_rows_x_hilo``, ``accel_potential_rows_x_hilo`` and
@@ -65,7 +87,8 @@ NotImplementedError there (ROADMAP B7).
 
 A wrapper launches its kernel for CUDA tensors and calls the plain twin
 (``rows_plain``, ``sym_plain``, ``rows_jerk_plain``, ``sym_jerk_plain``,
-``rows_jerk_t_plain``, built on ``ops/gravity.py``; ``rows_x_plain``,
+``rows_jerk_t_plain``, ``rows_jerk_stream_plain``, ``cross_plain``,
+``cross_jerk_plain``, built on ``ops/gravity.py``; ``rows_x_plain``,
 ``sym_x_plain``, ``rows_jerk_x_plain``, ``sym_jerk_x_plain``, built on
 ``ops/df32.py``) for CPU tensors; there
 is no fallback from one to the other. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls
@@ -91,8 +114,9 @@ import torch
 from oc_nbody_tpu_torch.ops import df32, gravity
 
 # Self-interaction dispatch: the pair-symmetric K2 for SYM_MIN <= N <=
-# STREAM_N, the one-sided K1 below. SYM_MIN is the TPU's crossover
-# (pallas_gravity.py:1686); the H100 crossover has not been measured yet.
+# STREAM_N, chunked (K2 + K12) past it, the one-sided K1 below. SYM_MIN is
+# the TPU's crossover (pallas_gravity.py:1686); the H100 crossover has not
+# been measured yet.
 SYM_MIN = 8192
 # The same rule for accel + jerk: K3 for RT_MIN_JERK <= N <= STREAM_N, K4
 # below (the TPU's jerk crossover, pallas_gravity.py:727, :2272). For rows
@@ -101,12 +125,20 @@ SYM_MIN = 8192
 # between K4 and K5 is measured by chip_smoke.py, not used here.
 RT_MIN_JERK = 16384
 RT_MAX_ROWS = 65536
-# Largest N the resident sym kernel takes; past it the TPU runs chunked
-# sym kernels, not ported yet (ROADMAP B5).
+# Largest N the resident sym kernels take (pallas_gravity.py:2233-2276);
+# past it the self-interaction is chunked and rows against more sources
+# take K14. The extended and df32 tiers stop here (scene.check_supported).
 STREAM_N = 262144
+# Chunk sizes of the chunked self-interaction (pallas_gravity.py:1718-1719).
+# These are the TPU's values, set by its 16 MiB scoped VMEM; the port keeps
+# them for the same chunk layout (8 chunks at 1M, 16 at 2M). Here they bound
+# the per-evaluation scratch instead: 4.3 GB (accel) and 3.6 GB (jerk).
+CHUNK_SYM = 131072
+CHUNK_SYMJ = 98304
 
 _KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
-            "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df")
+            "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df",
+            "cross", "cross_jerk", "rows_jerk_stream")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
@@ -117,7 +149,8 @@ _HEADERS = ("pair.cuh", "df.cuh")
 _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
             "rows_accel_x.cu", "rows_jerk_x.cu", "rows_accel_df.cu",
-            "rows_jerk_df.cu", "df_selftest.cu")
+            "rows_jerk_df.cu", "df_selftest.cu", "cross_accel.cu",
+            "cross_jerk.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -201,8 +234,8 @@ def _library():
         lib.ocn_rows_jerk.restype = i
         lib.ocn_sym_jerk.argtypes = [p, p, p, i, f, f, i, p, p, p, p]
         lib.ocn_sym_jerk.restype = i
-        lib.ocn_rows_jerk_t.argtypes = [p, p, i, p, p, p, i, f, f, i, p, p,
-                                        p, p]
+        lib.ocn_rows_jerk_t.argtypes = [p, p, i, p, p, p, i, f, f, i, i, p,
+                                        p, p, p]
         lib.ocn_rows_jerk_t.restype = i
         lib.ocn_rows_jerk_t_scratch.argtypes = [i, i]
         lib.ocn_rows_jerk_t_scratch.restype = ctypes.c_longlong
@@ -229,6 +262,16 @@ def _library():
         lib.ocn_rows_jerk_df_scratch.restype = ctypes.c_longlong
         lib.ocn_df_selftest.argtypes = [p, p, p, p, i, p, p]
         lib.ocn_df_selftest.restype = i
+        lib.ocn_cross_accel.argtypes = [p, p, i, p, p, i, f, f, i, p, p, p,
+                                        p, p, p]
+        lib.ocn_cross_accel.restype = i
+        lib.ocn_cross_scratch.argtypes = [i, i]
+        lib.ocn_cross_scratch.restype = ctypes.c_longlong
+        lib.ocn_cross_jerk.argtypes = [p, p, p, i, p, p, p, i, f, f, i, p, p,
+                                       p, p, p, p]
+        lib.ocn_cross_jerk.restype = i
+        lib.ocn_cross_jerk_scratch.argtypes = [i, i]
+        lib.ocn_cross_jerk_scratch.restype = ctypes.c_longlong
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]
@@ -333,6 +376,35 @@ def sym_jerk_plain(pos_c, vel_c, mass_c, eps, G=1.0, dtype=torch.float32,
                        G, dtype, chunk)
 
 
+def rows_jerk_stream_plain(rows, vrows, src, svel, mass, eps, G=1.0,
+                           dtype=torch.float32, chunk=1024):
+    """K14's function in plain PyTorch: K4's function, counted apart (its
+    f32 sum is not compensated; the f64 one is the oracle)."""
+    return _jerk_plain("rows_jerk_stream", rows, vrows, src, svel, mass, eps,
+                       G, dtype, chunk)
+
+
+def cross_plain(posA, posB, massA, massB, eps, G=1.0, with_phi=False,
+                dtype=torch.float32, chunk=1024):
+    """K12's function in plain PyTorch, computed in ``dtype``: (accA, accB),
+    or (accA, phiA, accB, phiB) with ``with_phi``."""
+    PLAIN_CALLS["cross"] += 1
+    posA, posB, massA, massB = (t.to(dtype) for t in
+                                (posA, posB, massA, massB))
+    fn = (gravity.accel_potential_cross_pair if with_phi
+          else gravity.accel_cross_pair)
+    return fn(posA, posB, massA, massB, eps, G, chunk)
+
+
+def cross_jerk_plain(posA, velA, posB, velB, massA, massB, eps, G=1.0,
+                     dtype=torch.float32, chunk=1024):
+    """K13's function in plain PyTorch, computed in ``dtype``: (accA,
+    jerkA, accB, jerkB)."""
+    PLAIN_CALLS["cross_jerk"] += 1
+    args = (t.to(dtype) for t in (posA, velA, posB, velB, massA, massB))
+    return gravity.accel_jerk_cross_pair(*args, eps, G, chunk)
+
+
 def rows_x_plain(rhi, rlo, shi, slo, gm, eps, with_phi=False,
                  dtype=torch.float32, chunk=256, guarded=True):
     """K8's function in plain PyTorch on the same (hi, lo) planes, computed
@@ -376,6 +448,26 @@ def sym_jerk_x_plain(hi, lo, vhi, vlo, gm, eps, dtype=torch.float32,
 # kernel launches
 # --------------------------------------------------------------------------
 
+def _scratch(floats: int, device, scratch=None):
+    """``floats`` f32 of kernel scratch: a new buffer, or ``scratch`` (a
+    caller's buffer, reused across launches) when it is large enough."""
+    if scratch is None:
+        return torch.empty((floats,), dtype=torch.float32, device=device)
+    if (scratch.dtype != torch.float32 or scratch.device != device
+            or not scratch.is_contiguous() or scratch.numel() < floats):
+        raise ValueError(f"scratch must be a contiguous float32 tensor of at "
+                         f"least {floats} elements on {device}")
+    return scratch
+
+
+def sym_scratch_floats(n: int, jerk: bool = False) -> int:
+    """Floats of scratch K2 (K3 with ``jerk``) needs at N = n: nt x nt x T
+    slots of four floats (six for the jerk)."""
+    t = _library().ocn_sym_tile()
+    nt = -(-n // t)
+    return nt * nt * t * (6 if jerk else 4)
+
+
 def rows_kernel(rows, src, mass, eps, G=1.0, with_phi=False, guarded=True):
     """Launch K1 on centred f32 CUDA tensors; the same contract as
     ``rows_plain``."""
@@ -396,17 +488,16 @@ def rows_kernel(rows, src, mass, eps, G=1.0, with_phi=False, guarded=True):
     return (acc, phi) if with_phi else acc
 
 
-def sym_kernel(pos_c, mass_c, eps, G=1.0, with_phi=False, guarded=True):
+def sym_kernel(pos_c, mass_c, eps, G=1.0, with_phi=False, guarded=True,
+               scratch=None):
     """Launch K2 (both passes) on centred f32 CUDA tensors; the same
-    contract as ``sym_plain``."""
+    contract as ``sym_plain``. ``scratch``, if given, is a float32 buffer of
+    at least ``sym_scratch_floats(n)`` elements to use."""
     n = pos_c.shape[0]
     _check_f32("pos", pos_c, (n, 3))
     _check_f32("mass", mass_c, (n,))
     lib = _library()
-    t = lib.ocn_sym_tile()
-    nt = -(-n // t)
-    scratch = torch.empty((nt * nt * t, 4), dtype=torch.float32,
-                          device=pos_c.device)
+    scratch = _scratch(sym_scratch_floats(n), pos_c.device, scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
     phi = (torch.empty((n,), dtype=torch.float32, device=pos_c.device)
            if with_phi else None)
@@ -445,6 +536,21 @@ def rows_jerk_t_kernel(rows, vrows, src, svel, mass, eps, G=1.0,
                        guarded=True):
     """Launch K5 (both passes) on centred f32 CUDA tensors; the same
     contract as ``rows_jerk_t_plain``."""
+    return _rows_jerk_t_launch("rows_jerk_t", False, rows, vrows, src, svel,
+                               mass, eps, G, guarded)
+
+
+def rows_jerk_stream_kernel(rows, vrows, src, svel, mass, eps, G=1.0,
+                            guarded=True):
+    """Launch K14, K5 with Kahan steps across source stages and chunks, on
+    centred f32 CUDA tensors; the same contract as
+    ``rows_jerk_stream_plain``."""
+    return _rows_jerk_t_launch("rows_jerk_stream", True, rows, vrows, src,
+                               svel, mass, eps, G, guarded)
+
+
+def _rows_jerk_t_launch(key, compensated, rows, vrows, src, svel, mass, eps,
+                        G, guarded):
     nr, ns = rows.shape[0], src.shape[0]
     _check_f32("pos_rows", rows, (nr, 3))
     _check_f32("vel_rows", vrows, (nr, 3))
@@ -459,26 +565,26 @@ def rows_jerk_t_kernel(rows, vrows, src, svel, mass, eps, G=1.0,
     code = lib.ocn_rows_jerk_t(
         rows.data_ptr(), vrows.data_ptr(), nr, src.data_ptr(),
         svel.data_ptr(), mass.data_ptr(), ns, _f32(G), _f32(_f32(eps) ** 2),
-        int(guarded), scratch.data_ptr(), acc.data_ptr(), jerk.data_ptr(),
-        _stream(rows))
-    LAUNCHES["rows_jerk_t"] += 1
-    _check_launch(lib, code, "rows_jerk_t")
+        int(guarded), int(compensated), scratch.data_ptr(), acc.data_ptr(),
+        jerk.data_ptr(), _stream(rows))
+    LAUNCHES[key] += 1
+    _check_launch(lib, code, key)
     return acc, jerk
 
 
-def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True):
+def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True,
+                    scratch=None):
     """Launch K3 (both passes) on centred f32 CUDA tensors; the same
-    contract as ``sym_jerk_plain``."""
+    contract as ``sym_jerk_plain``. ``scratch``, if given, is a float32
+    buffer of at least ``sym_scratch_floats(n, jerk=True)`` elements."""
     n = pos_c.shape[0]
     _check_f32("pos", pos_c, (n, 3))
     _check_f32("vel", vel_c, (n, 3))
     _check_f32("mass", mass_c, (n,))
     lib = _library()
-    t = lib.ocn_sym_tile()
-    nt = -(-n // t)
     # six floats per slot: a float4 plane, then a float2 plane
-    scratch = torch.empty((nt * nt * t * 6,), dtype=torch.float32,
-                          device=pos_c.device)
+    scratch = _scratch(sym_scratch_floats(n, jerk=True), pos_c.device,
+                       scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
     jerk = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
     code = lib.ocn_sym_jerk(
@@ -488,6 +594,72 @@ def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True):
     LAUNCHES["sym_jerk"] += 1
     _check_launch(lib, code, "sym_jerk")
     return acc, jerk
+
+
+def cross_scratch_floats(nA: int, nB: int, jerk: bool = False) -> int:
+    """Floats of scratch K12 (K13 with ``jerk``) needs on nA x nB."""
+    lib = _library()
+    fn = lib.ocn_cross_jerk_scratch if jerk else lib.ocn_cross_scratch
+    return fn(nA, nB)
+
+
+def cross_kernel(posA, posB, massA, massB, eps, G=1.0, with_phi=False,
+                 guarded=True, scratch=None):
+    """Launch K12 (the tile pass and a reduce per set) on f32 CUDA tensors
+    centred in one frame; the same contract as ``cross_plain``.
+    ``scratch``, if given, is a float32 buffer of at least
+    ``cross_scratch_floats(nA, nB)`` elements."""
+    nA, nB = posA.shape[0], posB.shape[0]
+    _check_f32("posA", posA, (nA, 3))
+    _check_f32("posB", posB, (nB, 3))
+    _check_f32("massA", massA, (nA,))
+    _check_f32("massB", massB, (nB,))
+    lib = _library()
+    dev = posA.device
+    scratch = _scratch(cross_scratch_floats(nA, nB), dev, scratch)
+    accA = torch.empty((nA, 3), dtype=torch.float32, device=dev)
+    accB = torch.empty((nB, 3), dtype=torch.float32, device=dev)
+    phiA, phiB = ((torch.empty((nA,), dtype=torch.float32, device=dev),
+                   torch.empty((nB,), dtype=torch.float32, device=dev))
+                  if with_phi else (None, None))
+    code = lib.ocn_cross_accel(
+        posA.data_ptr(), massA.data_ptr(), nA, posB.data_ptr(),
+        massB.data_ptr(), nB, _f32(G), _f32(_f32(eps) ** 2), int(guarded),
+        scratch.data_ptr(), accA.data_ptr(),
+        phiA.data_ptr() if with_phi else None, accB.data_ptr(),
+        phiB.data_ptr() if with_phi else None, _stream(posA))
+    LAUNCHES["cross"] += 1
+    _check_launch(lib, code, "cross_accel")
+    return (accA, phiA, accB, phiB) if with_phi else (accA, accB)
+
+
+def cross_jerk_kernel(posA, velA, posB, velB, massA, massB, eps, G=1.0,
+                      guarded=True, scratch=None):
+    """Launch K13 (the tile pass and a reduce per set) on f32 CUDA tensors
+    centred in one frame; the same contract as ``cross_jerk_plain``.
+    ``scratch``, if given, is a float32 buffer of at least
+    ``cross_scratch_floats(nA, nB, jerk=True)`` elements."""
+    nA, nB = posA.shape[0], posB.shape[0]
+    _check_planes(nA, posA=posA, velA=velA)
+    _check_planes(nB, posB=posB, velB=velB)
+    _check_f32("massA", massA, (nA,))
+    _check_f32("massB", massB, (nB,))
+    lib = _library()
+    dev = posA.device
+    scratch = _scratch(cross_scratch_floats(nA, nB, jerk=True), dev, scratch)
+    accA, jerkA = (torch.empty((nA, 3), dtype=torch.float32, device=dev)
+                   for _ in range(2))
+    accB, jerkB = (torch.empty((nB, 3), dtype=torch.float32, device=dev)
+                   for _ in range(2))
+    code = lib.ocn_cross_jerk(
+        posA.data_ptr(), velA.data_ptr(), massA.data_ptr(), nA,
+        posB.data_ptr(), velB.data_ptr(), massB.data_ptr(), nB, _f32(G),
+        _f32(_f32(eps) ** 2), int(guarded), scratch.data_ptr(),
+        accA.data_ptr(), jerkA.data_ptr(), accB.data_ptr(), jerkB.data_ptr(),
+        _stream(posA))
+    LAUNCHES["cross_jerk"] += 1
+    _check_launch(lib, code, "cross_jerk")
+    return accA, jerkA, accB, jerkB
 
 
 def _check_planes(n, **planes):
@@ -632,19 +804,153 @@ def accel_potential_sym(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
     return acc.to(pos.dtype), phi.to(pos.dtype)
 
 
-def _check_n(n: int) -> None:
-    if n > STREAM_N:
-        raise ValueError(
-            f"N = {n} exceeds STREAM_N = {STREAM_N}: the chunked "
-            "pair-symmetric kernels that run past it are not ported yet "
-            "(ROADMAP B5)")
+def _sym_chunked(pos_c, mass_c, vel_c, eps, G, guarded, chunk, with_phi):
+    """The chunked self-interaction of centred f32 particles (the JAX
+    package's ``_sym_chunked_generic``): each diagonal chunk through K2 (K3
+    with ``vel_c``), each unordered chunk pair (i, j), i < j, through K12
+    (K13), in lexicographic order, A's outputs added into chunk i and B's
+    into chunk j after the diagonal outputs. On CPU tensors the plain twins
+    take the same route. Returns [acc] or [acc, phi] (the potential with
+    its softened self term) or [acc, jerk], f32. On the card one scratch
+    buffer, sized for a full chunk pair, serves every launch."""
+    jerk = vel_c is not None
+    planes = (pos_c, vel_c) if jerk else (pos_c,)
+    on_cuda = _on_cuda(*planes, mass_c)
+    n = pos_c.shape[0]
+    bounds = [(k, min(k + chunk, n)) for k in range(0, n, chunk)]
+    scratch = None
+    if on_cuda:
+        width = min(chunk, n)
+        floats = (cross_scratch_floats(width, width, jerk) if len(bounds) > 1
+                  else sym_scratch_floats(width, jerk))
+        scratch = torch.empty((floats,), dtype=torch.float32,
+                              device=pos_c.device)
+
+    def diag(k0, k1):
+        p, m = pos_c[k0:k1], mass_c[k0:k1]
+        if jerk:
+            v = vel_c[k0:k1]
+            if on_cuda:
+                return sym_jerk_kernel(p, v, m, eps, G, guarded, scratch)
+            return sym_jerk_plain(p, v, m, eps, G)
+        if on_cuda:
+            out = sym_kernel(p, m, eps, G, with_phi, guarded, scratch)
+        else:
+            out = sym_plain(p, m, eps, G, with_phi)
+        return out if with_phi else (out,)
+
+    def cross(i0, i1, j0, j1):
+        pA, pB = pos_c[i0:i1], pos_c[j0:j1]
+        mA, mB = mass_c[i0:i1], mass_c[j0:j1]
+        if jerk:
+            vA, vB = vel_c[i0:i1], vel_c[j0:j1]
+            if on_cuda:
+                return cross_jerk_kernel(pA, vA, pB, vB, mA, mB, eps, G,
+                                         guarded, scratch)
+            return cross_jerk_plain(pA, vA, pB, vB, mA, mB, eps, G)
+        if on_cuda:
+            return cross_kernel(pA, pB, mA, mB, eps, G, with_phi, guarded,
+                                scratch)
+        return cross_plain(pA, pB, mA, mB, eps, G, with_phi)
+
+    outs = [torch.cat(parts) for parts in
+            zip(*(diag(k0, k1) for k0, k1 in bounds))]
+    k = len(outs)
+    for i, (i0, i1) in enumerate(bounds):
+        for j0, j1 in bounds[i + 1:]:
+            res = cross(i0, i1, j0, j1)
+            for o, a in zip(outs, res[:k]):
+                o[i0:i1] += a
+            for o, b in zip(outs, res[k:]):
+                o[j0:j1] += b
+    return outs
+
+
+def accel_sym_chunked(pos, mass, eps=0.0, G=1.0, guarded: bool = True,
+                      chunk: int | None = None):
+    """Chunked pair-symmetric self-interaction accel for N past the
+    resident cap, ``CHUNK_SYM`` particles a chunk; pos.dtype out."""
+    chunk = CHUNK_SYM if chunk is None else chunk
+    pos_c, mass_c = gravity.prepare_f32(pos, mass)
+    (acc,) = _sym_chunked(pos_c, mass_c, None, eps, G, guarded, chunk, False)
+    return acc.to(pos.dtype)
+
+
+def accel_potential_sym_chunked(pos, mass, eps=0.0, G=1.0,
+                                guarded: bool = True,
+                                chunk: int | None = None):
+    """Chunked pair-symmetric (accel, phi) past the resident cap; the
+    softened self term, which the diagonal chunks hold, is removed once at
+    the end, as in ``accel_potential_sym``."""
+    chunk = CHUNK_SYM if chunk is None else chunk
+    pos_c, mass_c = gravity.prepare_f32(pos, mass)
+    acc, phi = _sym_chunked(pos_c, mass_c, None, eps, G, guarded, chunk,
+                            True)
+    phi = phi + gravity.self_phi(mass_c, eps, _f32(G))
+    return acc.to(pos.dtype), phi.to(pos.dtype)
+
+
+def accel_jerk_sym_chunked(pos, vel, mass, eps=0.0, G=1.0,
+                           guarded: bool = True, chunk: int | None = None):
+    """Chunked pair-symmetric (accel, jerk) past the resident cap,
+    ``CHUNK_SYMJ`` particles a chunk; pos.dtype out."""
+    chunk = CHUNK_SYMJ if chunk is None else chunk
+    pos_c, mass_c, vel_c = gravity.prepare_f32(pos, mass, vel=vel)
+    acc, jerk = _sym_chunked(pos_c, mass_c, vel_c, eps, G, guarded, chunk,
+                             False)
+    return acc.to(pos.dtype), jerk.to(pos.dtype)
+
+
+def _f32_ready(*tensors):
+    return tuple(t.to(torch.float32).contiguous() for t in tensors)
+
+
+def accel_cross_pair(posA, posB, massA, massB, eps, G=1.0,
+                     guarded: bool = True):
+    """(accel on A from B, accel on B from A) in one sweep, each pair once
+    (K12); inputs centred in one frame and cast to f32 here, each output in
+    its set's dtype."""
+    args = _f32_ready(posA, posB, massA, massB)
+    if _on_cuda(*args):
+        aA, aB = cross_kernel(*args, eps, G, False, guarded)
+    else:
+        aA, aB = cross_plain(*args, eps, G)
+    return aA.to(posA.dtype), aB.to(posB.dtype)
+
+
+def accel_potential_cross_pair(posA, posB, massA, massB, eps, G=1.0,
+                               guarded: bool = True):
+    """(accA, phiA, accB, phiB) in one sweep (K12 with the potential). The
+    sets are disjoint, so neither phi holds a self term."""
+    args = _f32_ready(posA, posB, massA, massB)
+    if _on_cuda(*args):
+        aA, pA, aB, pB = cross_kernel(*args, eps, G, True, guarded)
+    else:
+        aA, pA, aB, pB = cross_plain(*args, eps, G, with_phi=True)
+    return (aA.to(posA.dtype), pA.to(posA.dtype), aB.to(posB.dtype),
+            pB.to(posB.dtype))
+
+
+def accel_jerk_cross_pair(posA, velA, posB, velB, massA, massB, eps, G=1.0,
+                          guarded: bool = True):
+    """(accA, jerkA, accB, jerkB) in one sweep (K13)."""
+    args = _f32_ready(posA, velA, posB, velB, massA, massB)
+    if _on_cuda(*args):
+        out = cross_jerk_kernel(*args, eps, G, guarded)
+    else:
+        out = cross_jerk_plain(*args, eps, G)
+    aA, jA, aB, jB = out
+    return (aA.to(posA.dtype), jA.to(posA.dtype), aB.to(posB.dtype),
+            jB.to(posB.dtype))
 
 
 def accel(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
-    """Self-interaction accel, pos.dtype out: K2 for SYM_MIN <= N, K1
-    below (the dispatch rule of pallas_gravity.accel)."""
+    """Self-interaction accel, pos.dtype out: K2 for SYM_MIN <= N <=
+    STREAM_N, chunked K2 + K12 past it, K1 below SYM_MIN (the dispatch rule
+    of pallas_gravity.accel)."""
     n = pos.shape[0]
-    _check_n(n)
+    if n > STREAM_N:
+        return accel_sym_chunked(pos, mass, eps, G, guarded)
     if n >= SYM_MIN:
         return accel_sym(pos, mass, eps, G, guarded)
     pos_c, mass_c = gravity.prepare_f32(pos, mass)
@@ -655,7 +961,8 @@ def accel_potential(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
     """Self-interaction (accel, phi) with the self term removed, pos.dtype
     out; same dispatch rule as ``accel``."""
     n = pos.shape[0]
-    _check_n(n)
+    if n > STREAM_N:
+        return accel_potential_sym_chunked(pos, mass, eps, G, guarded)
     if n >= SYM_MIN:
         return accel_potential_sym(pos, mass, eps, G, guarded)
     pos_c, mass_c = gravity.prepare_f32(pos, mass)
@@ -667,17 +974,15 @@ def accel_potential(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
 def accel_jerk_rows(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps,
                     G=1.0, chunk: int = 0, guarded: bool = True):
     """(accel, jerk) on centred f32 rows from centred f32 sources; f32 out.
-    K5 for RT_MIN_JERK <= sources <= STREAM_N with at most RT_MAX_ROWS rows,
-    K4 otherwise (the dispatch rule of pallas_gravity.accel_jerk_rows).
-    ``chunk`` is accepted for the pallas_gravity signature and ignored."""
+    K14 (compensated) past STREAM_N sources at any row count; K5 for
+    RT_MIN_JERK <= sources with at most RT_MAX_ROWS rows; K4 otherwise (the
+    dispatch rule of pallas_gravity.accel_jerk_rows). ``chunk`` is accepted
+    for the pallas_gravity signature and ignored."""
     ns = src_pos.shape[0]
-    if ns > STREAM_N:
-        raise ValueError(
-            f"{ns} sources exceed STREAM_N = {STREAM_N}: the streamed "
-            "accel + jerk kernel that runs past it is not ported yet "
-            "(ROADMAP B2/B4)")
     on_cuda = _on_cuda(pos_rows, vel_rows, src_pos, src_vel, src_mass)
-    if ns >= RT_MIN_JERK and pos_rows.shape[0] <= RT_MAX_ROWS:
+    if ns > STREAM_N:
+        launch, plain = rows_jerk_stream_kernel, rows_jerk_stream_plain
+    elif ns >= RT_MIN_JERK and pos_rows.shape[0] <= RT_MAX_ROWS:
         launch, plain = rows_jerk_t_kernel, rows_jerk_t_plain
     else:
         launch, plain = rows_jerk_kernel, rows_jerk_plain
@@ -699,15 +1004,46 @@ def accel_jerk_sym(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
 
 def accel_jerk(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
     """Self-interaction (accel, jerk), pos.dtype out: K3 for RT_MIN_JERK <=
-    N, K4 below (the dispatch rule of pallas_gravity.accel_jerk)."""
+    N <= STREAM_N, chunked K3 + K13 past it, K4 below RT_MIN_JERK (the
+    dispatch rule of pallas_gravity.accel_jerk)."""
     n = pos.shape[0]
-    _check_n(n)
+    if n > STREAM_N:
+        return accel_jerk_sym_chunked(pos, vel, mass, eps, G, guarded)
     if n >= RT_MIN_JERK:
         return accel_jerk_sym(pos, vel, mass, eps, G, guarded)
     pos_c, mass_c, vel_c = gravity.prepare_f32(pos, mass, vel=vel)
     acc, jerk = accel_jerk_rows(pos_c, vel_c, pos_c, vel_c, mass_c, eps, G,
                                 0, guarded)
     return acc.to(pos.dtype), jerk.to(pos.dtype)
+
+
+def route(n: int, kind: str = "kdk") -> str:
+    """The f32 tier's kernels on the card for N = n under integrator
+    ``kind``: the self-interaction (accel under KDK, accel + jerk under
+    Hermite and block steps; the diagnostics potential takes the accel
+    route with K2/K12's potential form), and under block steps the
+    active rows."""
+    def chunked(kernel, cross, chunk):
+        c = -(-n // chunk)
+        return (f"chunked pair-symmetric: {kernel} on {c} diagonal chunks of "
+                f"up to {chunk}, {cross} on {c * (c - 1) // 2} chunk pairs")
+
+    if n > STREAM_N:
+        acc = chunked("K2", "K12", CHUNK_SYM)
+        jerk = chunked("K3", "K13", CHUNK_SYMJ)
+    else:
+        acc = ("K2 (pair-symmetric, resident)" if n >= SYM_MIN
+               else "K1 (one-sided)")
+        jerk = ("K3 (pair-symmetric, resident)" if n >= RT_MIN_JERK
+                else "K4 (one-sided)")
+    if kind == "kdk":
+        return f"accel and potential: {acc}"
+    line = f"accel + jerk: {jerk}; potential: {acc}"
+    if kind == "block":
+        rows = ("K14 (compensated, any row count)" if n > STREAM_N else
+                "K5, K4 past RT_MAX_ROWS rows" if n >= RT_MIN_JERK else "K4")
+        line += f"; active rows: {rows}"
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -720,8 +1056,8 @@ def _check_resident(nr: int, ns: int) -> None:
             f"{nr} rows against {ns} sources: past STREAM_N = {STREAM_N} "
             f"sources or RT_MAX_ROWS = {RT_MAX_ROWS} rows the extended tier "
             "runs streamed or chunked kernels that are not ported yet "
-            "(ROADMAP B7: the streamed extended kernels; B5: the chunked "
-            "pair-symmetric forms)")
+            "(ROADMAP B7: the streamed extended kernels and the cross "
+            "kernel's extended ops)")
 
 
 def accel_rows_x_hilo(rhi, rlo, shi, slo, gm, eps, guarded: bool = True):

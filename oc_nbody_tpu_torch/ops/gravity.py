@@ -8,6 +8,9 @@ Two tiers, as in the JAX package:
     stays O(chunk * N); the pairwise math runs in the input dtype (f32 on
     the production path, f64 where a caller wants an oracle at large N).
 
+A third tier, ``*_cross_pair``, sums two disjoint sets in one sweep (each
+pair once, A's action and B's reaction).
+
 The hand-written CUDA kernels (``ops/cuda_gravity.py``) compute the same
 functions; on CPU tensors their wrappers call these. The operands of the
 extended (hi/lo) precision tier are prepared here too (``split_hilo``,
@@ -174,6 +177,96 @@ def accel_jerk_rows(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps,
         return pos_rows.new_zeros((0, 3)), pos_rows.new_zeros((0, 3))
     return (torch.cat([b[0] for b in blocks]),
             torch.cat([b[1] for b in blocks]))
+
+
+# --------------------------------------------------------------------------
+# cross-pair tier: two DISJOINT sets A and B in one sweep, each pair once,
+# returning A's action and B's reaction (the counterpart of the JAX
+# package's accel_cross_pair & co.: the chunk pairs of the chunked
+# self-interaction, and the halfring sharded step there). The pairwise
+# weights are formed once and reduced along both axes. Blocked over A's
+# rows, B's sums carried across blocks; inputs are ready for the pair sum
+# and centred in ONE frame (per-set centring would put A and B in
+# different frames). Disjoint sets have no self pair, so neither potential
+# holds a self term.
+# --------------------------------------------------------------------------
+
+def _cross_pair(posA, posB, massA, massB, eps, G, chunk, with_phi=False,
+                velA=None, velB=None):
+    """A's outputs, then B's: (accA, accB), with the potential (accA, phiA,
+    accB, phiB), with velocities (accA, jerkA, accB, jerkB); all in
+    posA.dtype."""
+    dtype = posA.dtype
+    eps2 = rounded(rounded(eps, dtype) ** 2, dtype)
+    G = rounded(G, dtype)
+    gmA = G * massA.to(dtype)
+    gmB = (G * massB.to(dtype))[None, :]
+    sx, sy, sz = (posB[None, :, k] for k in range(3))
+    jerk = velA is not None
+    if jerk:
+        svx, svy, svz = (velB[None, :, k] for k in range(3))
+    nB = posB.shape[0]
+    aB = posB.new_zeros((nB, 3))
+    bB = posB.new_zeros((nB, 3) if jerk else (nB,))
+    aA, bA = [], []
+    for i0 in range(0, posA.shape[0], chunk):
+        pi = posA[i0:i0 + chunk]
+        gi = gmA[i0:i0 + chunk, None]
+        dx, dy, dz = sx - pi[:, 0:1], sy - pi[:, 1:2], sz - pi[:, 2:3]
+        u = dx * dx + dy * dy + dz * dz + eps2
+        inv_r = _inv_r(u)
+        inv3 = inv_r * inv_r * inv_r
+        w, wi = gmB * inv3, gi * inv3
+        aA.append(torch.stack([torch.sum(w * dx, dim=1),
+                               torch.sum(w * dy, dim=1),
+                               torch.sum(w * dz, dim=1)], dim=1))
+        aB = aB - torch.stack([torch.sum(wi * dx, dim=0),
+                               torch.sum(wi * dy, dim=0),
+                               torch.sum(wi * dz, dim=0)], dim=1)
+        if jerk:
+            vi = velA[i0:i0 + chunk]
+            dvx = svx - vi[:, 0:1]
+            dvy = svy - vi[:, 1:2]
+            dvz = svz - vi[:, 2:3]
+            rv = dx * dvx + dy * dvy + dz * dvz
+            s = (3.0 * rv) * (inv_r * inv_r)
+            bx, by, bz = dvx - s * dx, dvy - s * dy, dvz - s * dz
+            bA.append(torch.stack([torch.sum(w * bx, dim=1),
+                                   torch.sum(w * by, dim=1),
+                                   torch.sum(w * bz, dim=1)], dim=1))
+            bB = bB - torch.stack([torch.sum(wi * bx, dim=0),
+                                   torch.sum(wi * by, dim=0),
+                                   torch.sum(wi * bz, dim=0)], dim=1)
+        elif with_phi:
+            bA.append(-torch.sum(gmB * inv_r, dim=1))
+            bB = bB - torch.sum(gi * inv_r, dim=0)
+    aA = torch.cat(aA) if aA else posA.new_zeros((0, 3))
+    if not (jerk or with_phi):
+        return aA, aB
+    bA = torch.cat(bA) if bA else posA.new_zeros((0, 3) if jerk else (0,))
+    return aA, bA, aB, bB
+
+
+def accel_cross_pair(posA, posB, massA, massB, eps, G=1.0,
+                     chunk: int = 1024):
+    """(accel on A from B, accel on B from A), each (a, b) pair once."""
+    return _cross_pair(posA, posB, massA, massB, eps, G, chunk)
+
+
+def accel_potential_cross_pair(posA, posB, massA, massB, eps, G=1.0,
+                               chunk: int = 1024):
+    """(accA, phiA, accB, phiB); the sets are disjoint, so neither phi has
+    a self term (no ``self_phi`` correction applies)."""
+    return _cross_pair(posA, posB, massA, massB, eps, G, chunk,
+                       with_phi=True)
+
+
+def accel_jerk_cross_pair(posA, velA, posB, velB, massA, massB, eps, G=1.0,
+                          chunk: int = 1024):
+    """(accA, jerkA, accB, jerkB); the bracket dv - 3 (r.v) inv^2 d serves
+    both directions (the reaction jerk is minus the action pairwise)."""
+    return _cross_pair(posA, posB, massA, massB, eps, G, chunk, velA=velA,
+                       velB=velB)
 
 
 # --------------------------------------------------------------------------

@@ -144,7 +144,9 @@ def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
                 f"non-finite total energy at t={carry.state.time:.6g}")
         if out.stdout:
             print(f"t={carry.state.time:9.4f}  E={e:+.9e}  "
-                  f"dE/E={row['dE_over_E']:+.3e}  steps={carry.n_steps}  "
+                  f"dE/E={row['dE_over_E']:+.3e}  "
+                  f"dE/E_int={row['dE_over_E_int']:+.3e}  "
+                  f"steps={carry.n_steps}  "
                   f"wall={row['wall_s']:.1f}s", flush=True)
 
     wall = _time.perf_counter() - wall_start

@@ -30,6 +30,7 @@ from oc_nbody_tpu_torch.models.binaries import (BinaryPopulation,
                                                  add_binaries)
 from oc_nbody_tpu_torch.models.king import king
 from oc_nbody_tpu_torch.models.plummer import plummer
+from oc_nbody_tpu_torch.ops import cuda_gravity
 from oc_nbody_tpu_torch.state import ParticleState
 from oc_nbody_tpu_torch.utils.units import UnitSystem
 
@@ -85,9 +86,25 @@ def _check_mesh(cfg: SimConfig, device) -> None:
             "devices; the port runs one (ROADMAP A17, multi-GPU)")
 
 
+def n_particles(cfg: SimConfig) -> int:
+    """The star count the config builds: ``ic.n`` systems plus one star
+    for each of its ``round(ic.binary_fraction * ic.n)`` binaries
+    (``add_binaries``)."""
+    ic = cfg.ic
+    return ic.n + (int(round(ic.binary_fraction * ic.n))
+                   if ic.binary_fraction > 0.0 else 0)
+
+
+# precision tier -> the ROADMAP item that runs it past STREAM_N particles
+_CAPPED_TIERS = {"extended": "B7: the extended tier's streamed and cross "
+                             "kernels",
+                 "df32": "B10: the df32 tier past STREAM_N"}
+
+
 def check_supported(cfg: SimConfig, device=None) -> None:
     """Raise for a config the port cannot run as written (on ``device``,
-    when given)."""
+    when given): NotImplementedError for what is not ported yet, before
+    any state or stepper is built."""
     if cfg.backend != "auto":
         raise ValueError(
             f"backend = {cfg.backend!r} names a JAX backend; the port takes "
@@ -100,7 +117,14 @@ def check_supported(cfg: SimConfig, device=None) -> None:
             f"{_INTEGRATOR_ITEMS[kind]}); the port runs 'kdk', 'hermite' and "
             "'block'")
     _check_mesh(cfg, device)
-    check_precision(cfg.integrator.precision)
+    precision = cfg.integrator.precision
+    check_precision(precision)
+    n = n_particles(cfg)
+    if precision in _CAPPED_TIERS and n > cuda_gravity.STREAM_N:
+        raise NotImplementedError(
+            f"{n} particles at the {precision} precision tier: past STREAM_N "
+            f"= {cuda_gravity.STREAM_N} that tier is not ported yet (ROADMAP "
+            f"{_CAPPED_TIERS[precision]}); the f32 tier runs any N")
     for path, value, item in _UNPORTED:
         got = _get(cfg, path)
         if got != value and not (got is None and value == "none"):

@@ -26,7 +26,14 @@ leaves ~1e-11; the bounds leave room for cancellation in a row's sum),
 repeat bitwise, and on the close-pair case stay inside 1e-9 / 1e-8 of the
 f64 oracle; the device's two_sum and two_prod are exact and its df_rsqrt is
 inside 1e-13. The ragged sizes 1,000 and 10,650 (the binaries config's N)
-run through K6, K7, K9, K10 and K11.
+run through K6, K7, K9, K10 and K11. K12 (cross_accel, with and without
+the potential) and K13 (cross_jerk), the disjoint-set kernels of the
+chunked self-interaction, are held to their f64 twins on ragged set pairs
+at the same tolerances and repeat bitwise, also on a reused scratch buffer;
+the chunked route itself runs on the card with STREAM_N lowered. K14 (K5's
+compensated variant, rows past STREAM_N sources) is held to 2e-5 of max at
+up to 300,000 sources and 70,000 rows, repeats bitwise and gives a row the
+same bits whatever other rows share the launch.
 """
 import numpy as np
 import pytest
@@ -151,7 +158,7 @@ def test_guarded_self_pair_adds_no_jerk(cuda):
         assert all(bool((t == 0).all()) for t in out)
 
 
-def test_wrappers_launch_the_kernels_on_cuda(cuda):
+def test_wrappers_launch_the_kernels_on_cuda(cuda, monkeypatch):
     pos, mass, vel = _moving_cluster(16384, 1, cuda)
     pos64, vel64 = pos.double(), vel.double()
     launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
@@ -174,6 +181,14 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda):
     cuda_df.accel_df(pos64[:1000], mass[:1000], 1.0 / 64)         # K10
     cuda_df.accel_jerk_df(pos64[:1000], vel64[:1000], mass[:1000],
                           1.0 / 64)                               # K11
+    cg.accel_cross_pair(pos[:100], pos[100:300], mass[:100], mass[100:300],
+                        1.0 / 64)                       # disjoint sets: K12
+    cg.accel_jerk_cross_pair(pos[:100], vel[:100], pos[100:300],
+                             vel[100:300], mass[:100], mass[100:300],
+                             1.0 / 64)                  # K13
+    monkeypatch.setattr(cg, "STREAM_N", 8191)
+    cg.accel_jerk_rows(pos[:64], vel[:64], pos[:8192], vel[:8192],
+                       mass[:8192], 1.0 / 64)           # past STREAM_N: K14
     torch.cuda.synchronize()
     assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
     assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}
@@ -230,6 +245,128 @@ def test_rows_jerk_t_rows_are_independent_of_the_launch(cuda, guarded):
         sub = cg.rows_jerk_t_kernel(src[rows].contiguous(),
                                     svel[rows].contiguous(), src, svel, mass,
                                     eps, guarded=guarded)
+        for got, want in zip(sub, full):
+            assert torch.equal(got, want[rows])
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("nA,nB", [(1, 1), (1, 300), (127, 129), (1000, 300),
+                                   (4097, 2000)])
+def test_cross_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
+                                                        with_phi, eps):
+    """K12 (K12<phi>) on disjoint ragged sets against its f64 twin, both
+    sets' outputs; two launches, and a launch on a larger reused scratch
+    buffer, bitwise equal."""
+    pos, mass = _cluster(nA + nB, nA + nB, cuda)
+    pA, pB = pos[:nA].contiguous(), pos[nA:].contiguous()
+    mA, mB = mass[:nA].contiguous(), mass[nA:].contiguous()
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0)
+    out = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, **kw)
+    again = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, **kw)
+    big = torch.empty((cg.cross_scratch_floats(nA + 128, nB + 128),),
+                      dtype=torch.float32, device=cuda)
+    reused = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, scratch=big, **kw)
+    ref = cg.cross_plain(pA, pB, mA, mB, eps, 1.3, with_phi=with_phi,
+                         dtype=torch.float64)
+    half = len(out) // 2
+    _check(out[:half] if with_phi else out[0], ref[:half] if with_phi
+           else ref[0], with_phi)
+    _check(out[half:] if with_phi else out[1], ref[half:] if with_phi
+           else ref[1], with_phi)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert all(torch.equal(a, b) for a, b in zip(out, reused))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("nA,nB", [(1, 1), (1, 300), (127, 129), (1000, 300),
+                                   (4097, 2000)])
+def test_cross_jerk_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
+                                                             eps):
+    """K13 on disjoint ragged sets against its f64 twin; two launches
+    bitwise equal."""
+    pos, mass, vel = _moving_cluster(nA + nB, nA + nB + 1, cuda)
+    args = (pos[:nA].contiguous(), vel[:nA].contiguous(),
+            pos[nA:].contiguous(), vel[nA:].contiguous(),
+            mass[:nA].contiguous(), mass[nA:].contiguous())
+    out = cg.cross_jerk_kernel(*args, eps, 1.3, guarded=eps == 0.0)
+    again = cg.cross_jerk_kernel(*args, eps, 1.3, guarded=eps == 0.0)
+    ref = cg.cross_jerk_plain(*args, eps, 1.3, dtype=torch.float64)
+    _check_jerk(out[:2], ref[:2])
+    _check_jerk(out[2:], ref[2:])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("jerk", [False, True])
+def test_chunked_self_interaction_on_cuda(cuda, monkeypatch, jerk):
+    """The chunked route on the card at N = 3,000 with STREAM_N lowered and
+    chunks of 1,024 (1,024, 1,024 and 952): K2 (K3) three times and K12
+    (K13) three times per evaluation, no plain twin; within the f32 bounds
+    of the f64 oracle and bitwise repeatable."""
+    monkeypatch.setattr(cg, "STREAM_N", 2048)
+    monkeypatch.setattr(cg, "CHUNK_SYM", 1024)
+    monkeypatch.setattr(cg, "CHUNK_SYMJ", 1024)
+    pos, mass, vel = _moving_cluster(3000, 4, cuda)
+    pos64, vel64 = pos.double(), vel.double()
+    launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
+    if jerk:
+        out = cg.accel_jerk(pos64, vel64, mass, 1.0 / 64, 1.3, False)
+        again = cg.accel_jerk(pos64, vel64, mass, 1.0 / 64, 1.3, False)
+        ref = gravity.accel_jerk(pos64, vel64, mass, 1.0 / 64, 1.3,
+                                 compute_dtype=torch.float64)
+        _check_jerk(tuple(t.float() for t in out), ref)
+        keys = ("sym_jerk", "cross_jerk")
+    else:
+        out = cg.accel_potential(pos64, mass, 1.0 / 64, 1.3, False)
+        again = cg.accel_potential(pos64, mass, 1.0 / 64, 1.3, False)
+        ref = gravity.accel_potential(pos64, mass, 1.0 / 64, 1.3,
+                                      compute_dtype=torch.float64)
+        _check(tuple(t.float() for t in out), ref, True)
+        keys = ("sym", "cross")
+    torch.cuda.synchronize()
+    assert all(cg.LAUNCHES[k] == launches[k] + 6 for k in keys)
+    assert cg.PLAIN_CALLS == plain
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 256])
+@pytest.mark.parametrize("nr,ns", [(1, 300), (37, 300), (1000, 40000),
+                                   (64, 300000), (70000, 300000)])
+def test_rows_jerk_stream_kernel_matches_plain(cuda, nr, ns, eps):
+    """K14 (K5 with Kahan steps across stages and chunks) against its f64
+    twin, 2e-5 of max past 16,384 sources; row counts past RT_MAX_ROWS;
+    two launches bitwise equal."""
+    src, mass, svel = _moving_cluster(ns, ns + 11, cuda)
+    rows = (src[:nr] + 0.01).contiguous()
+    vrows = (svel[:nr] - 0.02).contiguous()
+    out = cg.rows_jerk_stream_kernel(rows, vrows, src, svel, mass, eps, 1.3,
+                                     guarded=eps == 0.0)
+    again = cg.rows_jerk_stream_kernel(rows, vrows, src, svel, mass, eps,
+                                       1.3, guarded=eps == 0.0)
+    ref = cg.rows_jerk_stream_plain(rows, vrows, src, svel, mass, eps, 1.3,
+                                    dtype=torch.float64, chunk=256)
+    tol = (2e-5, 2e-5) if ns > 16384 else (5e-6, 1e-5)
+    for got, want, t in zip(out, ref, tol):
+        assert got.dtype == torch.float32
+        err = float((got.double() - want).abs().max())
+        assert err <= t * float(want.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("guarded", [True, False])
+def test_rows_jerk_stream_rows_are_independent_of_the_launch(cuda, guarded):
+    """K14 gives a row the same bits alone, in a subset, or among all
+    300,000 rows."""
+    src, mass, svel = _moving_cluster(300000, 6, cuda)
+    eps = 0.0 if guarded else 1.0 / 256
+    full = cg.rows_jerk_stream_kernel(src, svel, src, svel, mass, eps,
+                                      guarded=guarded)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    for k in (1, 64, 4095):
+        rows = torch.randperm(300000, generator=gen)[:k].to(cuda)
+        sub = cg.rows_jerk_stream_kernel(src[rows].contiguous(),
+                                         svel[rows].contiguous(), src, svel,
+                                         mass, eps, guarded=guarded)
         for got, want in zip(sub, full):
             assert torch.equal(got, want[rows])
 

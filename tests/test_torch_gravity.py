@@ -226,8 +226,9 @@ def test_jerk_oracle_matches_jax_and_guards_the_self_pair():
 
 
 def test_jerk_dispatch_rule(monkeypatch):
-    """K3's twin for RT_MIN_JERK <= N <= STREAM_N, K4's below, ValueError
-    naming ROADMAP B5 above; CPU tensors never count as launches."""
+    """K3's twin for RT_MIN_JERK <= N <= STREAM_N, K4's below, and above
+    STREAM_N the chunked route (K3's twin on each diagonal chunk, K13's on
+    each chunk pair); CPU tensors never count as launches."""
     pos, vel, mass = _moving_cluster(300, seed=41)
     p64, v64, m32 = _t(pos, torch.float64), _t(vel, torch.float64), _t(mass)
     launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
@@ -238,8 +239,14 @@ def test_jerk_dispatch_rule(monkeypatch):
     assert cg.PLAIN_CALLS["sym_jerk"] == plain["sym_jerk"] + 1
     assert cg.LAUNCHES == launches
     monkeypatch.setattr(cg, "STREAM_N", 299)
-    with pytest.raises(ValueError, match="B5"):
-        cg.accel_jerk(p64, v64, m32, 0.1)
+    monkeypatch.setattr(cg, "CHUNK_SYMJ", 128)     # chunks 128, 128, 44
+    before = dict(cg.PLAIN_CALLS)
+    out = cg.accel_jerk(p64, v64, m32, 0.1)
+    assert cg.PLAIN_CALLS["sym_jerk"] == before["sym_jerk"] + 3
+    assert cg.PLAIN_CALLS["cross_jerk"] == before["cross_jerk"] + 3
+    assert cg.LAUNCHES == launches
+    _close_jerk(out, jgrav.accel_jerk(pos, vel, np.asarray(mass, np.float32),
+                                      0.1))
 
 
 def test_plain_twins_in_f64_match_the_oracle():
@@ -278,8 +285,9 @@ def test_cpu_tensors_never_touch_the_launch_counters():
 
 
 def test_dispatch_rule(monkeypatch):
-    """sym for SYM_MIN <= N <= STREAM_N, one-sided below, ValueError
-    naming ROADMAP B5 above."""
+    """sym for SYM_MIN <= N <= STREAM_N, one-sided below, and above
+    STREAM_N the chunked route: K2's twin on each diagonal chunk, K12's on
+    each chunk pair."""
     pos, mass = _cluster(300, seed=11)
     pos_t, mass_t = _t(pos, torch.float64), _t(mass)
     plain = dict(cg.PLAIN_CALLS)
@@ -289,10 +297,17 @@ def test_dispatch_rule(monkeypatch):
     cg.accel_potential(pos_t, mass_t, 0.1)
     assert cg.PLAIN_CALLS["sym"] == plain["sym"] + 1
     monkeypatch.setattr(cg, "STREAM_N", 299)
-    with pytest.raises(ValueError, match="B5"):
-        cg.accel(pos_t, mass_t, 0.1)
-    with pytest.raises(ValueError, match="B5"):
-        cg.accel_potential(pos_t, mass_t, 0.1)
+    monkeypatch.setattr(cg, "CHUNK_SYM", 128)      # chunks 128, 128, 44
+    before = dict(cg.PLAIN_CALLS)
+    acc = cg.accel(pos_t, mass_t, 0.1)
+    acc_p, phi = cg.accel_potential(pos_t, mass_t, 0.1)
+    assert cg.PLAIN_CALLS["sym"] == before["sym"] + 6
+    assert cg.PLAIN_CALLS["cross"] == before["cross"] + 6
+    m32 = np.asarray(mass, np.float32)
+    ref_acc, ref_phi = jgrav.accel_potential(pos, m32, 0.1)
+    _close_acc(acc, ref_acc)
+    _close_acc(acc_p, ref_acc)
+    _close_phi(phi, ref_phi)
 
 
 def test_no_nvcc_means_no_kernels(monkeypatch, tmp_path):
@@ -377,8 +392,8 @@ def test_k5_twin_matches_transposed_pallas(monkeypatch, nr, eps):
 def test_rows_jerk_dispatch_rule(monkeypatch):
     """K5's twin for RT_MIN_JERK <= sources <= STREAM_N with at most
     RT_MAX_ROWS rows, K4's below RT_MIN_JERK sources or above RT_MAX_ROWS
-    rows, ValueError naming ROADMAP B2/B4 past STREAM_N sources; CPU
-    tensors never count as launches."""
+    rows, K14's past STREAM_N sources whatever the row count; CPU tensors
+    never count as launches."""
     src, svel, mass = (_t(np.asarray(a, np.float32))
                        for a in _moving_cluster(300, seed=61))
     rows, vrows = src[:40].contiguous(), svel[:40].contiguous()
@@ -401,5 +416,6 @@ def test_rows_jerk_dispatch_rule(monkeypatch):
     assert cg.LAUNCHES == launches
     assert cg.PLAIN_CALLS["rows_jerk_t"] == plain["rows_jerk_t"] + 2
     monkeypatch.setattr(cg, "STREAM_N", 299)
-    with pytest.raises(ValueError, match="B2/B4"):
-        routed(300)
+    assert routed(300) == ["rows_jerk_stream"]     # past STREAM_N, 40 rows
+    assert routed(299) == ["rows_jerk"]
+    assert cg.LAUNCHES == launches
