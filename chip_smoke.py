@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from the sources in the checkout (one nvcc per
    source, all at once);
 3. each kernel (K1 rows_accel, K2 sym_accel, K3 sym_jerk, K4 rows_jerk,
-   K5 rows_jerk_t; K6-K14 below) against its plain PyTorch twin in f64 on
+   K5 rows_jerk_t; K6-K17 below) against its plain PyTorch twin in f64 on
    the same inputs, with max error, tolerance and times (CUDA events,
    median of 5) for the kernel and the f32 plain twin (K5 and K4 beside it as CUDA-graph
    replays of 20 calls); K2, K3 and K5 are launched twice
@@ -42,7 +42,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    phi, accel + jerk) against the f64 oracle rows sum on 4,096 sampled
    rows against all sources inside 2e-5 of max (phi rtol 3e-5), bitwise
    repeatable, timed at 1M and 2,097,152 beside K1 as a one-sided
-   self-interaction at 1M;
+   self-interaction at 1M. Then the extended tier past STREAM_N: K15
+   cross_accel_x (with and without the raw potential) at a full chunk pair
+   (98,304²) and a ragged one (98,304 x 65,536), K16 cross_jerk_x at
+   73,728² and 73,728 x 16,384, and K17 (K9 compensated) on 1 to 4,096
+   rows against 1,048,576 sources and on all 131,072 rows of a set of that
+   size (the row cap), each against the f64 evaluation of the same (hi, lo)
+   planes inside 2e-5 of max (phi rtol 3e-5), launched twice and bitwise
+   equal, K17 row-set independent; the close-pair case at N = 1M with each
+   of its 50 pairs across two chunks (the extended chunked route inside
+   2e-5 / 5e-5 of the f64 oracle, the f32 chunked route past 1e-3); and the
+   chunked extended evaluation at 1M (accel, accel + raw phi, accel +
+   jerk) against the f64 oracle on 4,096 sampled rows inside 2e-5,
+   bitwise repeatable, timed beside the f32 chunked route;
 4. the paths, each through ``python -m oc_nbody_tpu_torch run`` (via
    ``__main__.main``) with the launch counters set to 0 just before it and
    read just after: c1 (KDK, K1), the north star (KDK, K2), c2 (King IC,
@@ -70,7 +82,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (Hermite, chunked K3 + K13 every step) and c4 at N = 1,048,576 (block
    steps to t = one dt_max: chunked K3 + K13 at init, K14 once per
    micro-step), each with its kernels' exact launch counts, no K1, K4 or
-   K5, and |dE/E_int| <= 1e-6. If
+   K5, and |dE/E_int| <= 1e-6; the same at the extended tier: c6x (c6
+   with ``integrator.precision=extended``, four steps: 11 K6 + 55 K15 per
+   step and per diagnostics row), c3x_1m (15 K7 + 105 K16 per step), c4x_1m
+   (chunked K7 + K16 at init, K17 once per micro-step) and c4x_131k (c4 at
+   N = 131,072 to t = 1/32: K9 on most micro-steps, K17 on those with
+   every row active), no f32-tier, df32 or K8/K9 kernel past STREAM_N, no
+   plain twin, |dE/E_int| <= 1e-6 (c4x_131k: c4's 2e-5). If
    the runs would not fit the time budget, c4's t_end is cut first (to the longest whole multiple of
    dt_max that fits, at least t = 8), then c1's and the north star's, and
    c5x's last, each cut printed. Each path must launch its kernel, the plain twins must
@@ -86,9 +104,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    device's busy time per step under torch.profiler over the unprofiled
    step time.
 
-Between phases 4 and 5: K5, K9 and K14 timed at the mean active rows of
-c4, c4x and c4 at 1M. Then the card's name and power limit, one JSON line
-with the kernels' numbers (K1-K14), and as the last line ``{"ok": true,
+Between phases 4 and 5: K5, K9, K14 and K17 timed at the mean active rows
+of c4, c4x, c4 at 1M and c4x_1m. Then the card's name and power limit, one
+JSON line with the kernels' numbers (K1-K17), and as the last line
+``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 it, the script exits non-zero and prints no result.
 """
@@ -179,7 +198,15 @@ DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                "c6": ("dE_over_E_int", 1e-6),
                "c7": ("dE_over_E_int", 1e-6),
                "c3_1m": ("dE_over_E_int", 1e-6),
-               "c4_1m": ("dE_over_E_int", 1e-6)}
+               "c4_1m": ("dE_over_E_int", 1e-6),
+               "c6x": ("dE_over_E_int", 1e-6),
+               "c3x_1m": ("dE_over_E_int", 1e-6),
+               "c4x_1m": ("dE_over_E_int", 1e-6),
+               # c4's class: its drift is the block stepper's, not the
+               # tier's (at 1M over the same 128 micro-steps the extended
+               # and f32 tiers drift 2.489e-7 and 2.492e-7 on an H100),
+               # and it reaches 1.071e-6 by t = 1/32 at this N
+               "c4x_131k": ("dE_over_E_int", 2e-5)}
 # pairs of binaries_8k still mutually bound at the end of its run
 BOUND_PAIRS_MIN = 0.95
 # c2's bound mass stripped over the run: the JAX package's recorded run
@@ -211,14 +238,19 @@ PEAK_BYTES = 3.35e12
 # seed): accel 233 (df_accel_pair), accel+jerk 481 (df_jerk_pair)
 # the cross kernels K12 and K13 run K2's and K3's pair functions on every
 # pair of two sets (26, 28 with phi, 53); K14 is K5's pair (41) plus a Kahan
-# step of 4 flops per component and stage of 32 pairs (24 / 32 = 0.75)
+# step of 4 flops per component and stage of 32 pairs (24 / 32 = 0.75); at
+# the extended tier K15 and K16 run K6's and K7's pair functions (44, 46
+# with phi, 77; pair.cuh:sym_pair_x, sym_jerk_pair_x) and K17 is K9's pair
+# (65) plus the same Kahan steps
 FLOPS_PER_PAIR = {"rows": 18, "rows_phi": 19, "rows_jerk": 41,
                   "rows_jerk_t": 41, "sym": 26, "sym_phi": 28,
                   "sym_jerk": 53, "rows_x": 36, "rows_x_phi": 37,
                   "rows_jerk_x": 65, "sym_x": 44, "sym_x_phi": 46,
                   "sym_jerk_x": 77, "rows_df": 233, "rows_jerk_df": 481,
                   "cross": 26, "cross_phi": 28, "cross_jerk": 53,
-                  "rows_jerk_stream": 41.75}
+                  "rows_jerk_stream": 41.75, "cross_x": 44,
+                  "cross_x_phi": 46, "cross_jerk_x": 77,
+                  "rows_jerk_x_stream": 65.75}
 # K5's shapes: c4's 32,768 sources against these active-row counts
 K5_ROWS = (1, 64, 1024, 8192, 32768)
 K5_NS = 32768
@@ -248,9 +280,28 @@ C7 = "configs/c7_2m_chunked.toml"
 # shared dt by the closest pair, 2.66e-6 at t = 0 at this N (measured on
 # an H100), so 2^-16 is about five steps
 C3_1M_T = 2.0 ** -16
+# the extended tier past STREAM_N (K15-K17): a full chunk pair of the accel
+# route and a ragged one (1,048,576 particles end in a chunk of 65,536), of
+# the jerk route (its last chunk holds 16,384), K17's row counts against
+# c6's 1M sources, and the row cap: all rows of a set of K17_CAP_N active
+# (c4 at N = 131,072 at each multiple of dt_max). A K17 launch on more rows
+# than K17_CHECK_ROWS is held to the f64 twin on a sample of that many (a
+# row's bits do not depend on the other rows of its launch)
+K15_PAIRS = ((98304, 98304), (98304, 65536))
+K16_PAIRS = ((73728, 73728), (73728, 16384))
+K17_ROWS = (1, 64, 1024, 4096)
+K17_CAP_N = 131072
+K17_CHECK_ROWS = 8192
+# the close-pair case at N = 1M: pairs of this many stars, each partner
+# this far down the set, so that every pair straddles two chunks of either
+# extended route and of the f32 route
+BIG_CLOSE_PAIRS = 50
+BIG_CLOSE_OFFSET = 500000
 # the paths past STREAM_N, at fixed lengths, run before the main paths: c6
 # and c7 as committed but cut to four KDK steps; c3 and c4 at N = 1M, c4
-# to t = one dt_max
+# to t = one dt_max; the same at the extended tier (c6x, c3x_1m, c4x_1m),
+# and c4 at N = 131,072 and the extended tier to t = 2 dt_max (c4x_131k:
+# every row active at t = 1/64 and 1/32, past RT_MAX_ROWS)
 PATHS_BIG = {
     "c6": (C6, ["output.t_end=0.015625", "output.diag_every=0.0078125"],
            "cross"),
@@ -260,7 +311,19 @@ PATHS_BIG = {
                    f"output.diag_every={C3_1M_T!r}"], "cross_jerk"),
     "c4_1m": (C4, ["ic.n=1048576", "output.t_end=0.015625",
                    "output.diag_every=0.015625"], "rows_jerk_stream"),
+    "c6x": (C6, [EXT, "output.t_end=0.015625", "output.diag_every=0.0078125"],
+            "cross_x"),
+    "c3x_1m": (C3, [EXT, "ic.n=1048576", f"output.t_end={C3_1M_T!r}",
+                    f"output.diag_every={C3_1M_T!r}"], "cross_jerk_x"),
+    "c4x_1m": (C4, [EXT, "ic.n=1048576", "output.t_end=0.015625",
+                    "output.diag_every=0.015625"], "rows_jerk_x_stream"),
+    "c4x_131k": (C4, [EXT, "ic.n=131072", "output.t_end=0.03125",
+                      "output.diag_every=0.015625"], "rows_jerk_x_stream"),
 }
+
+# the extended tier's kernels, by their launch-counter keys
+EXTENDED_KERNELS = ("sym_x", "sym_jerk_x", "rows_x", "rows_jerk_x",
+                    "cross_x", "cross_jerk_x", "rows_jerk_x_stream")
 
 
 def _fail(msg):
@@ -783,27 +846,32 @@ def k9_case(cg, src, nr, eps, shift=True):
                 shape=[nr, ns], bound=bound)
 
 
-def check_row_independence_x(cg, src):
-    """K9 gives a row the same bits alone, in a random subset and among all
-    rows (what makes compacted and masked block steps agree)."""
+def check_row_independence_x(cg, src, kernel=None, name="rows_jerk_x",
+                             rows_of=None):
+    """K9 (or ``kernel``) gives a row the same bits alone, in a random
+    subset and among all rows (what makes compacted and masked block steps
+    agree); the rows are the first ``rows_of`` sources (all by default)."""
     import torch
+    kernel = kernel or cg.rows_jerk_x_kernel
     hi, lo, gm, vhi, vlo = src
     planes = (hi, lo, vhi, vlo)
     ns = hi.shape[0]
+    nr = min(rows_of or ns, ns)
     gen = torch.Generator().manual_seed(17)
     for guarded, eps in ((True, 0.0), (False, 1.0 / 256)):
-        full = cg.rows_jerk_x_kernel(*planes, *planes, gm, eps,
-                                     guarded=guarded)
+        full = kernel(*(p[:nr] for p in planes), *planes, gm, eps,
+                      guarded=guarded)
         for k in (1, 64, 1024, 8191):
-            rows = torch.randperm(ns, generator=gen)[:k].to(hi.device)
-            sub = cg.rows_jerk_x_kernel(*(p[rows] for p in planes), *planes,
-                                        gm, eps, guarded=guarded)
+            rows = torch.randperm(nr, generator=gen)[:k].to(hi.device)
+            sub = kernel(*(p[rows] for p in planes), *planes, gm, eps,
+                         guarded=guarded)
             if not all(torch.equal(a, b[rows]) for a, b in zip(sub, full)):
-                raise AssertionError(f"rows_jerk_x: {k} rows launched apart "
+                raise AssertionError(f"{name}: {k} rows launched apart "
                                      "differ bitwise from the same rows "
                                      "among all")
-    print(f"rows_jerk_x: rows of 1, 64, 1024 and 8191 launched apart are "
-          f"bitwise equal to the same rows among all {ns} (eps 0 and 1/256)")
+    print(f"{name}: rows of 1, 64, 1024 and 8191 launched apart are bitwise "
+          f"equal to the same rows among {nr} against {ns} sources (eps 0 "
+          "and 1/256)")
 
 
 def check_close_pairs(cg, device):
@@ -1237,18 +1305,310 @@ def k14_case(cg, src, svel, mass, nr, eps, plain=True):
                 bound=bound)
 
 
+def check_kernels_big_x(cg, device, main):
+    """Phase 3, the extended tier past STREAM_N: K15 (with and without the
+    raw potential) and K16 at a full chunk pair and a ragged one, K17 on
+    K17_ROWS rows against 1M sources and on all K17_CAP_N rows of a set of
+    that size (the row cap), each against the f64 evaluation of the same
+    (hi, lo) planes (2e-5 of max, phi rtol 3e-5), launched twice and
+    bitwise equal, K17 row-set independent; then the close-pair case at N
+    = 1M with every pair across two chunks, and the chunked extended
+    evaluation at 1M against the f64 oracle. Adds K15's and K16's entries
+    to ``main`` (K17's comes at c4x_1m's mean active rows, after the
+    paths)."""
+    import torch
+    f64 = torch.float64
+    eps = 1.0 / 256
+    print("kernel        shape            phi  max|da| A  max|da| B  rel      "
+          "phi_rel    ms        plain_ms  bound_ms")
+    hi, lo, gm, _, _ = _planes(sum(K15_PAIRS[0]), 47, device)
+    for nA, nB in K15_PAIRS:
+        A = (hi[:nA].contiguous(), lo[:nA].contiguous())
+        B = (hi[nA:nA + nB].contiguous(), lo[nA:nA + nB].contiguous())
+        args = (*A, *B, gm[:nA].contiguous(), gm[nA:nA + nB].contiguous())
+        # the f64 evaluation once, with the potential (its accelerations
+        # are those of the form without)
+        ref = cg.cross_x_plain(*args, eps, with_phi=True, dtype=f64)
+        for with_phi in (False, True):
+            kw = dict(with_phi=with_phi, guarded=False)
+            out = cg.cross_x_kernel(*args, eps, **kw)
+            if not _same_bits(out, cg.cross_x_kernel(*args, eps, **kw)):
+                raise AssertionError(f"cross_accel_x ({nA},{nB}) phi="
+                                     f"{with_phi}: two launches differ "
+                                     "bitwise")
+            h = len(out) // 2
+            errs = [_compare(out[:h] if with_phi else out[0],
+                             ref[:2] if with_phi else ref[0], with_phi, 2e-5),
+                    _compare(out[h:] if with_phi else out[1],
+                             ref[2:] if with_phi else ref[2], with_phi, 2e-5)]
+            key = "cross_x_phi" if with_phi else "cross_x"
+            ms = _median_ms(lambda: cg.cross_x_kernel(*args, eps, **kw))
+            pms = _once_ms(lambda: cg.cross_x_plain(*args, eps,
+                                                    with_phi=with_phi))
+            bound = _bound(nA * nB, FLOPS_PER_PAIR[key],
+                           (44 if with_phi else 40) * (nA + nB))
+            if nA == nB:
+                main[key] = dict(max_abs_err=max(e[0] for e in errs), ms=ms,
+                                 plain_ms=pms, shape=[nA, nB], bound=bound)
+            print(f"cross_accel_x ({nA},{nB}){'':<{13 - len(str(nA)) - len(str(nB))}}"
+                  f"{int(with_phi):<5}{errs[0][0]:<11.3e}{errs[1][0]:<11.3e}"
+                  f"{max(e[1] for e in errs):<9.2e}"
+                  f"{max(e[2] for e in errs):<11.2e}"
+                  f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f}   "
+                  "bitwise-repeatable", flush=True)
+            del out
+            torch.cuda.empty_cache()
+        del ref
+    del hi, lo, gm
+    print("kernel        shape            max|da| A  max|da| B  rel_a    "
+          "rel_j    ms        plain_ms  bound_ms")
+    hi, lo, gm, vhi, vlo = _planes(sum(K16_PAIRS[0]), 48, device)
+    for nA, nB in K16_PAIRS:
+        sets = [tuple(p[a:b].contiguous() for p in (hi, lo, vhi, vlo))
+                for a, b in ((0, nA), (nA, nA + nB))]
+        args = (*sets[0], *sets[1], gm[:nA].contiguous(),
+                gm[nA:nA + nB].contiguous())
+        out = cg.cross_jerk_x_kernel(*args, eps, guarded=False)
+        if not _same_bits(out, cg.cross_jerk_x_kernel(*args, eps,
+                                                      guarded=False)):
+            raise AssertionError(f"cross_jerk_x ({nA},{nB}): two launches "
+                                 "differ bitwise")
+        ref = cg.cross_jerk_x_plain(*args, eps, dtype=f64)
+        ea = _compare_jerk(out[:2], ref[:2], 2e-5, 2e-5)
+        eb = _compare_jerk(out[2:], ref[2:], 2e-5, 2e-5)
+        del ref, out
+        ms = _median_ms(lambda: cg.cross_jerk_x_kernel(*args, eps,
+                                                       guarded=False))
+        pms = _once_ms(lambda: cg.cross_jerk_x_plain(*args, eps))
+        bound = _bound(nA * nB, FLOPS_PER_PAIR["cross_jerk_x"],
+                       76 * (nA + nB))
+        if nA == nB:
+            main["cross_jerk_x"] = dict(max_abs_err=max(ea[0], eb[0]), ms=ms,
+                                        plain_ms=pms, shape=[nA, nB],
+                                        bound=bound)
+        print(f"cross_jerk_x  ({nA},{nB}){'':<{13 - len(str(nA)) - len(str(nB))}}"
+              f"{ea[0]:<11.3e}{eb[0]:<11.3e}{max(ea[1], eb[1]):<9.2e}"
+              f"{max(ea[2], eb[2]):<9.2e}{ms:<10.4f}{pms:<10.1f}"
+              f"{bound[0]:.4f}   bitwise-repeatable", flush=True)
+        torch.cuda.empty_cache()
+    del hi, lo, gm, vhi, vlo
+    # K17 against c6's 1M sources, then the row cap
+    print("kernel             shape            eps        max|da|    rel_a    "
+          "rel_j    ms        plain_ms  bound_ms")
+    src = _planes(BIG_N, 49, device)
+    for nr in K17_ROWS:
+        for e in (0.0, eps):
+            k17_case(cg, src, nr, e, plain=e > 0)
+    check_row_independence_x(cg, src, cg.rows_jerk_x_stream_kernel,
+                             "rows_jerk_x_stream", rows_of=131072)
+    del src
+    torch.cuda.empty_cache()
+    src = _planes(K17_CAP_N, 50, device)
+    for e in (0.0, eps):
+        k17_case(cg, src, K17_CAP_N, e, plain=e > 0, shift=False)
+    del src
+    torch.cuda.empty_cache()
+    check_close_pairs_big(cg, device)
+    check_chunked_big_x(cg, device)
+
+
+def k17_case(cg, src, nr, eps, plain=True, shift=True):
+    """K17 on nr rows (the first nr sources, shifted unless ``shift`` is
+    False: then the all-active self-interaction) against the f64
+    evaluation of the same planes on up to K17_CHECK_ROWS of them, and
+    launched twice (bitwise); timed (CUDA-graph replays below 4,096 rows,
+    where the kernel is shorter than its wrapper) beside its f32 twin
+    (once, unless ``plain`` is False); prints one line and returns
+    dict(max_abs_err, ms, plain_ms, shape, bound)."""
+    import torch
+    hi, lo, gm, vhi, vlo = src
+    ns = hi.shape[0]
+    if shift:
+        rows = ((hi[:nr] + 1e-3).contiguous(), lo[:nr].contiguous(),
+                (vhi[:nr] - 1e-3).contiguous(), vlo[:nr].contiguous())
+    else:
+        rows = tuple(p[:nr].contiguous() for p in (hi, lo, vhi, vlo))
+    guarded = eps == 0.0
+    args = (*rows, hi, lo, vhi, vlo, gm, eps)
+    out = cg.rows_jerk_x_stream_kernel(*args, guarded=guarded)
+    if not _same_bits(out, cg.rows_jerk_x_stream_kernel(*args,
+                                                        guarded=guarded)):
+        raise AssertionError(f"rows_jerk_x_stream ({nr},{ns}) eps={eps}: two "
+                             "launches differ bitwise")
+    pick = torch.randperm(nr, generator=torch.Generator().manual_seed(nr))[
+        :K17_CHECK_ROWS].to(hi.device)
+    ref = cg.rows_jerk_x_stream_plain(*(p[pick] for p in rows), hi, lo, vhi,
+                                      vlo, gm, eps, dtype=torch.float64,
+                                      chunk=64, guarded=guarded)
+    err, rel_a, rel_j = _compare_jerk((out[0][pick], out[1][pick]), ref,
+                                      2e-5, 2e-5)
+    del ref, out
+    timer = _graph_ms if nr < 4096 else _median_ms
+    ms = timer(lambda: cg.rows_jerk_x_stream_kernel(*args, guarded=guarded))
+    pms = (_once_ms(lambda: cg.rows_jerk_x_stream_plain(*args,
+                                                        guarded=guarded))
+           if plain else float("nan"))
+    bound = _bound(nr * ns, FLOPS_PER_PAIR["rows_jerk_x_stream"],
+                   52 * ns + 72 * nr)
+    checked = "" if nr <= K17_CHECK_ROWS else f"  ({K17_CHECK_ROWS} rows checked)"
+    print(f"rows_jerk_x_stream ({nr},{ns}){'':<{13 - len(str(nr)) - len(str(ns))}}"
+          f"{eps:<11.6g}{err:<11.3e}{rel_a:<9.2e}{rel_j:<9.2e}"
+          f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.5f}{checked}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, shape=[nr, ns],
+                bound=bound)
+
+
+def _big_close_pairs(device):
+    """A Plummer sphere of BIG_N stars in which star BIG_CLOSE_OFFSET + k
+    sits 1e-5 of the scale from star k, k < BIG_CLOSE_PAIRS: each pair
+    straddles chunk 0 and a later chunk of every chunked route (98,304,
+    73,728 and 131,072 stars a chunk). Returns (pos, vel, mass, the pairs'
+    stars)."""
+    import torch
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    state = plummer(BIG_N, torch.Generator().manual_seed(51), device=device)
+    pos = state.pos.clone()
+    gen = torch.Generator().manual_seed(52)
+    k = BIG_CLOSE_PAIRS
+    kick = 1e-5 * torch.randn((k, 3), generator=gen, dtype=torch.float64)
+    pos[BIG_CLOSE_OFFSET:BIG_CLOSE_OFFSET + k] = pos[:k] + kick.to(device)
+    stars = torch.cat([torch.arange(k),
+                       torch.arange(BIG_CLOSE_OFFSET,
+                                    BIG_CLOSE_OFFSET + k)]).to(device)
+    return pos, state.vel, state.mass, stars
+
+
+def check_close_pairs_big(cg, device):
+    """The close-pair case through the chunked routes at N = 1M: 50 pairs
+    at 1e-5 of the scale, each across two chunks so that K15 and K16 carry
+    it, eps = 1e-4, against the f64 oracle rows sum on the pairs' 100 stars
+    and 3,996 others. The extended chunked accel and accel + jerk must stay
+    inside 2e-5 of max|a| and 5e-5 of max|j|, the f32 chunked accel must
+    err past 1e-3 (a K15 that ignored lo would)."""
+    import torch
+    from oc_nbody_tpu_torch.ops import gravity
+    eps = 1e-4
+    pos, vel, mass, stars = _big_close_pairs(device)
+    others = torch.randperm(BIG_N, generator=torch.Generator().manual_seed(53))
+    others = others[(others >= BIG_CLOSE_PAIRS)
+                    & ((others < BIG_CLOSE_OFFSET)
+                       | (others >= BIG_CLOSE_OFFSET + BIG_CLOSE_PAIRS))]
+    rows = torch.cat([stars, others[:BIG_SAMPLE - len(stars)].to(device)])
+    c, vc = pos.mean(dim=0), vel.mean(dim=0)
+    a_ref, j_ref = gravity.accel_jerk_rows(pos[rows] - c, vel[rows] - vc,
+                                           pos - c, vel - vc, mass, eps,
+                                           chunk=128)
+
+    def rel(got, want):
+        return float(torch.linalg.norm(got[rows].double() - want, dim=1).max()
+                     / torch.linalg.norm(want, dim=1).max())
+
+    launches = dict(cg.LAUNCHES)
+    a32 = rel(cg.accel(pos, mass, eps, guarded=False), a_ref)
+    ax = rel(cg.accel_x(pos, mass, eps, guarded=False), a_ref)
+    axj, jx = cg.accel_jerk_x(pos, vel, mass, eps, guarded=False)
+    axj, jx = rel(axj, a_ref), rel(jx, j_ref)
+    torch.cuda.synchronize()
+    ran = {k: cg.LAUNCHES[k] - launches[k] for k in ("cross", "cross_x",
+                                                      "cross_jerk_x")}
+    print(f"close pairs at N={BIG_N} ({BIG_CLOSE_PAIRS} pairs at 1e-5, each "
+          f"across two chunks, eps=1e-4), max row error over max row size "
+          f"on {BIG_SAMPLE} rows against the f64 oracle: f32 chunked accel "
+          f"{a32:.3e}; extended chunked accel {ax:.3e} (K6 + K15), accel + "
+          f"jerk {axj:.3e} / {jx:.3e} (K7 + K16); cross launches {ran}",
+          flush=True)
+    if not a32 > 1e-3:
+        raise AssertionError(f"close pairs at 1M: the f32 chunked route is "
+                             f"inside 1e-3 ({a32:.3e}); the case does not "
+                             "tell the tiers apart")
+    if not (ax < 2e-5 and axj < 2e-5 and jx < 5e-5):
+        raise AssertionError(f"close pairs at 1M: the extended chunked route "
+                             f"errs past its bounds: accel {ax:.3e}, "
+                             f"{axj:.3e}, jerk {jx:.3e}")
+    if not all(ran.values()):
+        raise AssertionError(f"close pairs at 1M: a cross kernel did not "
+                             f"launch: {ran}")
+    del pos, vel, mass, a_ref, j_ref
+    torch.cuda.empty_cache()
+
+
+def check_chunked_big_x(cg, device):
+    """The chunked extended evaluation at N = 1M (accel, accel + raw phi,
+    accel + jerk) against the f64 oracle rows sum on BIG_SAMPLE sampled
+    rows against all sources (2e-5 of max, phi rtol 3e-5 once self_phi is
+    added), each bitwise repeatable, timed beside the f32 chunked route on
+    the same state."""
+    import torch
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    from oc_nbody_tpu_torch.ops import gravity
+    f64 = torch.float64
+    eps = 1.0 / 256
+    state = plummer(BIG_N, torch.Generator().manual_seed(44), device=device)
+    pos, mass, vel = state.pos, state.mass, state.vel
+    rows = torch.randperm(BIG_N, generator=torch.Generator().manual_seed(45))[
+        :BIG_SAMPLE].to(device)
+    c, vc = pos.mean(dim=0), vel.mean(dim=0)
+    ref_a, ref_phi = cg.rows_plain(pos[rows] - c, pos - c, mass, eps,
+                                   with_phi=True, dtype=f64, chunk=256)
+    ref_phi = ref_phi + gravity.self_phi(mass[rows].to(f64), eps, 1.0)
+    ref_j = cg.rows_jerk_plain(pos[rows] - c, vel[rows] - vc, pos - c,
+                               vel - vc, mass, eps, dtype=f64, chunk=256)
+    acc, phi = cg.accel_potential_x(pos, mass, eps, guarded=False)
+    phi = phi + gravity.self_phi(mass.to(f64), eps, 1.0)
+    err_p = _compare((acc[rows], phi[rows]), (ref_a, ref_phi), True, 2e-5)
+    a1 = cg.accel_x(pos, mass, eps, guarded=False)
+    if not torch.equal(a1, cg.accel_x(pos, mass, eps, guarded=False)):
+        raise AssertionError("the chunked extended accel at 1M: two "
+                             "evaluations differ bitwise")
+    err_a = _compare(a1[rows], ref_a, False, 2e-5)
+    aj, jk = cg.accel_jerk_x(pos, vel, mass, eps, guarded=False)
+    if not _same_bits((aj, jk), cg.accel_jerk_x(pos, vel, mass, eps,
+                                                guarded=False)):
+        raise AssertionError("the chunked extended accel + jerk at 1M: two "
+                             "evaluations differ bitwise")
+    err_j = _compare_jerk((aj[rows], jk[rows]), ref_j, 2e-5, 2e-5)
+    del acc, phi, a1, aj, jk, ref_a, ref_phi, ref_j
+    torch.cuda.empty_cache()
+    t = {"accel": _median_ms(lambda: cg.accel_x(pos, mass, eps,
+                                                guarded=False), reps=2),
+         "accel+phi": _median_ms(lambda: cg.accel_potential_x(
+             pos, mass, eps, guarded=False), reps=1),
+         "accel+jerk": _median_ms(lambda: cg.accel_jerk_x(
+             pos, vel, mass, eps, guarded=False), reps=1),
+         "f32 accel": _median_ms(lambda: cg.accel(pos, mass, eps,
+                                                  guarded=False), reps=1),
+         "f32 accel+jerk": _median_ms(lambda: cg.accel_jerk(
+             pos, vel, mass, eps, guarded=False), reps=1)}
+    print(f"chunked extended self-interaction at N={BIG_N} (eps 1/256) "
+          f"against the f64 oracle on {BIG_SAMPLE} sampled rows: accel "
+          f"{err_a[1]:.3e} of max|a| (K6 + K15 with phi: {err_p[1]:.3e}, phi "
+          f"rel {err_p[2]:.3e}), accel + jerk {err_j[1]:.3e} / {err_j[2]:.3e} "
+          "of max|a| / max|j| (K7 + K16); each chunked form bitwise "
+          "repeatable", flush=True)
+    for name, ms in t.items():
+        print(f"  {name:<14} at N={BIG_N}: {ms:.2f} ms, "
+              f"{BIG_N * BIG_N / (ms * 1e-3):.4e} N^2-equivalent "
+              "interactions/s", flush=True)
+    del state, pos, mass, vel
+    torch.cuda.empty_cache()
+
+
 def run_big_paths(cg, device):
     """Phase 4, past STREAM_N: c6 and c7 as committed but cut to four KDK
     steps, c3 at N = 1M (Hermite, chunked K3 + K13 every step) and c4 at N
     = 1M (block steps: chunked K3 + K13 at init, K14 once per micro-step)
-    to t = one dt_max, through the CLI; returns ({name: RunResult}, {name:
-    launches})."""
+    to t = one dt_max; the same three at the extended tier (c6x: chunked K6
+    + K15; c3x_1m: chunked K7 + K16; c4x_1m: chunked K7 + K16 at init, K17
+    once per micro-step), and c4x_131k (K9 on most micro-steps, K17 on
+    those with every row active), through the CLI; returns ({name:
+    RunResult}, {name: launches})."""
     runs, launches = _drive(cg, PATHS_BIG,
                             {k: over for k, (_, over, _) in PATHS_BIG.items()})
     for k, res in runs.items():
         per = {key: n / max(1, res.n_steps) for key, n in launches[k].items()
                if n and key in ("sym", "cross", "sym_jerk", "cross_jerk",
-                                "rows_jerk_stream")}
+                                "rows_jerk_stream") + EXTENDED_KERNELS}
         print(f"{k}: launches per step, diagnostics rows included: "
               + ", ".join(f"{key} {v:.2f}" for key, v in per.items())
               + f"; set-up and run {res.wall_time_s:.1f} s, init "
@@ -1345,7 +1705,7 @@ def _drive(cg, paths, overrides):
                 _check_block_launches(cg, k, results[-1], launches[k])
             if results[-1].state.n > cg.STREAM_N:
                 _check_big_launches(cg, k, results[-1], launches[k])
-            if want.endswith("_x"):
+            if integ.precision == "extended":
                 _check_extended_launches(cg, k, results[-1], launches[k])
             if integ.precision == "df32":
                 _check_df_launches(k, results[-1], launches[k])
@@ -1504,15 +1864,18 @@ def run_main_path(cg, device, budget_s):
 
 
 def _check_extended_launches(cg, k, res, launches):
-    """On a path of the extended tier no f32-tier kernel launches; under
-    KDK the self-interaction kernel launches once per step and once at
-    init, plus once per diagnostics row unless the rows are f64 sums
-    (``output.diag_f64``); under Hermite at least once per step."""
+    """On a path of the extended tier no f32-tier or df32 kernel launches;
+    up to STREAM_N, under KDK the self-interaction kernel launches once per
+    step and once at init, plus once per diagnostics row unless the rows
+    are f64 sums (``output.diag_f64``), and under Hermite at least once per
+    step (past STREAM_N ``_check_big_launches`` counts them)."""
     stray = {key: n for key, n in launches.items()
-             if n and not key.endswith("_x")}
+             if n and key not in EXTENDED_KERNELS}
     if stray:
-        raise AssertionError(f"{k}: f32-tier kernels launched on an "
+        raise AssertionError(f"{k}: other tiers' kernels launched on an "
                              f"extended path: {stray}")
+    if res.state.n > cg.STREAM_N:
+        return
     cfg = _load(k)
     want = {**PATHS, **PATHS_DF, **PATHS_BIG}[k][2]
     if cfg.integrator.kind == "kdk":
@@ -1551,8 +1914,11 @@ def _check_df_launches(k, res, launches):
 def _check_block_launches(cg, k, res, launches):
     """Under block steps the active-row kernel launches once per micro-step
     (twice with pec2) and the self-interaction kernel once, at init; at the
-    df32 tier the active rows are f64 sums and only K11 launches, at
-    init."""
+    df32 tier the active rows are f64 sums and only K11 launches, at init.
+    At the extended tier up to STREAM_N, K9 takes a micro-step of at most
+    RT_MAX_ROWS active rows and K17 one of more: past RT_MAX_ROWS particles
+    K17 launches at least at each multiple of dt_max (every row active
+    there), below it never."""
     ic = _load(k).integrator
     want = {**PATHS, **PATHS_DF, **PATHS_BIG}[k][2]
     per = 2 if ic.pec2 else 1
@@ -1564,12 +1930,26 @@ def _check_block_launches(cg, k, res, launches):
                 raise AssertionError(f"{k}: {key} launched {launches[key]} "
                                      f"times, expected {n}")
         return
-    if ic.precision == "extended":
-        init = {"sym_jerk_x" if res.state.n >= cg.SYM_MIN
-                else "rows_jerk_x": 1}
+    n = res.state.n
+    extended = ic.precision == "extended"
+    init = _self_launches(cg, n, jerk=True, extended=extended)
+    if extended and n <= cg.STREAM_N:
+        stream = launches["rows_jerk_x_stream"]
+        full = round(res.state.time / ic.dt_max)
+        if (stream < full) if n > cg.RT_MAX_ROWS else stream:
+            raise AssertionError(
+                f"{k}: rows_jerk_x_stream launched {stream} times at N = "
+                f"{n} over {full} multiples of dt_max")
+        if launches["rows_jerk_x"] + stream != per * res.n_steps + \
+                init.get("rows_jerk_x", 0):
+            raise AssertionError(
+                f"{k}: rows_jerk_x and rows_jerk_x_stream launched "
+                f"{launches['rows_jerk_x']} + {stream} times in "
+                f"{res.n_steps} micro-steps")
+        init.pop("rows_jerk_x", None)
+        expect = {}
     else:
-        init = _self_launches(cg, res.state.n, jerk=True)
-    expect = {want: per * res.n_steps}
+        expect = {want: per * res.n_steps}
     for key, n in init.items():
         expect[key] = expect.get(key, 0) + n
     for key, n in expect.items():
@@ -1578,13 +1958,23 @@ def _check_block_launches(cg, k, res, launches):
                                  f"expected {n} ({res.n_steps} micro-steps)")
 
 
-def _self_launches(cg, n, jerk=False):
-    """{kernel: launches} of one f32 self-interaction evaluation at N = n:
-    past STREAM_N one K2 (K3) per chunk and one K12 (K13) per chunk pair."""
+def _self_launches(cg, n, jerk=False, extended=False):
+    """{kernel: launches} of one self-interaction evaluation at N = n, at
+    the f32 or the ``extended`` tier: past STREAM_N one K2 (K3) per chunk
+    and one K12 (K13) per chunk pair, at the extended tier K6 (K7) and K15
+    (K16)."""
     if n > cg.STREAM_N:
+        if extended:
+            c = -(-n // (cg.CHUNK_SYMXJ if jerk else cg.CHUNK_SYMX))
+            return ({"sym_jerk_x": c, "cross_jerk_x": c * (c - 1) // 2}
+                    if jerk else {"sym_x": c, "cross_x": c * (c - 1) // 2})
         c = -(-n // (cg.CHUNK_SYMJ if jerk else cg.CHUNK_SYM))
         return ({"sym_jerk": c, "cross_jerk": c * (c - 1) // 2} if jerk
                 else {"sym": c, "cross": c * (c - 1) // 2})
+    if extended:
+        if n >= cg.SYM_MIN:
+            return {"sym_jerk_x" if jerk else "sym_x": 1}
+        return {"rows_jerk_x" if jerk else "rows_x": 1}
     if jerk:
         return {"sym_jerk" if n >= cg.RT_MIN_JERK else "rows_jerk": 1}
     return {"sym" if n >= cg.SYM_MIN else "rows": 1}
@@ -1593,19 +1983,22 @@ def _self_launches(cg, n, jerk=False):
 def _check_big_launches(cg, k, res, launches):
     """Past STREAM_N: every evaluation is chunked. Under KDK the accel form
     runs once at init and once per step, the potential form once per
-    diagnostics row, each with the same K2 and K12 counts; under Hermite
-    the accel + jerk form at least once per step and at init. No K1, K4 or
-    K5 launches (their routes end at STREAM_N)."""
-    kind = _load(k).integrator.kind
+    diagnostics row, each with the same K2 and K12 counts (K6 and K15 at
+    the extended tier); under Hermite the accel + jerk form at least once
+    per step and at init. No K1, K4 or K5 launches, nor K8 or K9 at the
+    extended tier (their routes end at STREAM_N)."""
+    integ = _load(k).integrator
+    kind, ext = integ.kind, integ.precision == "extended"
     rows = len(res.diagnostics["time"])
     n = res.state.n
+    self_acc = _self_launches(cg, n, extended=ext)
     if kind == "kdk":
         expect = {key: v * (res.n_steps + 1 + rows)
-                  for key, v in _self_launches(cg, n).items()}
+                  for key, v in self_acc.items()}
     else:
-        expect = {key: v * rows for key, v in _self_launches(cg, n).items()}
+        expect = {key: v * rows for key, v in self_acc.items()}
         if kind == "hermite":
-            per = _self_launches(cg, n, jerk=True)
+            per = _self_launches(cg, n, jerk=True, extended=ext)
             for key, v in per.items():
                 if launches[key] < v * (res.n_steps + 1):
                     raise AssertionError(
@@ -1613,7 +2006,8 @@ def _check_big_launches(cg, k, res, launches):
                         f"{res.n_steps} steps, expected at least "
                         f"{v * (res.n_steps + 1)}")
     stray = {key: launches[key] for key in ("rows", "rows_jerk",
-                                            "rows_jerk_t")
+                                            "rows_jerk_t", "rows_x",
+                                            "rows_jerk_x")
              if launches[key]}
     if stray:
         raise AssertionError(f"{k}: resident-route kernels launched past "
@@ -1779,6 +2173,7 @@ def main():
     check_kernels_x(cg, device, main_shapes)
     check_kernels_df(cg, cuda_df, device, main_shapes)
     check_kernels_big(cg, device, main_shapes)
+    check_kernels_big_x(cg, device, main_shapes)
     runs, launches = run_df_paths(cg, device)
     big_runs, big_launches = run_big_paths(cg, device)
     runs.update(big_runs)
@@ -1804,6 +2199,14 @@ def main():
     main_shapes["rows_jerk_stream"] = k14_case(cg, src, svel, mass, nr,
                                                _load("c4_1m").integrator.eps)
     del src, mass, svel
+    # K17 likewise at c4x_1m's, against its 1M sources
+    c4x_1m = runs["c4x_1m"]
+    nr = max(1, round(c4x_1m.n_active_sum / c4x_1m.n_steps))
+    print(f"K17 at c4x_1m's mean active rows per micro-step ({nr}):")
+    src = _planes(c4x_1m.state.n, 49, device)
+    main_shapes["rows_jerk_x_stream"] = k17_case(
+        cg, src, nr, _load("c4x_1m").integrator.eps)
+    del src
     # K9 likewise at c4x's mean active rows per micro-step
     c4x = runs["c4x"]
     nr = max(1, round(c4x.n_active_sum / c4x.n_steps))
@@ -1817,6 +2220,14 @@ def main():
           + ", ".join(f"{key} {main_shapes[key]['ms'] / main_shapes[key]['f32_ms']:.2f}x"
                       for key in ("sym_x", "sym_x_phi", "sym_jerk_x",
                                   "rows_x", "rows_x_phi", "rows_jerk_x")))
+    # past STREAM_N the shapes differ (the tiers' chunks): pairs per second
+    rate = {key: math.prod(m["shape"]) / m["ms"]
+            for key, m in main_shapes.items()}
+    print("past STREAM_N, extended pairs/s over f32 pairs/s: "
+          + ", ".join(f"{x} / {f} {rate[x] / rate[f]:.2f}x" for x, f in (
+              ("cross_x", "cross"), ("cross_x_phi", "cross_phi"),
+              ("cross_jerk_x", "cross_jerk"),
+              ("rows_jerk_x_stream", "rows_jerk_stream"))))
     measure_steps(device)
 
     kernels = []
@@ -1865,7 +2276,19 @@ def main():
              "oc_nbody_tpu/ops/pallas_pair.py:296 (_OP_J)", None),
             ("rows_jerk_stream", "rows_jerk_stream",
              "oc_nbody_tpu_torch/csrc/rows_jerk_t.cu",
-             "oc_nbody_tpu/ops/pallas_gravity.py:586", None)):
+             "oc_nbody_tpu/ops/pallas_gravity.py:586", None),
+            ("cross_x", "cross_accel_x",
+             "oc_nbody_tpu_torch/csrc/cross_accel_x.cu",
+             "oc_nbody_tpu/ops/pallas_pair.py:296 (_OP_AX, _pair_accel_x "
+             ":174)",
+             "oc_nbody_tpu/ops/pallas_pair.py:296 (_OP_PX, _pair_phi_x :182)"),
+            ("cross_jerk_x", "cross_jerk_x",
+             "oc_nbody_tpu_torch/csrc/cross_jerk_x.cu",
+             "oc_nbody_tpu/ops/pallas_pair.py:296 (_OP_JX, _pair_jerk_x "
+             ":202)", None),
+            ("rows_jerk_x_stream", "rows_jerk_x_stream",
+             "oc_nbody_tpu_torch/csrc/rows_jerk_x.cu",
+             "oc_nbody_tpu/ops/pallas_gravity.py:1415", None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

@@ -3,9 +3,10 @@
 The JAX package's ``run`` and ``info`` commands with ``--set a.b=v``
 overrides, plus ``--device cuda|cpu`` (default cuda; with no card it
 raises rather than fall back). ``info`` also prints the stepper the config
-builds, at the f32 tier the kernels it runs on the card at the config's N,
-and its pairwise precision tier; a config the port does not run yet is
-reported as such (NotImplementedError from ``check_supported``).
+builds, at the f32 and the extended tier the kernels it runs on the card
+at the config's N, and its pairwise precision tier; a config the port does
+not run yet is reported as such (NotImplementedError from
+``check_supported``).
 ``--resume`` and ``ensemble`` are not ported yet and raise.
 """
 from __future__ import annotations
@@ -63,10 +64,10 @@ def main(argv=None):
         fields = {k: v for k, v in vars(stepper).items()
                   if k != "force" and not k.startswith("_")}
         print(f"stepper: {kind} {type(stepper).__name__}({fields})")
-        if force.precision == "f32":
+        if force.precision in ("f32", "extended"):
             n = n_particles(cfg)
             print(f"kernels on the card at N = {n}: "
-                  f"{cuda_gravity.route(n, kind)}")
+                  f"{cuda_gravity.route(n, kind, force.precision)}")
         print(f"pairwise precision tier: {force.precision}; diagnostics "
               f"potential: {'f64' if cfg.output.diag_f64 else 'the tier'}")
         return 0

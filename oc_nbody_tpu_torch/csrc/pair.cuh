@@ -36,8 +36,9 @@
 
 namespace ocn {
 
-// Tile edge of the pair-symmetric kernels (K2, K3) and of the cross kernels
-// (K12, K13): one block of kSymTile threads per tile pair.
+// Tile edge of the pair-symmetric kernels (K2, K3, K6, K7) and of the cross
+// kernels (K12, K13, K15, K16): one block of kSymTile threads per tile
+// pair.
 constexpr int kSymTile = 128;
 
 // Zero-guarded rsqrt (ops/pallas_pair.py:_inv_r). GUARDED is for eps == 0,
@@ -223,6 +224,83 @@ __device__ __forceinline__ void row_jerk_pair_x(float4 sh, float4 sl,
   j.z += w * dv.z - sc * s.z;
 }
 
+// Pair-symmetric extended pair (K6, K15): the action of the source (sh, sl)
+// on the row at (xi, li) into (ax, ay, az, ph), and the row's reaction on
+// the source, -G m_i s inv^3 (and -G m_i inv for the potential), into col.
+template <bool WITH_PHI, bool GUARDED>
+__device__ __forceinline__ void sym_pair_x(float4 sh, float4 sl, float3 xi,
+                                           float3 li, float gmi, float eps2,
+                                           float& ax, float& ay, float& az,
+                                           float& ph, float4& col) {
+  float3 s;
+  const float inv = hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
+  const float inv2 = inv * inv;
+  const float gjinv = sh.w * inv;
+  const float giinv = gmi * inv;
+  const float w = gjinv * inv2;
+  const float wi = giinv * inv2;
+  ax += w * s.x;
+  ay += w * s.y;
+  az += w * s.z;
+  col.x -= wi * s.x;
+  col.y -= wi * s.y;
+  col.z -= wi * s.z;
+  if (WITH_PHI) {
+    ph += gjinv;
+    col.w -= giinv;
+  }
+}
+
+// Pair-symmetric extended accel + jerk pair (K7, K16): with w = G m_j
+// inv^3, rv = s.dv and B = dv - 3 rv inv^2 s, the action (w s, w B) into
+// (a, j) and the reaction -G m_i inv^3 (s, B) into (ca.xyz, ca.w, cj.xy).
+template <bool GUARDED>
+__device__ __forceinline__ void sym_jerk_pair_x(
+    float4 sh, float4 sl, float4 vh, float4 vl, float3 xi, float3 li,
+    float3 vi, float3 vli, float gmi, float eps2, float3& a, float3& j,
+    float4& ca, float2& cj) {
+  float3 s;
+  const float inv = hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
+  const float3 dv = hilo_dv(vh, vl, vi, vli);
+  const float inv2 = inv * inv;
+  const float inv3 = inv * inv2;
+  const float w = sh.w * inv3;
+  const float wi = gmi * inv3;
+  const float rv = s.x * dv.x + s.y * dv.y + s.z * dv.z;
+  const float uu = (3.f * rv) * inv2;
+  const float bx = dv.x - uu * s.x, by = dv.y - uu * s.y,
+              bz = dv.z - uu * s.z;
+  a.x += w * s.x;
+  a.y += w * s.y;
+  a.z += w * s.z;
+  j.x += w * bx;
+  j.y += w * by;
+  j.z += w * bz;
+  ca.x -= wi * s.x;
+  ca.y -= wi * s.y;
+  ca.z -= wi * s.z;
+  ca.w -= wi * bx;
+  cj.x -= wi * by;
+  cj.y -= wi * bz;
+}
+
+// One Kahan step (oc_nbody_tpu/ops/pallas_gravity.py:_two_sum), the
+// compensated sums of K14 and K17: s + c takes in x, with the roundings
+// spelled out (y = x - c, t = s + y, c = (t - s) - y) so that nvcc cannot
+// contract or reassociate them.
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = __fsub_rn(x, c);
+  const float t = __fadd_rn(s, y);
+  c = __fsub_rn(__fsub_rn(t, s), y);
+  s = t;
+}
+
+__device__ __forceinline__ void kahan_add3(float3& s, float3& c, float3 x) {
+  kahan_add(s.x, c.x, x.x);
+  kahan_add(s.y, c.y, x.y);
+  kahan_add(s.z, c.z, x.z);
+}
+
 // First linear block index of row I of the upper triangle of tile pairs,
 // whose rows hold J = I .. nt-1.
 __device__ __forceinline__ long long triangle_start(long long I, int nt) {
@@ -241,7 +319,8 @@ __device__ __forceinline__ void tile_pair(long long b, int nt, int& I,
   J = i + static_cast<int>(b - triangle_start(i, nt));
 }
 
-// Second pass of the tile-pair kernels (K2, K3, K12, K13): row i of n sums
+// Second pass of the tile-pair kernels (K2, K3, K12, K13, K15, K16): row i
+// of n sums
 // its np tile partials scratch[i / T][P][i % T], P = 0 .. np-1, in that
 // order (T = kSymTile), one thread a row; no atomics, so the sum is bitwise
 // the same from launch to launch. The float4 form carries (a, -phi) or (a,

@@ -77,21 +77,6 @@ inline int chunk_size(int ns) {
   return c;
 }
 
-// One Kahan step (pallas_gravity.py:_two_sum): s + c takes in x, with the
-// roundings spelled out so that nvcc cannot contract or reassociate them.
-__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
-  const float y = __fsub_rn(x, c);
-  const float t = __fadd_rn(s, y);
-  c = __fsub_rn(__fsub_rn(t, s), y);
-  s = t;
-}
-
-__device__ __forceinline__ void kahan_add3(float3& s, float3& c, float3 x) {
-  kahan_add(s.x, c.x, x.x);
-  kahan_add(s.y, c.y, x.y);
-  kahan_add(s.z, c.z, x.z);
-}
-
 template <bool GUARDED, bool COMP>
 __global__ void __launch_bounds__(kThreads)
     rows_jerk_t_partial(const float* __restrict__ rows,
@@ -141,8 +126,8 @@ __global__ void __launch_bounds__(kThreads)
         ocn::row_jerk_pair<GUARDED>(tile[k], vtile[k], xi, vi, eps2, sa, sj);
     }
     if (COMP) {
-      kahan_add3(a, ca, pa);
-      kahan_add3(jk, cj, pj);
+      ocn::kahan_add3(a, ca, pa);
+      ocn::kahan_add3(jk, cj, pj);
     }
     __syncthreads();
   }
@@ -177,7 +162,7 @@ __global__ void rows_jerk_t_reduce(const float* __restrict__ part, int nr,
   for (int c = 0; c < nchunks; ++c) {
     const float p = part[(static_cast<long long>(c) * 6 + k) * nr + i];
     if (COMP)
-      kahan_add(s, comp, p);
+      ocn::kahan_add(s, comp, p);
     else
       s += p;
   }

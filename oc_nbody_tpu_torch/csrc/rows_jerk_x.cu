@@ -8,6 +8,20 @@
 // (oc_nbody_tpu/ops/pallas_gravity.py:1208, launched by
 // accel_jerk_rows_x_hilo at :1590).
 //
+// K17, its compensated variant (COMP), replaces the TPU streamed kernel
+// _accel_jerk_stream_kernel_x (pallas_gravity.py:1415), which
+// accel_jerk_rows_x_hilo takes past STREAM_N = 262,144 sources or
+// RT_MAX_ROWS = 65,536 rows (:1596): the block stepper's active rows at the
+// extended tier when N > 262,144, or when more than 65,536 rows are active
+// (every particle, at each multiple of dt_max). That kernel streams the
+// sources in tiles of TJ_XS = 1,024 and adds each tile's partial to the
+// running sum with a Kahan step (_two_sum, :1444-1451). Here, as in K14
+// (rows_jerk_t.cu), each lane sums a stage's 32 sources into a fresh
+// partial and adds it to its running sum by a Kahan step, and pass 2 adds
+// the chunk partials by Kahan steps, in the JAX package's form
+// (pair.cuh:kahan_add, spelled with __fadd_rn / __fsub_rn so that --fmad
+// cannot contract it). It adds 24 flops per lane and stage of 32 pairs.
+//
 // Rows and sources arrive as (hi, lo) f32 planes of f64 positions and
 // velocities that the caller centred once, on the sources' centre for both
 // sets, and split in f64; gm is (G m in f64) rounded to f32. The pair
@@ -36,7 +50,9 @@
 // sources: the chunk boundaries, the lane split and both orders are fixed
 // by ns. So a row's result is bitwise the same whatever other rows share
 // the launch (a compacted active set and the masked full set agree), and
-// two launches agree bitwise.
+// two launches agree bitwise. At 1M sources there are 128 chunks of 8,192
+// and the scratch is 6 x 128 x nr floats, 3.2 GB at nr = 1,048,576; every
+// scratch offset is 64-bit.
 //
 // The ragged last stage is masked by the loop bound; rows past nr compute
 // and store nothing, so no input is padded.
@@ -69,7 +85,7 @@ __device__ __forceinline__ float4 src4(const float* __restrict__ p, int j,
   return make_float4(p[3 * j], p[3 * j + 1], p[3 * j + 2], w);
 }
 
-template <bool GUARDED>
+template <bool GUARDED, bool COMP>
 __global__ void __launch_bounds__(kThreads)
     rows_jerk_x_partial(const float* __restrict__ rhi,
                         const float* __restrict__ rlo,
@@ -100,6 +116,7 @@ __global__ void __launch_bounds__(kThreads)
     vli = row3(vlo, i);
   }
   float3 a = zero, jk = zero;
+  float3 ca = zero, cj = zero;  // K17's Kahan compensations
   const int c0 = c * chunk;
   const int c1 = min(c0 + chunk, ns);
   for (int s0 = c0; s0 < c1; s0 += kStage) {
@@ -112,15 +129,23 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     const int m = min(kStage, c1 - s0);
+    // K9 sums into (a, jk) directly; K17 into a fresh stage partial
+    float3 pa = zero, pj = zero;
+    float3& sa = COMP ? pa : a;
+    float3& sj = COMP ? pj : jk;
     if (m == kStage) {
 #pragma unroll 4
       for (int k = lane; k < kStage; k += kLanes)
         ocn::row_jerk_pair_x<GUARDED>(thi[k], tlo[k], tvh[k], tvl[k], xi, li,
-                                      vi, vli, eps2, a, jk);
+                                      vi, vli, eps2, sa, sj);
     } else {
       for (int k = lane; k < m; k += kLanes)
         ocn::row_jerk_pair_x<GUARDED>(thi[k], tlo[k], tvh[k], tvl[k], xi, li,
-                                      vi, vli, eps2, a, jk);
+                                      vi, vli, eps2, sa, sj);
+    }
+    if (COMP) {
+      ocn::kahan_add3(a, ca, pa);
+      ocn::kahan_add3(jk, cj, pj);
     }
     __syncthreads();
   }
@@ -141,6 +166,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool COMP>
 __global__ void rows_jerk_x_reduce(const float* __restrict__ part, int nr,
                                    int nchunks, float* __restrict__ acc,
                                    float* __restrict__ jerk) {
@@ -149,14 +175,40 @@ __global__ void rows_jerk_x_reduce(const float* __restrict__ part, int nr,
   if (t >= 6LL * nr) return;
   const int k = static_cast<int>(t / nr);
   const int i = static_cast<int>(t % nr);
-  float s = 0.f;
+  float s = 0.f, comp = 0.f;
 #pragma unroll 8
-  for (int c = 0; c < nchunks; ++c)
-    s += part[(static_cast<long long>(c) * 6 + k) * nr + i];
+  for (int c = 0; c < nchunks; ++c) {
+    const float p = part[(static_cast<long long>(c) * 6 + k) * nr + i];
+    if (COMP)
+      ocn::kahan_add(s, comp, p);
+    else
+      s += p;
+  }
   if (k < 3)
     acc[3 * i + k] = s;
   else
     jerk[3 * i + k - 3] = s;
+}
+
+template <bool GUARDED, bool COMP>
+void launch(const float* rhi, const float* rlo, const float* vhi,
+            const float* vlo, int nr, const float* shi, const float* slo,
+            const float* svhi, const float* svlo, const float* gm, int ns,
+            float eps2, float* part, float* acc, float* jerk,
+            cudaStream_t s) {
+  const int chunk = chunk_size(ns);
+  const int nchunks = (ns + chunk - 1) / chunk;
+  const dim3 grid((nr + kRows - 1) / kRows, nchunks);
+  rows_jerk_x_partial<GUARDED, COMP><<<grid, kThreads, 0, s>>>(
+      rhi, rlo, vhi, vlo, nr, shi, slo, svhi, svlo, gm, ns, chunk, eps2,
+      part);
+  constexpr int kReduceThreads = 256;
+  const long long work = 6LL * nr;
+  const int blocks = static_cast<int>((work + kReduceThreads - 1) /
+                                      kReduceThreads);
+  rows_jerk_x_reduce<COMP><<<blocks, kReduceThreads, 0, s>>>(part, nr,
+                                                             nchunks, acc,
+                                                             jerk);
 }
 
 }  // namespace
@@ -170,15 +222,16 @@ extern "C" long long ocn_rows_jerk_x_scratch(int nr, int ns) {
 
 // rhi, rlo, vhi, vlo (nr, 3), shi, slo, svhi, svlo (ns, 3), gm (ns,), acc
 // and jerk (nr, 3) are contiguous f32 on the device; part holds
-// ocn_rows_jerk_x_scratch(nr, ns) floats. Returns cudaGetLastError() after
+// ocn_rows_jerk_x_scratch(nr, ns) floats. compensated picks K17 (Kahan
+// steps across stages and chunks) over K9. Returns cudaGetLastError() after
 // the launches.
 extern "C" int ocn_rows_jerk_x(const float* rhi, const float* rlo,
                                const float* vhi, const float* vlo, int nr,
                                const float* shi, const float* slo,
                                const float* svhi, const float* svlo,
                                const float* gm, int ns, float eps2,
-                               int guarded, float* part, float* acc,
-                               float* jerk, void* stream) {
+                               int guarded, int compensated, float* part,
+                               float* acc, float* jerk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nr <= 0) return static_cast<int>(cudaGetLastError());
   if (ns <= 0) {
@@ -186,24 +239,20 @@ extern "C" int ocn_rows_jerk_x(const float* rhi, const float* rlo,
     cudaMemsetAsync(jerk, 0, sizeof(float) * 3 * nr, s);
     return static_cast<int>(cudaGetLastError());
   }
-  const int chunk = chunk_size(ns);
-  const int nchunks = (ns + chunk - 1) / chunk;
-  const dim3 grid((nr + kRows - 1) / kRows, nchunks);
-  if (guarded)
-    rows_jerk_x_partial<true><<<grid, kThreads, 0, s>>>(
-        rhi, rlo, vhi, vlo, nr, shi, slo, svhi, svlo, gm, ns, chunk, eps2,
-        part);
-  else
-    rows_jerk_x_partial<false><<<grid, kThreads, 0, s>>>(
-        rhi, rlo, vhi, vlo, nr, shi, slo, svhi, svlo, gm, ns, chunk, eps2,
-        part);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  constexpr int kReduceThreads = 256;
-  const long long work = 6LL * nr;
-  const int blocks = static_cast<int>((work + kReduceThreads - 1) /
-                                      kReduceThreads);
-  rows_jerk_x_reduce<<<blocks, kReduceThreads, 0, s>>>(part, nr, nchunks, acc,
-                                                       jerk);
+  if (compensated) {
+    if (guarded)
+      launch<true, true>(rhi, rlo, vhi, vlo, nr, shi, slo, svhi, svlo, gm, ns,
+                         eps2, part, acc, jerk, s);
+    else
+      launch<false, true>(rhi, rlo, vhi, vlo, nr, shi, slo, svhi, svlo, gm,
+                          ns, eps2, part, acc, jerk, s);
+  } else {
+    if (guarded)
+      launch<true, false>(rhi, rlo, vhi, vlo, nr, shi, slo, svhi, svlo, gm,
+                          ns, eps2, part, acc, jerk, s);
+    else
+      launch<false, false>(rhi, rlo, vhi, vlo, nr, shi, slo, svhi, svlo, gm,
+                           ns, eps2, part, acc, jerk, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,30 +41,6 @@ constexpr int kWarps = T / 32;
 static_assert((T & (T - 1)) == 0, "the rotating diagonal needs T = 2^k");
 
 template <bool WITH_PHI, bool GUARDED>
-__device__ __forceinline__ void sym_pair_x(float4 sh, float4 sl, float3 xi,
-                                           float3 li, float gmi, float eps2,
-                                           float& ax, float& ay, float& az,
-                                           float& ph, float4& col) {
-  float3 s;
-  const float inv = ocn::hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
-  const float inv2 = inv * inv;
-  const float gjinv = sh.w * inv;
-  const float giinv = gmi * inv;
-  const float w = gjinv * inv2;
-  const float wi = giinv * inv2;
-  ax += w * s.x;
-  ay += w * s.y;
-  az += w * s.z;
-  col.x -= wi * s.x;
-  col.y -= wi * s.y;
-  col.z -= wi * s.z;
-  if (WITH_PHI) {
-    ph += gjinv;
-    col.w -= giinv;
-  }
-}
-
-template <bool WITH_PHI, bool GUARDED>
 __global__ void __launch_bounds__(T)
     sym_tiles_x(const float* __restrict__ hi, const float* __restrict__ lo,
                 const float* __restrict__ gm, int n, int nt, float eps2,
@@ -111,8 +87,8 @@ __global__ void __launch_bounds__(T)
       const int c = (r + k) & (T - 1);
       if (c < ncol) {
         float4 a = mine[c];
-        sym_pair_x<WITH_PHI, GUARDED>(shi[c], slo[c], xi, li, gmi, eps2, ax,
-                                      ay, az, ph, a);
+        ocn::sym_pair_x<WITH_PHI, GUARDED>(shi[c], slo[c], xi, li, gmi, eps2,
+                                           ax, ay, az, ph, a);
         mine[c] = a;
       }
       __syncwarp();

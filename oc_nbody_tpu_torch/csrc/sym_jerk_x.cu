@@ -40,37 +40,6 @@ constexpr int T = ocn::kSymTile;
 constexpr int kWarps = T / 32;
 static_assert((T & (T - 1)) == 0, "the rotating diagonal needs T = 2^k");
 
-// The pair (row, source c): action into (a, j), reaction into (ca, cj).
-template <bool GUARDED>
-__device__ __forceinline__ void sym_jerk_pair_x(
-    float4 sh, float4 sl, float4 vh, float4 vl, float3 xi, float3 li,
-    float3 vi, float3 vli, float gmi, float eps2, float3& a, float3& j,
-    float4& ca, float2& cj) {
-  float3 s;
-  const float inv = ocn::hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
-  const float3 dv = ocn::hilo_dv(vh, vl, vi, vli);
-  const float inv2 = inv * inv;
-  const float inv3 = inv * inv2;
-  const float w = sh.w * inv3;
-  const float wi = gmi * inv3;
-  const float rv = s.x * dv.x + s.y * dv.y + s.z * dv.z;
-  const float uu = (3.f * rv) * inv2;
-  const float bx = dv.x - uu * s.x, by = dv.y - uu * s.y,
-              bz = dv.z - uu * s.z;
-  a.x += w * s.x;
-  a.y += w * s.y;
-  a.z += w * s.z;
-  j.x += w * bx;
-  j.y += w * by;
-  j.z += w * bz;
-  ca.x -= wi * s.x;
-  ca.y -= wi * s.y;
-  ca.z -= wi * s.z;
-  ca.w -= wi * bx;
-  cj.x -= wi * by;
-  cj.y -= wi * bz;
-}
-
 __device__ __forceinline__ float4 load3(const float* __restrict__ p, int i,
                                         float w) {
   return make_float4(p[3 * i], p[3 * i + 1], p[3 * i + 2], w);
@@ -142,8 +111,8 @@ __global__ void __launch_bounds__(T)
       if (c < ncol) {
         float4 ca = mine4[c];
         float2 cj = mine2[c];
-        sym_jerk_pair_x<GUARDED>(shi[c], slo[c], svh[c], svl[c], xi, li, vi,
-                                 vli, gmi, eps2, a, jk, ca, cj);
+        ocn::sym_jerk_pair_x<GUARDED>(shi[c], slo[c], svh[c], svl[c], xi, li,
+                                      vi, vli, gmi, eps2, a, jk, ca, cj);
         mine4[c] = ca;
         mine2[c] = cj;
       }

@@ -59,9 +59,10 @@ class ForceModel:
     device scalar. ``softened`` (eps > 0) lets the kernels drop the u > 0
     self-pair guard. ``precision`` picks the pairwise tier: ``"f32"``, or
     ``"extended"`` (hi/lo split positions and velocities, a lo-corrected
-    separation and a Newton-refined rsqrt; kernels K6-K9), or ``"df32"``
-    (every pair quantity a two-float number; kernels K10 and K11, f64 sums
-    for the potential and the block stepper's active rows)."""
+    separation and a Newton-refined rsqrt; kernels K6-K9, past STREAM_N
+    K15-K17), or ``"df32"`` (every pair quantity a two-float number;
+    kernels K10 and K11, f64 sums for the potential and the block
+    stepper's active rows)."""
 
     eps: float
     G: float

@@ -1,7 +1,7 @@
 """The pairwise force on the card: hand-written CUDA kernels for Hopper
 (``sm_90a``), each beside its plain PyTorch twin. This module holds the f32
-tier (K1-K5, K12-K14) and the extended tier (K6-K9) and builds the one
-library all kernels live in; the two-float tier's K10 and K11 are wrapped
+tier (K1-K5, K12-K14) and the extended tier (K6-K9, K15-K17) and builds the
+one library all kernels live in; the two-float tier's K10 and K11 are wrapped
 in ``ops/cuda_df.py``.
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
@@ -46,6 +46,16 @@ and the extended (hi/lo) precision tier, on pre-split f32 planes:
     sources, the sources split over blocks as in K5; a row's bits do not
     depend on the other rows of the launch. Replaces
     ``_accel_jerk_kernel_x`` (oc_nbody_tpu/ops/pallas_gravity.py:1208).
+  * K15 ``csrc/cross_accel_x.cu`` — two disjoint sets, each pair once, A's
+    action and B's reaction, optional raw potential, bitwise deterministic.
+    Replaces ``_make_cross_kernel`` with ``_pair_accel_x`` / ``_pair_phi_x``
+    (oc_nbody_tpu/ops/pallas_pair.py:296).
+  * K16 ``csrc/cross_jerk_x.cu`` — the same for accel + jerk. Replaces
+    ``_make_cross_kernel`` with ``_pair_jerk_x`` (pallas_pair.py:296, :202).
+  * K17, K9's compensated variant (``csrc/rows_jerk_x.cu``, Kahan steps
+    across source stages and chunks) — accel + jerk of rows from more than
+    ``STREAM_N`` sources, or of more than ``RT_MAX_ROWS`` rows. Replaces
+    ``_accel_jerk_stream_kernel_x`` (pallas_gravity.py:1415).
 
 The public wrappers keep the signatures and return contracts of
 ``oc_nbody_tpu.ops.pallas_gravity``: ``accel_rows`` and
@@ -81,16 +91,26 @@ f64 state, centre and split it (``gravity.prepare_x``) and return the
 positions' dtype. The potential of this tier is RAW: it keeps the softened
 self term -G m/eps, and the caller adds ``gravity.self_phi`` (in f64). All
 three self-interaction forms take the pair-symmetric kernel from
-``SYM_MIN``, the jerk too. Past ``STREAM_N`` sources or ``RT_MAX_ROWS``
-rows the JAX package streams or chunks; the port raises
-NotImplementedError there (ROADMAP B7).
+``SYM_MIN``, the jerk too, and past ``STREAM_N`` go chunked as the f32 tier
+does (``accel_sym_x_chunked``, ``accel_potential_sym_x_chunked``,
+``accel_jerk_sym_x_chunked``: ONE centring and hi/lo split of the whole
+set, ``CHUNK_SYMX`` particles a chunk (``CHUNK_SYMXJ`` for the jerk), K6
+or K7 on the diagonal chunks and K15 or K16 on the chunk pairs);
+``accel_cross_pair_x_hilo`` & co. are the disjoint-set forms on pre-split
+planes.
+``accel_jerk_rows_x_hilo`` takes K17 past ``STREAM_N`` sources or
+``RT_MAX_ROWS`` rows. The rows accel forms (``accel_rows_x_hilo``,
+``accel_potential_rows_x_hilo``) stream there in the JAX package (#13,
+#14), reached only by pruning and sharding; the port raises
+NotImplementedError there (ROADMAP A15).
 
 A wrapper launches its kernel for CUDA tensors and calls the plain twin
 (``rows_plain``, ``sym_plain``, ``rows_jerk_plain``, ``sym_jerk_plain``,
 ``rows_jerk_t_plain``, ``rows_jerk_stream_plain``, ``cross_plain``,
 ``cross_jerk_plain``, built on ``ops/gravity.py``; ``rows_x_plain``,
-``sym_x_plain``, ``rows_jerk_x_plain``, ``sym_jerk_x_plain``, built on
-``ops/df32.py``) for CPU tensors; there
+``sym_x_plain``, ``rows_jerk_x_plain``, ``sym_jerk_x_plain``,
+``cross_x_plain``, ``cross_jerk_x_plain``, ``rows_jerk_x_stream_plain``,
+built on ``ops/df32.py``) for CPU tensors; there
 is no fallback from one to the other. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls
 of the plain twins, so a run can show which one it went through.
 
@@ -127,7 +147,8 @@ RT_MIN_JERK = 16384
 RT_MAX_ROWS = 65536
 # Largest N the resident sym kernels take (pallas_gravity.py:2233-2276);
 # past it the self-interaction is chunked and rows against more sources
-# take K14. The extended and df32 tiers stop here (scene.check_supported).
+# take K14 (K17 at the extended tier). The df32 tier stops here
+# (scene.check_supported).
 STREAM_N = 262144
 # Chunk sizes of the chunked self-interaction (pallas_gravity.py:1718-1719).
 # These are the TPU's values, set by its 16 MiB scoped VMEM; the port keeps
@@ -135,10 +156,15 @@ STREAM_N = 262144
 # the per-evaluation scratch instead: 4.3 GB (accel) and 3.6 GB (jerk).
 CHUNK_SYM = 131072
 CHUNK_SYMJ = 98304
+# The extended tier's (pallas_gravity.py:1720-1721), kept likewise: 11
+# chunks at 1M (15 for the jerk); scratch 2.4 GB (accel) and 2.0 GB (jerk).
+CHUNK_SYMX = 98304
+CHUNK_SYMXJ = 73728
 
 _KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
             "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df",
-            "cross", "cross_jerk", "rows_jerk_stream")
+            "cross", "cross_jerk", "rows_jerk_stream", "cross_x",
+            "cross_jerk_x", "rows_jerk_x_stream")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
@@ -150,7 +176,7 @@ _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
             "rows_accel_x.cu", "rows_jerk_x.cu", "rows_accel_df.cu",
             "rows_jerk_df.cu", "df_selftest.cu", "cross_accel.cu",
-            "cross_jerk.cu")
+            "cross_jerk.cu", "cross_accel_x.cu", "cross_jerk_x.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -246,7 +272,7 @@ def _library():
         lib.ocn_sym_jerk_x.argtypes = [p, p, p, p, p, i, f, i, p, p, p, p]
         lib.ocn_sym_jerk_x.restype = i
         lib.ocn_rows_jerk_x.argtypes = [p, p, p, p, i, p, p, p, p, p, i, f,
-                                        i, p, p, p, p]
+                                        i, i, p, p, p, p]
         lib.ocn_rows_jerk_x.restype = i
         lib.ocn_rows_jerk_x_scratch.argtypes = [i, i]
         lib.ocn_rows_jerk_x_scratch.restype = ctypes.c_longlong
@@ -272,6 +298,12 @@ def _library():
         lib.ocn_cross_jerk.restype = i
         lib.ocn_cross_jerk_scratch.argtypes = [i, i]
         lib.ocn_cross_jerk_scratch.restype = ctypes.c_longlong
+        lib.ocn_cross_accel_x.argtypes = [p, p, p, i, p, p, p, i, f, i, p, p,
+                                          p, p, p, p]
+        lib.ocn_cross_accel_x.restype = i
+        lib.ocn_cross_jerk_x.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i,
+                                         f, i, p, p, p, p, p, p]
+        lib.ocn_cross_jerk_x.restype = i
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]
@@ -444,6 +476,37 @@ def sym_jerk_x_plain(hi, lo, vhi, vlo, gm, eps, dtype=torch.float32,
                                        gm, eps, chunk, guarded, dtype)
 
 
+def rows_jerk_x_stream_plain(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm,
+                             eps, dtype=torch.float32, chunk=256,
+                             guarded=True):
+    """K17's function in plain PyTorch: K9's function, counted apart (its
+    f32 sum is not compensated; the f64 one is the oracle)."""
+    PLAIN_CALLS["rows_jerk_x_stream"] += 1
+    return df32.accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi,
+                                       svlo, gm, eps, chunk, guarded, dtype)
+
+
+def cross_x_plain(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
+                  dtype=torch.float32, chunk=256, guarded=True):
+    """K15's function in plain PyTorch on the same (hi, lo) planes, computed
+    in ``dtype``: (accA, accB), or (accA, phiA, accB, phiB) with
+    ``with_phi``."""
+    PLAIN_CALLS["cross_x"] += 1
+    fn = (df32.accel_potential_cross_pair_x_hilo if with_phi
+          else df32.accel_cross_pair_x_hilo)
+    return fn(hiA, loA, hiB, loB, gmA, gmB, eps, chunk, guarded, dtype)
+
+
+def cross_jerk_x_plain(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
+                       eps, dtype=torch.float32, chunk=256, guarded=True):
+    """K16's function in plain PyTorch, computed in ``dtype``: (accA, jerkA,
+    accB, jerkB)."""
+    PLAIN_CALLS["cross_jerk_x"] += 1
+    return df32.accel_jerk_cross_pair_x_hilo(hiA, loA, vhiA, vloA, hiB, loB,
+                                             vhiB, vloB, gmA, gmB, eps, chunk,
+                                             guarded, dtype)
+
+
 # --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
@@ -597,7 +660,8 @@ def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True,
 
 
 def cross_scratch_floats(nA: int, nB: int, jerk: bool = False) -> int:
-    """Floats of scratch K12 (K13 with ``jerk``) needs on nA x nB."""
+    """Floats of scratch K12 or K15 (K13 or K16 with ``jerk``) needs on nA x
+    nB."""
     lib = _library()
     fn = lib.ocn_cross_jerk_scratch if jerk else lib.ocn_cross_scratch
     return fn(nA, nB)
@@ -687,17 +751,16 @@ def rows_x_kernel(rhi, rlo, shi, slo, gm, eps, with_phi=False, guarded=True):
     return (acc, phi) if with_phi else acc
 
 
-def sym_x_kernel(hi, lo, gm, eps, with_phi=False, guarded=True):
+def sym_x_kernel(hi, lo, gm, eps, with_phi=False, guarded=True,
+                 scratch=None):
     """Launch K6 (both passes) on (hi, lo) f32 CUDA planes; the same
-    contract as ``sym_x_plain``."""
+    contract as ``sym_x_plain``. ``scratch``, if given, is a float32 buffer
+    of at least ``sym_scratch_floats(n)`` elements."""
     n = hi.shape[0]
     _check_planes(n, pos_hi=hi, pos_lo=lo)
     _check_f32("gm", gm, (n,))
     lib = _library()
-    t = lib.ocn_sym_tile()
-    nt = -(-n // t)
-    scratch = torch.empty((nt * nt * t, 4), dtype=torch.float32,
-                          device=hi.device)
+    scratch = _scratch(sym_scratch_floats(n), hi.device, scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
     phi = (torch.empty((n,), dtype=torch.float32, device=hi.device)
            if with_phi else None)
@@ -714,6 +777,21 @@ def rows_jerk_x_kernel(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
                        guarded=True):
     """Launch K9 (both passes) on (hi, lo) f32 CUDA planes; the same
     contract as ``rows_jerk_x_plain``."""
+    return _rows_jerk_x_launch("rows_jerk_x", False, rhi, rlo, vhi, vlo, shi,
+                               slo, svhi, svlo, gm, eps, guarded)
+
+
+def rows_jerk_x_stream_kernel(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm,
+                              eps, guarded=True):
+    """Launch K17, K9 with Kahan steps across source stages and chunks, on
+    (hi, lo) f32 CUDA planes; the same contract as
+    ``rows_jerk_x_stream_plain``."""
+    return _rows_jerk_x_launch("rows_jerk_x_stream", True, rhi, rlo, vhi,
+                               vlo, shi, slo, svhi, svlo, gm, eps, guarded)
+
+
+def _rows_jerk_x_launch(key, compensated, rhi, rlo, vhi, vlo, shi, slo,
+                        svhi, svlo, gm, eps, guarded):
     nr, ns = rhi.shape[0], shi.shape[0]
     _check_planes(nr, rows_hi=rhi, rows_lo=rlo, vel_rows_hi=vhi,
                   vel_rows_lo=vlo)
@@ -729,24 +807,24 @@ def rows_jerk_x_kernel(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
         rhi.data_ptr(), rlo.data_ptr(), vhi.data_ptr(), vlo.data_ptr(), nr,
         shi.data_ptr(), slo.data_ptr(), svhi.data_ptr(), svlo.data_ptr(),
         gm.data_ptr(), ns, _f32(_f32(eps) ** 2), int(guarded),
-        scratch.data_ptr(), acc.data_ptr(), jerk.data_ptr(), _stream(rhi))
-    LAUNCHES["rows_jerk_x"] += 1
-    _check_launch(lib, code, "rows_jerk_x")
+        int(compensated), scratch.data_ptr(), acc.data_ptr(),
+        jerk.data_ptr(), _stream(rhi))
+    LAUNCHES[key] += 1
+    _check_launch(lib, code, key)
     return acc, jerk
 
 
-def sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=True):
+def sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=True,
+                      scratch=None):
     """Launch K7 (both passes) on (hi, lo) f32 CUDA planes; the same
-    contract as ``sym_jerk_x_plain``."""
+    contract as ``sym_jerk_x_plain``. ``scratch``, if given, is a float32
+    buffer of at least ``sym_scratch_floats(n, jerk=True)`` elements."""
     n = hi.shape[0]
     _check_planes(n, pos_hi=hi, pos_lo=lo, vel_hi=vhi, vel_lo=vlo)
     _check_f32("gm", gm, (n,))
     lib = _library()
-    t = lib.ocn_sym_tile()
-    nt = -(-n // t)
     # six floats per slot: a float4 plane, then a float2 plane
-    scratch = torch.empty((nt * nt * t * 6,), dtype=torch.float32,
-                          device=hi.device)
+    scratch = _scratch(sym_scratch_floats(n, jerk=True), hi.device, scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
     jerk = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
     code = lib.ocn_sym_jerk_x(
@@ -756,6 +834,65 @@ def sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=True):
     LAUNCHES["sym_jerk_x"] += 1
     _check_launch(lib, code, "sym_jerk_x")
     return acc, jerk
+
+
+def cross_x_kernel(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
+                   guarded=True, scratch=None):
+    """Launch K15 (the tile pass and a reduce per set) on (hi, lo) f32 CUDA
+    planes split under one centring; the same contract as
+    ``cross_x_plain``. ``scratch``, if given, is a float32 buffer of at
+    least ``cross_scratch_floats(nA, nB)`` elements."""
+    nA, nB = hiA.shape[0], hiB.shape[0]
+    _check_planes(nA, hiA=hiA, loA=loA)
+    _check_planes(nB, hiB=hiB, loB=loB)
+    _check_f32("gmA", gmA, (nA,))
+    _check_f32("gmB", gmB, (nB,))
+    lib = _library()
+    dev = hiA.device
+    scratch = _scratch(cross_scratch_floats(nA, nB), dev, scratch)
+    accA = torch.empty((nA, 3), dtype=torch.float32, device=dev)
+    accB = torch.empty((nB, 3), dtype=torch.float32, device=dev)
+    phiA, phiB = ((torch.empty((nA,), dtype=torch.float32, device=dev),
+                   torch.empty((nB,), dtype=torch.float32, device=dev))
+                  if with_phi else (None, None))
+    code = lib.ocn_cross_accel_x(
+        hiA.data_ptr(), loA.data_ptr(), gmA.data_ptr(), nA, hiB.data_ptr(),
+        loB.data_ptr(), gmB.data_ptr(), nB, _f32(_f32(eps) ** 2),
+        int(guarded), scratch.data_ptr(), accA.data_ptr(),
+        phiA.data_ptr() if with_phi else None, accB.data_ptr(),
+        phiB.data_ptr() if with_phi else None, _stream(hiA))
+    LAUNCHES["cross_x"] += 1
+    _check_launch(lib, code, "cross_accel_x")
+    return (accA, phiA, accB, phiB) if with_phi else (accA, accB)
+
+
+def cross_jerk_x_kernel(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
+                        eps, guarded=True, scratch=None):
+    """Launch K16 (the tile pass and a reduce per set) on (hi, lo) f32 CUDA
+    planes; the same contract as ``cross_jerk_x_plain``. ``scratch``, if
+    given, is a float32 buffer of at least ``cross_scratch_floats(nA, nB,
+    jerk=True)`` elements."""
+    nA, nB = hiA.shape[0], hiB.shape[0]
+    _check_planes(nA, hiA=hiA, loA=loA, vhiA=vhiA, vloA=vloA)
+    _check_planes(nB, hiB=hiB, loB=loB, vhiB=vhiB, vloB=vloB)
+    _check_f32("gmA", gmA, (nA,))
+    _check_f32("gmB", gmB, (nB,))
+    lib = _library()
+    dev = hiA.device
+    scratch = _scratch(cross_scratch_floats(nA, nB, jerk=True), dev, scratch)
+    accA, jerkA = (torch.empty((nA, 3), dtype=torch.float32, device=dev)
+                   for _ in range(2))
+    accB, jerkB = (torch.empty((nB, 3), dtype=torch.float32, device=dev)
+                   for _ in range(2))
+    code = lib.ocn_cross_jerk_x(
+        hiA.data_ptr(), loA.data_ptr(), vhiA.data_ptr(), vloA.data_ptr(),
+        gmA.data_ptr(), nA, hiB.data_ptr(), loB.data_ptr(), vhiB.data_ptr(),
+        vloB.data_ptr(), gmB.data_ptr(), nB, _f32(_f32(eps) ** 2),
+        int(guarded), scratch.data_ptr(), accA.data_ptr(), jerkA.data_ptr(),
+        accB.data_ptr(), jerkB.data_ptr(), _stream(hiA))
+    LAUNCHES["cross_jerk_x"] += 1
+    _check_launch(lib, code, "cross_jerk_x")
+    return accA, jerkA, accB, jerkB
 
 
 # --------------------------------------------------------------------------
@@ -804,27 +941,49 @@ def accel_potential_sym(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
     return acc.to(pos.dtype), phi.to(pos.dtype)
 
 
+def _chunked_sum(n, chunk, diag, cross):
+    """The chunked self-interaction's order (the JAX package's
+    ``_sym_chunked_generic``): chunks of ``chunk`` particles, the last one
+    ragged; ``diag(k0, k1)`` gives a diagonal chunk's outputs, ``cross(i0,
+    i1, j0, j1)`` a chunk pair's (A's, then B's), each unordered pair (i <
+    j) in lexicographic order, A's outputs added into chunk i and B's into
+    chunk j after the diagonal outputs."""
+    bounds = [(k, min(k + chunk, n)) for k in range(0, n, chunk)]
+    outs = [torch.cat(parts) for parts in
+            zip(*(diag(k0, k1) for k0, k1 in bounds))]
+    k = len(outs)
+    for i, (i0, i1) in enumerate(bounds):
+        for j0, j1 in bounds[i + 1:]:
+            res = cross(i0, i1, j0, j1)
+            for o, a in zip(outs, res[:k]):
+                o[i0:i1] += a
+            for o, b in zip(outs, res[k:]):
+                o[j0:j1] += b
+    return outs
+
+
+def _chunk_scratch(n, chunk, jerk, device):
+    """One scratch buffer for every launch of a chunked evaluation on the
+    card: sized for a full chunk pair (a lone chunk's diagonal kernel
+    needs half of that)."""
+    width = min(chunk, n)
+    floats = (cross_scratch_floats(width, width, jerk) if n > chunk
+              else sym_scratch_floats(width, jerk))
+    return torch.empty((floats,), dtype=torch.float32, device=device)
+
+
 def _sym_chunked(pos_c, mass_c, vel_c, eps, G, guarded, chunk, with_phi):
-    """The chunked self-interaction of centred f32 particles (the JAX
-    package's ``_sym_chunked_generic``): each diagonal chunk through K2 (K3
-    with ``vel_c``), each unordered chunk pair (i, j), i < j, through K12
-    (K13), in lexicographic order, A's outputs added into chunk i and B's
-    into chunk j after the diagonal outputs. On CPU tensors the plain twins
-    take the same route. Returns [acc] or [acc, phi] (the potential with
-    its softened self term) or [acc, jerk], f32. On the card one scratch
-    buffer, sized for a full chunk pair, serves every launch."""
+    """The chunked self-interaction of centred f32 particles: each diagonal
+    chunk through K2 (K3 with ``vel_c``), each chunk pair through K12
+    (K13), in ``_chunked_sum``'s order. On CPU tensors the plain twins take
+    the same route. Returns [acc] or [acc, phi] (the potential with its
+    softened self term) or [acc, jerk], f32."""
     jerk = vel_c is not None
     planes = (pos_c, vel_c) if jerk else (pos_c,)
     on_cuda = _on_cuda(*planes, mass_c)
     n = pos_c.shape[0]
-    bounds = [(k, min(k + chunk, n)) for k in range(0, n, chunk)]
-    scratch = None
-    if on_cuda:
-        width = min(chunk, n)
-        floats = (cross_scratch_floats(width, width, jerk) if len(bounds) > 1
-                  else sym_scratch_floats(width, jerk))
-        scratch = torch.empty((floats,), dtype=torch.float32,
-                              device=pos_c.device)
+    scratch = (_chunk_scratch(n, chunk, jerk, pos_c.device) if on_cuda
+               else None)
 
     def diag(k0, k1):
         p, m = pos_c[k0:k1], mass_c[k0:k1]
@@ -853,17 +1012,7 @@ def _sym_chunked(pos_c, mass_c, vel_c, eps, G, guarded, chunk, with_phi):
                                 scratch)
         return cross_plain(pA, pB, mA, mB, eps, G, with_phi)
 
-    outs = [torch.cat(parts) for parts in
-            zip(*(diag(k0, k1) for k0, k1 in bounds))]
-    k = len(outs)
-    for i, (i0, i1) in enumerate(bounds):
-        for j0, j1 in bounds[i + 1:]:
-            res = cross(i0, i1, j0, j1)
-            for o, a in zip(outs, res[:k]):
-                o[i0:i1] += a
-            for o, b in zip(outs, res[k:]):
-                o[j0:j1] += b
-    return outs
+    return _chunked_sum(n, chunk, diag, cross)
 
 
 def accel_sym_chunked(pos, mass, eps=0.0, G=1.0, guarded: bool = True,
@@ -1017,31 +1166,41 @@ def accel_jerk(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
     return acc.to(pos.dtype), jerk.to(pos.dtype)
 
 
-def route(n: int, kind: str = "kdk") -> str:
-    """The f32 tier's kernels on the card for N = n under integrator
-    ``kind``: the self-interaction (accel under KDK, accel + jerk under
-    Hermite and block steps; the diagnostics potential takes the accel
-    route with K2/K12's potential form), and under block steps the
-    active rows."""
+def route(n: int, kind: str = "kdk", precision: str = "f32") -> str:
+    """The kernels on the card for N = n under integrator ``kind`` at the
+    f32 or the extended ``precision`` tier: the self-interaction (accel
+    under KDK, accel + jerk under Hermite and block steps; the diagnostics
+    potential takes the accel route with its kernels' potential form), and
+    under block steps the active rows."""
     def chunked(kernel, cross, chunk):
         c = -(-n // chunk)
         return (f"chunked pair-symmetric: {kernel} on {c} diagonal chunks of "
                 f"up to {chunk}, {cross} on {c * (c - 1) // 2} chunk pairs")
 
-    if n > STREAM_N:
+    if precision == "extended":
+        if n > STREAM_N:
+            acc = chunked("K6", "K15", CHUNK_SYMX)
+            jerk = chunked("K7", "K16", CHUNK_SYMXJ)
+            rows = "K17 (compensated, any row count)"
+        else:
+            acc, jerk = (("K6 (pair-symmetric, resident)",
+                          "K7 (pair-symmetric, resident)") if n >= SYM_MIN
+                         else ("K8 (one-sided)", "K9 (one-sided)"))
+            rows = "K9, K17 (compensated) past RT_MAX_ROWS rows"
+    elif n > STREAM_N:
         acc = chunked("K2", "K12", CHUNK_SYM)
         jerk = chunked("K3", "K13", CHUNK_SYMJ)
+        rows = "K14 (compensated, any row count)"
     else:
         acc = ("K2 (pair-symmetric, resident)" if n >= SYM_MIN
                else "K1 (one-sided)")
         jerk = ("K3 (pair-symmetric, resident)" if n >= RT_MIN_JERK
                 else "K4 (one-sided)")
+        rows = "K5, K4 past RT_MAX_ROWS rows" if n >= RT_MIN_JERK else "K4"
     if kind == "kdk":
         return f"accel and potential: {acc}"
     line = f"accel + jerk: {jerk}; potential: {acc}"
     if kind == "block":
-        rows = ("K14 (compensated, any row count)" if n > STREAM_N else
-                "K5, K4 past RT_MAX_ROWS rows" if n >= RT_MIN_JERK else "K4")
         line += f"; active rows: {rows}"
     return line
 
@@ -1054,10 +1213,11 @@ def _check_resident(nr: int, ns: int) -> None:
     if ns > STREAM_N or nr > RT_MAX_ROWS:
         raise NotImplementedError(
             f"{nr} rows against {ns} sources: past STREAM_N = {STREAM_N} "
-            f"sources or RT_MAX_ROWS = {RT_MAX_ROWS} rows the extended tier "
-            "runs streamed or chunked kernels that are not ported yet "
-            "(ROADMAP B7: the streamed extended kernels and the cross "
-            "kernel's extended ops)")
+            f"sources or RT_MAX_ROWS = {RT_MAX_ROWS} rows the extended "
+            "tier's rows accel streams its sources (the JAX package's "
+            "_accel_stream_kernel_x and _accel_phi_stream_kernel_x), which "
+            "only escape pruning and sharding reach and which are not "
+            "ported yet (ROADMAP A15)")
 
 
 def accel_rows_x_hilo(rhi, rlo, shi, slo, gm, eps, guarded: bool = True):
@@ -1084,12 +1244,18 @@ def accel_potential_rows_x_hilo(rhi, rlo, shi, slo, gm, eps,
 def accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
                            guarded: bool = True):
     """Extended-tier (accel, jerk) of rows from sources on pre-split
-    position and velocity planes; f32 out (K9)."""
-    _check_resident(rhi.shape[0], shi.shape[0])
+    position and velocity planes; f32 out. K17 (compensated) past STREAM_N
+    sources or RT_MAX_ROWS rows, K9 otherwise (the dispatch rule of
+    pallas_gravity.accel_jerk_rows_x_hilo)."""
     planes = (rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm)
-    if _on_cuda(*planes):
-        return rows_jerk_x_kernel(*planes, eps, guarded)
-    return rows_jerk_x_plain(*planes, eps, guarded=guarded)
+    on_cuda = _on_cuda(*planes)
+    if shi.shape[0] > STREAM_N or rhi.shape[0] > RT_MAX_ROWS:
+        launch, plain = rows_jerk_x_stream_kernel, rows_jerk_x_stream_plain
+    else:
+        launch, plain = rows_jerk_x_kernel, rows_jerk_x_plain
+    if on_cuda:
+        return launch(*planes, eps, guarded)
+    return plain(*planes, eps, guarded=guarded)
 
 
 def accel_sym_x(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
@@ -1127,11 +1293,119 @@ def accel_jerk_sym_x(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
     return acc.to(pos.dtype), jerk.to(pos.dtype)
 
 
+def _sym_chunked_x(hi, lo, gm, vel, eps, guarded, chunk, with_phi):
+    """The chunked extended self-interaction of (hi, lo) planes split ONCE
+    for the whole set (a split per chunk would break the hi/lo frame across
+    chunks): each diagonal chunk through K6 (K7 with ``vel`` = (vhi, vlo)),
+    each chunk pair through K15 (K16), in ``_chunked_sum``'s order. On CPU
+    tensors the plain twins take the same route. Returns [acc] or [acc,
+    raw phi] or [acc, jerk], f32."""
+    jerk = vel is not None
+    planes = (hi, lo, *vel) if jerk else (hi, lo)
+    on_cuda = _on_cuda(*planes, gm)
+    n = hi.shape[0]
+    scratch = (_chunk_scratch(n, chunk, jerk, hi.device) if on_cuda
+               else None)
+
+    def part(k0, k1):
+        return tuple(p[k0:k1] for p in planes)
+
+    def diag(k0, k1):
+        ps, g = part(k0, k1), gm[k0:k1]
+        if jerk:
+            if on_cuda:
+                return sym_jerk_x_kernel(*ps, g, eps, guarded, scratch)
+            return sym_jerk_x_plain(*ps, g, eps, guarded=guarded)
+        if on_cuda:
+            out = sym_x_kernel(*ps, g, eps, with_phi, guarded, scratch)
+        else:
+            out = sym_x_plain(*ps, g, eps, with_phi, guarded=guarded)
+        return out if with_phi else (out,)
+
+    def cross(i0, i1, j0, j1):
+        args = (*part(i0, i1), *part(j0, j1), gm[i0:i1], gm[j0:j1])
+        if jerk:
+            if on_cuda:
+                return cross_jerk_x_kernel(*args, eps, guarded, scratch)
+            return cross_jerk_x_plain(*args, eps, guarded=guarded)
+        if on_cuda:
+            return cross_x_kernel(*args, eps, with_phi, guarded, scratch)
+        return cross_x_plain(*args, eps, with_phi, guarded=guarded)
+
+    return _chunked_sum(n, chunk, diag, cross)
+
+
+def accel_sym_x_chunked(pos, mass, eps=0.0, G=1.0, guarded: bool = True,
+                        chunk: int | None = None):
+    """Extended-tier chunked pair-symmetric accel past the resident cap,
+    ``CHUNK_SYMX`` particles a chunk; f64 in, pos.dtype out."""
+    chunk = CHUNK_SYMX if chunk is None else chunk
+    hi, lo, gm = gravity.prepare_x(pos, mass, G)
+    (acc,) = _sym_chunked_x(hi, lo, gm, None, eps, guarded, chunk, False)
+    return acc.to(pos.dtype)
+
+
+def accel_potential_sym_x_chunked(pos, mass, eps=0.0, G=1.0,
+                                  guarded: bool = True,
+                                  chunk: int | None = None):
+    """Extended-tier chunked pair-symmetric (accel, RAW phi) past the
+    resident cap; the diagonal chunks hold the softened self term, which
+    the caller cancels with ``gravity.self_phi``."""
+    chunk = CHUNK_SYMX if chunk is None else chunk
+    hi, lo, gm = gravity.prepare_x(pos, mass, G)
+    acc, phi = _sym_chunked_x(hi, lo, gm, None, eps, guarded, chunk, True)
+    return acc.to(pos.dtype), phi.to(pos.dtype)
+
+
+def accel_jerk_sym_x_chunked(pos, vel, mass, eps=0.0, G=1.0,
+                             guarded: bool = True, chunk: int | None = None):
+    """Extended-tier chunked pair-symmetric (accel, jerk) past the resident
+    cap, ``CHUNK_SYMXJ`` particles a chunk: ONE centring and split of the
+    positions and of the velocities; pos.dtype out."""
+    chunk = CHUNK_SYMXJ if chunk is None else chunk
+    hi, lo, gm, vhi, vlo = gravity.prepare_x(pos, mass, G, vel=vel)
+    acc, jerk = _sym_chunked_x(hi, lo, gm, (vhi, vlo), eps, guarded, chunk,
+                               False)
+    return acc.to(pos.dtype), jerk.to(pos.dtype)
+
+
+def accel_cross_pair_x_hilo(rAhi, rAlo, rBhi, rBlo, gmA, gmB, eps,
+                            guarded: bool = True):
+    """Extended-tier (accel on A from B, accel on B from A) of two disjoint
+    sets in one sweep, each pair once (K15), on planes split under ONE
+    centring; f32 out."""
+    args = (rAhi, rAlo, rBhi, rBlo, gmA, gmB)
+    if _on_cuda(*args):
+        return cross_x_kernel(*args, eps, False, guarded)
+    return cross_x_plain(*args, eps, guarded=guarded)
+
+
+def accel_potential_cross_pair_x_hilo(rAhi, rAlo, rBhi, rBlo, gmA, gmB, eps,
+                                      guarded: bool = True):
+    """Extended-tier (accA, phiA, accB, phiB) in one sweep (K15 with the
+    potential). The sets are disjoint, so neither phi holds a self term."""
+    args = (rAhi, rAlo, rBhi, rBlo, gmA, gmB)
+    if _on_cuda(*args):
+        return cross_x_kernel(*args, eps, True, guarded)
+    return cross_x_plain(*args, eps, with_phi=True, guarded=guarded)
+
+
+def accel_jerk_cross_pair_x_hilo(rAhi, rAlo, vAhi, vAlo, rBhi, rBlo, vBhi,
+                                 vBlo, gmA, gmB, eps, guarded: bool = True):
+    """Extended-tier (accA, jerkA, accB, jerkB) in one sweep (K16)."""
+    args = (rAhi, rAlo, vAhi, vAlo, rBhi, rBlo, vBhi, vBlo, gmA, gmB)
+    if _on_cuda(*args):
+        return cross_jerk_x_kernel(*args, eps, guarded)
+    return cross_jerk_x_plain(*args, eps, guarded=guarded)
+
+
 def accel_x(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
     """Extended-tier self-interaction accel, f64 in, pos.dtype out: K6 for
-    SYM_MIN <= N, K8 below (the dispatch rule of pallas_gravity.accel_x)."""
+    SYM_MIN <= N <= STREAM_N, chunked K6 + K15 past it, K8 below SYM_MIN
+    (the dispatch rule of pallas_gravity.accel_x)."""
     n = pos.shape[0]
-    _check_resident(0, n)      # the self-interaction has no row cap
+    if n > STREAM_N:
+        return accel_sym_x_chunked(pos, mass, eps, G, guarded)
     if n >= SYM_MIN:
         return accel_sym_x(pos, mass, eps, G, guarded)
     hi, lo, gm = gravity.prepare_x(pos, mass, G)
@@ -1143,7 +1417,8 @@ def accel_potential_x(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
     """Extended-tier self-interaction (accel, RAW phi), pos.dtype out; the
     dispatch rule of ``accel_x``. The caller adds ``gravity.self_phi``."""
     n = pos.shape[0]
-    _check_resident(0, n)      # the self-interaction has no row cap
+    if n > STREAM_N:
+        return accel_potential_sym_x_chunked(pos, mass, eps, G, guarded)
     if n >= SYM_MIN:
         return accel_potential_sym_x(pos, mass, eps, G, guarded)
     hi, lo, gm = gravity.prepare_x(pos, mass, G)
@@ -1162,9 +1437,9 @@ def split_rows_x(pos_rows, vel_rows, center, vcenter):
 def accel_jerk_rows_x(pos_rows, vel_rows, src_pos, src_vel, src_mass,
                       eps=0.0, G=1.0, guarded: bool = True):
     """Extended-tier (accel, jerk) of a row subset from the full source set
-    (the block-timestep active rows); f64 in, pos_rows.dtype out (K9). Rows
-    and sources are centred on the unweighted SOURCE means before the
-    split."""
+    (the block-timestep active rows); f64 in, pos_rows.dtype out (K9, or
+    K17 past STREAM_N sources or RT_MAX_ROWS rows). Rows and sources are
+    centred on the unweighted SOURCE means before the split."""
     shi, slo, center = gravity.centre_split(src_pos)
     svhi, svlo, vcenter = gravity.centre_split(src_vel)
     acc, jerk = accel_jerk_rows_x_hilo(
@@ -1175,10 +1450,12 @@ def accel_jerk_rows_x(pos_rows, vel_rows, src_pos, src_vel, src_mass,
 
 def accel_jerk_x(pos, vel, mass, eps=0.0, G=1.0, guarded: bool = True):
     """Extended-tier self-interaction (accel, jerk), pos.dtype out: K7 for
-    SYM_MIN <= N (not RT_MIN_JERK, the f32 tier's crossover), K9 below (the
-    dispatch rule of pallas_gravity.accel_jerk_x)."""
+    SYM_MIN <= N <= STREAM_N (not RT_MIN_JERK, the f32 tier's crossover),
+    chunked K7 + K16 past it, K9 below SYM_MIN (the dispatch rule of
+    pallas_gravity.accel_jerk_x)."""
     n = pos.shape[0]
-    _check_resident(0, n)      # the self-interaction has no row cap
+    if n > STREAM_N:
+        return accel_jerk_sym_x_chunked(pos, vel, mass, eps, G, guarded)
     if n >= SYM_MIN:
         return accel_jerk_sym_x(pos, vel, mass, eps, G, guarded)
     return accel_jerk_rows_x(pos, vel, pos, vel, mass, eps, G, guarded)

@@ -33,6 +33,8 @@ Families, as in the JAX package:
     ``dtype=torch.float64`` evaluates the same planes in f64, the oracle
     the kernels are compared with on the card. The extended forms return
     ``dtype``; the df forms return f64 (the two words summed).
+  * ``*_cross_pair_x_hilo`` — the extended tier on two disjoint sets in
+    one sweep, each pair once: A's action and B's reaction, in ``dtype``.
   * ``accel_extended`` / ``accel_df`` and their potential and jerk forms —
     f64 state in and out; centre once, split, rows == sources.
 """
@@ -44,11 +46,10 @@ from oc_nbody_tpu_torch.ops import gravity
 from oc_nbody_tpu_torch.ops.gravity import _inv_r, rounded
 
 
-def _ext_row_block(rhi, rlo, shi, slo, gm, eps2, guarded, want_phi=False,
-                   vhi=None, vlo=None, svhi=None, svlo=None):
-    """(accel[, phi][, jerk]) of a (B, 3) row block from all sources at the
-    extended tier, in the planes' dtype. rows (B, 3); sources (N, 3); gm
-    (N,)."""
+def _ext_sep_inv(rhi, rlo, shi, slo, eps2, guarded):
+    """(s, inv) of a (B, 3) row block against (N, 3) sources: the
+    lo-corrected separations s (three (B, N) planes) and the Newton-refined
+    inverse distance."""
     d = [shi[None, :, k] - rhi[:, k:k + 1] for k in range(3)]
     e = [slo[None, :, k] - rlo[:, k:k + 1] for k in range(3)]
     dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
@@ -56,7 +57,21 @@ def _ext_row_block(rhi, rlo, shi, slo, gm, eps2, guarded, want_phi=False,
     u = dd + (2.0 * de + eps2)
     inv = _inv_r(u) if guarded else torch.rsqrt(u)
     inv = inv * (1.5 - (0.5 * u) * (inv * inv))
-    s = [d[k] + e[k] for k in range(3)]
+    return [d[k] + e[k] for k in range(3)], inv
+
+
+def _ext_dv(vhi, vlo, svhi, svlo):
+    """The relative velocities (vhi_j - vhi_i) + (vlo_j - vlo_i)."""
+    return [(svhi[None, :, k] - vhi[:, k:k + 1])
+            + (svlo[None, :, k] - vlo[:, k:k + 1]) for k in range(3)]
+
+
+def _ext_row_block(rhi, rlo, shi, slo, gm, eps2, guarded, want_phi=False,
+                   vhi=None, vlo=None, svhi=None, svlo=None):
+    """(accel[, phi][, jerk]) of a (B, 3) row block from all sources at the
+    extended tier, in the planes' dtype. rows (B, 3); sources (N, 3); gm
+    (N,)."""
+    s, inv = _ext_sep_inv(rhi, rlo, shi, slo, eps2, guarded)
     inv2 = inv * inv
     gminv = gm[None, :] * inv
     w = gminv * inv2
@@ -64,8 +79,7 @@ def _ext_row_block(rhi, rlo, shi, slo, gm, eps2, guarded, want_phi=False,
     if want_phi:
         out.append(-torch.sum(gminv, dim=1))
     if svhi is not None:
-        dv = [(svhi[None, :, k] - vhi[:, k:k + 1])
-              + (svlo[None, :, k] - vlo[:, k:k + 1]) for k in range(3)]
+        dv = _ext_dv(vhi, vlo, svhi, svlo)
         rv = s[0] * dv[0] + s[1] * dv[1] + s[2] * dv[2]
         sc = (3.0 * rv) * w * inv2
         out.append(torch.stack(
@@ -124,6 +138,104 @@ def accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
     position and velocity planes."""
     return _rows_x((rhi, rlo), (vhi, vlo), (shi, slo), (svhi, svlo), gm, eps,
                    chunk, guarded, dtype, False)
+
+
+# --------------------------------------------------------------------------
+# extended-tier cross pairs: two DISJOINT sets A and B in one sweep, each
+# pair once, A's action and B's reaction (the chunk pairs of the chunked
+# extended self-interaction). Pre-split planes under ONE centring, as above.
+# --------------------------------------------------------------------------
+
+def _ext_cross_block(rhi, rlo, gmA, shi, slo, gmB, eps2, guarded,
+                     want_phi=False, vhi=None, vlo=None, svhi=None,
+                     svlo=None):
+    """((A's outputs), (B's reaction contributions)) of a (B, 3) block of
+    A's rows against all of B at the extended tier, in the planes' dtype;
+    each tuple (accel[, phi][, jerk])."""
+    s, inv = _ext_sep_inv(rhi, rlo, shi, slo, eps2, guarded)
+    inv2 = inv * inv
+    gminv_b = gmB[None, :] * inv
+    gminv_a = gmA[:, None] * inv
+    w_b, w_a = gminv_b * inv2, gminv_a * inv2
+
+    def both(fb, fa):
+        return (torch.stack([torch.sum(fb(k), dim=1) for k in range(3)],
+                            dim=1),
+                -torch.stack([torch.sum(fa(k), dim=0) for k in range(3)],
+                             dim=1))
+
+    acc_a, acc_b = both(lambda k: w_b * s[k], lambda k: w_a * s[k])
+    out_a, out_b = [acc_a], [acc_b]
+    if want_phi:
+        out_a.append(-torch.sum(gminv_b, dim=1))
+        out_b.append(-torch.sum(gminv_a, dim=0))
+    if svhi is not None:
+        dv = _ext_dv(vhi, vlo, svhi, svlo)
+        rv = s[0] * dv[0] + s[1] * dv[1] + s[2] * dv[2]
+        sc_b = (3.0 * rv) * w_b * inv2
+        sc_a = (3.0 * rv) * w_a * inv2
+        jerk_a, jerk_b = both(lambda k: w_b * dv[k] - sc_b * s[k],
+                              lambda k: w_a * dv[k] - sc_a * s[k])
+        out_a.append(jerk_a)
+        out_b.append(jerk_b)
+    return tuple(out_a), tuple(out_b)
+
+
+def _cross_x(a, b, vel_a, vel_b, gmA, gmB, eps, chunk, guarded, dtype,
+             want_phi):
+    """The sweep of the three ``*_cross_pair_x_hilo`` functions over A's
+    row blocks, B's reactions added block by block. ``a`` = (hi, lo) of A,
+    ``b`` of B; ``vel_a`` / ``vel_b`` the velocity planes or None. Returns
+    A's outputs, then B's."""
+    cast = lambda ts: None if ts is None else tuple(t.to(dtype) for t in ts)
+    a, b, vel_a, vel_b = cast(a), cast(b), cast(vel_a), cast(vel_b)
+    gmA, gmB = gmA.to(dtype), gmB.to(dtype)
+    eps2 = rounded(rounded(eps, dtype) ** 2, dtype)
+    n_a, n_b = a[0].shape[0], b[0].shape[0]
+    shapes = [(3,)] + ([()] if want_phi else []) \
+        + ([(3,)] if vel_a is not None else [])
+    outs_b = [a[0].new_zeros((n_b,) + s) for s in shapes]
+    blocks = []
+    for i0 in range(0, n_a, chunk):
+        sl = slice(i0, i0 + chunk)
+        vel = {} if vel_a is None else dict(
+            vhi=vel_a[0][sl], vlo=vel_a[1][sl], svhi=vel_b[0], svlo=vel_b[1])
+        out_a, out_b = _ext_cross_block(a[0][sl], a[1][sl], gmA[sl], b[0],
+                                        b[1], gmB, eps2, guarded, want_phi,
+                                        **vel)
+        blocks.append(out_a)
+        outs_b = [o + p for o, p in zip(outs_b, out_b)]
+    outs_a = [torch.cat([blk[k] for blk in blocks]) if blocks
+              else a[0].new_zeros((0,) + s) for k, s in enumerate(shapes)]
+    return (*outs_a, *outs_b)
+
+
+def accel_cross_pair_x_hilo(rAhi, rAlo, rBhi, rBlo, gmA, gmB, eps,
+                            chunk: int = 256, guarded: bool = True,
+                            dtype=torch.float32):
+    """Extended-tier (accel on A from B, accel on B from A) of two disjoint
+    sets on pre-split planes, each pair once."""
+    return _cross_x((rAhi, rAlo), (rBhi, rBlo), None, None, gmA, gmB, eps,
+                    chunk, guarded, dtype, False)
+
+
+def accel_potential_cross_pair_x_hilo(rAhi, rAlo, rBhi, rBlo, gmA, gmB, eps,
+                                      chunk: int = 256,
+                                      guarded: bool = True,
+                                      dtype=torch.float32):
+    """Extended-tier (accA, phiA, accB, phiB); the sets are disjoint, so
+    neither phi holds a self term."""
+    return _cross_x((rAhi, rAlo), (rBhi, rBlo), None, None, gmA, gmB, eps,
+                    chunk, guarded, dtype, True)
+
+
+def accel_jerk_cross_pair_x_hilo(rAhi, rAlo, vAhi, vAlo, rBhi, rBlo, vBhi,
+                                 vBlo, gmA, gmB, eps, chunk: int = 256,
+                                 guarded: bool = True, dtype=torch.float32):
+    """Extended-tier (accA, jerkA, accB, jerkB) on pre-split position and
+    velocity planes."""
+    return _cross_x((rAhi, rAlo), (rBhi, rBlo), (vAhi, vAlo), (vBhi, vBlo),
+                    gmA, gmB, eps, chunk, guarded, dtype, False)
 
 
 def accel_extended(pos, mass, eps=0.0, G=1.0, chunk: int = 1024,

@@ -96,9 +96,7 @@ def n_particles(cfg: SimConfig) -> int:
 
 
 # precision tier -> the ROADMAP item that runs it past STREAM_N particles
-_CAPPED_TIERS = {"extended": "B7: the extended tier's streamed and cross "
-                             "kernels",
-                 "df32": "B10: the df32 tier past STREAM_N"}
+_CAPPED_TIERS = {"df32": "B10: the df32 tier past STREAM_N"}
 
 
 def check_supported(cfg: SimConfig, device=None) -> None:
@@ -124,7 +122,8 @@ def check_supported(cfg: SimConfig, device=None) -> None:
         raise NotImplementedError(
             f"{n} particles at the {precision} precision tier: past STREAM_N "
             f"= {cuda_gravity.STREAM_N} that tier is not ported yet (ROADMAP "
-            f"{_CAPPED_TIERS[precision]}); the f32 tier runs any N")
+            f"{_CAPPED_TIERS[precision]}); the f32 and extended tiers run "
+            "any N")
     for path, value, item in _UNPORTED:
         got = _get(cfg, path)
         if got != value and not (got is None and value == "none"):

@@ -273,11 +273,11 @@ def test_c6_kdk_steps_through_the_chunked_route_match_jax(monkeypatch):
 
 
 def test_capped_tiers_are_refused_before_any_stepper(monkeypatch, capsys):
-    """With STREAM_N lowered to 256: ``info`` and ``run`` refuse an extended
-    or a df32 config past it (counting a binary population's extra stars)
-    with NotImplementedError from check_supported, before any IC or stepper
-    is built, and name the ROADMAP item; the f32 config is accepted, and
-    ``info`` names the chunked route at its N."""
+    """With STREAM_N lowered to 256: ``info`` and ``run`` refuse a df32
+    config past it (counting a binary population's extra stars) with
+    NotImplementedError from check_supported, before any IC or stepper is
+    built, and name the ROADMAP item (B10); the f32 and the extended config
+    are accepted, and ``info`` names each one's chunked route at its N."""
     monkeypatch.setattr(cg, "STREAM_N", 256)
 
     def built(*args, **kw):
@@ -285,19 +285,16 @@ def test_capped_tiers_are_refused_before_any_stepper(monkeypatch, capsys):
 
     monkeypatch.setattr(tscene, "build_ic", built)
     monkeypatch.setattr(tscene, "make_stepper", built)
-    for tier, item in (("extended", "B7"), ("df32", "B10")):
-        over = ["--set", "ic.n=300", "--set",
-                f"integrator.precision={tier}"]
-        assert tmain.main(["info", C6, *over]) == 0
-        assert f"does not run here: 300 particles at the {tier}" \
-            in capsys.readouterr().out
-        with pytest.raises(NotImplementedError, match=item):
-            tmain.main(["run", C6, "--device", "cpu", *over])
+    over = ["--set", "ic.n=300", "--set", "integrator.precision=df32"]
+    assert tmain.main(["info", C6, *over]) == 0
+    assert "does not run here: 300 particles at the df32" \
+        in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="B10"):
+        tmain.main(["run", C6, "--device", "cpu", *over])
     # 200 systems, 30% binaries: 260 stars, past 256
     binaries = ["--set", "ic.n=200", "--set", "ic.binary_fraction=0.3",
                 "--set", "ic.binary_a_min=0.01", "--set",
-                "ic.binary_a_max=0.02", "--set",
-                "integrator.precision=extended"]
+                "ic.binary_a_max=0.02", "--set", "integrator.precision=df32"]
     with pytest.raises(NotImplementedError, match="260 particles"):
         tmain.main(["run", C6, "--device", "cpu", *binaries])
     monkeypatch.undo()
@@ -309,4 +306,22 @@ def test_capped_tiers_are_refused_before_any_stepper(monkeypatch, capsys):
             "pair-symmetric: K2 on 1 diagonal chunks") in out
     assert tmain.main(["info", C6]) == 0
     assert ("K2 on 8 diagonal chunks of up to 131072, K12 on 28 chunk pairs"
+            in capsys.readouterr().out)
+    ext = ["--set", "integrator.precision=extended"]
+    assert tmain.main(["info", C6, "--set", "ic.n=300", *ext]) == 0
+    out = capsys.readouterr().out
+    assert "stepper: kdk LeapfrogKDK" in out
+    assert ("kernels on the card at N = 300: accel and potential: chunked "
+            "pair-symmetric: K6 on 1 diagonal chunks of up to 98304, K15 on "
+            "0 chunk pairs") in out
+    assert "pairwise precision tier: extended" in out
+    assert tmain.main(["info", C6, *ext]) == 0
+    assert ("K6 on 11 diagonal chunks of up to 98304, K15 on 55 chunk pairs"
+            in capsys.readouterr().out)
+    c4 = f"{REPO}/configs/c4_block_32k_eccentric.toml"
+    assert tmain.main(["info", c4, "--set", "ic.n=1048576", *ext]) == 0
+    assert ("accel + jerk: chunked pair-symmetric: K7 on 15 diagonal chunks "
+            "of up to 73728, K16 on 105 chunk pairs; potential: chunked "
+            "pair-symmetric: K6 on 11 diagonal chunks of up to 98304, K15 on "
+            "55 chunk pairs; active rows: K17 (compensated, any row count)"
             in capsys.readouterr().out)

@@ -33,7 +33,13 @@ at the same tolerances and repeat bitwise, also on a reused scratch buffer;
 the chunked route itself runs on the card with STREAM_N lowered. K14 (K5's
 compensated variant, rows past STREAM_N sources) is held to 2e-5 of max at
 up to 300,000 sources and 70,000 rows, repeats bitwise and gives a row the
-same bits whatever other rows share the launch.
+same bits whatever other rows share the launch. The extended tier's K15
+(cross_accel_x, with and without the raw potential), K16 (cross_jerk_x) and
+K17 (K9's compensated variant, rows past STREAM_N sources or RT_MAX_ROWS
+rows) are held to their f64 twins the same way; the extended chunked route
+runs on the card with STREAM_N lowered, and on the close-pair case with
+every pair split across chunks it stays inside the tier's bounds where the
+f32 chunked route errs past 1e-3.
 """
 import numpy as np
 import pytest
@@ -186,9 +192,18 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda, monkeypatch):
     cg.accel_jerk_cross_pair(pos[:100], vel[:100], pos[100:300],
                              vel[100:300], mass[:100], mass[100:300],
                              1.0 / 64)                  # K13
+    hi, lo, gm, vhi, vlo = gravity.prepare_x(pos64[:300], mass[:300], 1.0,
+                                             vel=vel64[:300])
+    cg.accel_cross_pair_x_hilo(hi[:100], lo[:100], hi[100:], lo[100:],
+                               gm[:100], gm[100:], 1.0 / 64)      # K15
+    cg.accel_jerk_cross_pair_x_hilo(hi[:100], lo[:100], vhi[:100], vlo[:100],
+                                    hi[100:], lo[100:], vhi[100:], vlo[100:],
+                                    gm[:100], gm[100:], 1.0 / 64)  # K16
     monkeypatch.setattr(cg, "STREAM_N", 8191)
     cg.accel_jerk_rows(pos[:64], vel[:64], pos[:8192], vel[:8192],
                        mass[:8192], 1.0 / 64)           # past STREAM_N: K14
+    cg.accel_jerk_rows_x(pos64[:64], vel64[:64], pos64[:8192], vel64[:8192],
+                         mass[:8192], 1.0 / 64)         # past STREAM_N: K17
     torch.cuda.synchronize()
     assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
     assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}
@@ -590,7 +605,7 @@ def test_extended_launchers_check_their_input(cuda):
         cg.sym_x_kernel(hi, lo[:10], gm, 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         cg.sym_jerk_x_kernel(hi, lo, hi.t().contiguous().t(), lo, gm, 0.1)
-    with pytest.raises(NotImplementedError, match="B7"):
+    with pytest.raises(NotImplementedError, match="A15"):
         big = torch.zeros((cg.STREAM_N + 1, 3), dtype=torch.float32,
                           device=cuda)
         cg.accel_rows_x_hilo(hi, lo, big, big, big[:, 0].contiguous(), 0.1)
@@ -610,6 +625,176 @@ def test_block_graphs_compaction_and_masking_agree_bitwise_extended(cuda, n):
         assert other.state.time == eager.state.time
         for a, b in zip(_carry_fields(other), _carry_fields(eager)):
             assert torch.equal(a, b)
+
+
+# ---- the extended tier past one resident set: K15-K17 ----------------------
+
+def _split_sets(nA, n, seed, device, vel=True):
+    """Planes of A (the first nA) and B (the rest) of one cluster, split
+    under ONE centring: (hiA, loA[, vhiA, vloA]), (hiB, ...), gmA, gmB."""
+    planes = _planes(n, seed, device, vel=vel)
+    hi, lo, gm = planes[:3]
+    sets = (hi, lo, *planes[3:])
+    return (tuple(p[:nA].contiguous() for p in sets),
+            tuple(p[nA:].contiguous() for p in sets),
+            gm[:nA].contiguous(), gm[nA:].contiguous())
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("nA,nB", [(1, 1), (1, 300), (127, 129), (1000, 300),
+                                   (4097, 2000)])
+def test_cross_x_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
+                                                          with_phi, eps):
+    """K15 (K15<phi>) on disjoint ragged sets against its f64 twin, both
+    sets' outputs; two launches, and a launch on a larger reused scratch
+    buffer, bitwise equal."""
+    A, B, gA, gB = _split_sets(nA, nA + nB, nA + nB + 2, cuda, vel=False)
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0)
+    out = cg.cross_x_kernel(*A, *B, gA, gB, eps, **kw)
+    again = cg.cross_x_kernel(*A, *B, gA, gB, eps, **kw)
+    big = torch.empty((cg.cross_scratch_floats(nA + 128, nB + 128),),
+                      dtype=torch.float32, device=cuda)
+    reused = cg.cross_x_kernel(*A, *B, gA, gB, eps, scratch=big, **kw)
+    ref = cg.cross_x_plain(*A, *B, gA, gB, eps, dtype=torch.float64, **kw)
+    half = len(out) // 2
+    _check_x(out[:half], ref[:half], phi=with_phi)
+    _check_x(out[half:], ref[half:], phi=with_phi)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert all(torch.equal(a, b) for a, b in zip(out, reused))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("nA,nB", [(1, 1), (1, 300), (127, 129), (1000, 300),
+                                   (4097, 2000)])
+def test_cross_jerk_x_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
+                                                               eps):
+    """K16 on disjoint ragged sets against its f64 twin; two launches
+    bitwise equal."""
+    A, B, gA, gB = _split_sets(nA, nA + nB, nA + nB + 3, cuda)
+    guarded = eps == 0.0
+    out = cg.cross_jerk_x_kernel(*A, *B, gA, gB, eps, guarded=guarded)
+    again = cg.cross_jerk_x_kernel(*A, *B, gA, gB, eps, guarded=guarded)
+    ref = cg.cross_jerk_x_plain(*A, *B, gA, gB, eps, dtype=torch.float64,
+                                guarded=guarded)
+    _check_x(out[:2], ref[:2])
+    _check_x(out[2:], ref[2:])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("jerk", [False, True])
+def test_chunked_self_interaction_x_on_cuda(cuda, monkeypatch, jerk):
+    """The extended chunked route on the card at N = 3,000 with STREAM_N
+    lowered and chunks of 1,024: K6 (K7) three times and K15 (K16) three
+    times per evaluation, no plain twin; within the tier's bounds of the
+    f64 oracle (2e-5 of max|a|, 5e-5 of max|j|, phi 5e-6 once self_phi is
+    added) and bitwise repeatable."""
+    monkeypatch.setattr(cg, "STREAM_N", 2048)
+    monkeypatch.setattr(cg, "CHUNK_SYMX", 1024)
+    monkeypatch.setattr(cg, "CHUNK_SYMXJ", 1024)
+    rng = np.random.default_rng(12)
+    pos = torch.from_numpy(rng.normal(size=(3000, 3)) + [8000.0, 0.0, 3.0])
+    vel = torch.from_numpy(rng.normal(size=(3000, 3)) * 0.5)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, 3000) / 3000)
+    pos, vel, mass = pos.to(cuda), vel.to(cuda), mass.to(cuda)
+    launches, plain = dict(cg.LAUNCHES), dict(cg.PLAIN_CALLS)
+    eps = 1.0 / 64
+    if jerk:
+        out = cg.accel_jerk_x(pos, vel, mass, eps, 1.3, False)
+        again = cg.accel_jerk_x(pos, vel, mass, eps, 1.3, False)
+        ref = gravity.accel_jerk_direct(pos, vel, mass, eps, 1.3)
+        tols = (2e-5, 5e-5)
+        keys = ("sym_jerk_x", "cross_jerk_x")
+    else:
+        out = cg.accel_potential_x(pos, mass, eps, 1.3, False)
+        again = cg.accel_potential_x(pos, mass, eps, 1.3, False)
+        ref = gravity.accel_potential_direct(pos, mass, eps, 1.3)
+        tols = (2e-5, 5e-6)
+        keys = ("sym_x", "cross_x")
+    # the raw potential holds the softened self term: self_phi cancels it
+    done = (out if jerk
+            else (out[0], out[1] + gravity.self_phi(mass, eps, 1.3)))
+    for got, want, tol in zip(done, ref, tols):
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max())
+    torch.cuda.synchronize()
+    assert all(cg.LAUNCHES[k] == launches[k] + 6 for k in keys)
+    assert cg.PLAIN_CALLS == plain
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_close_pairs_across_chunks_on_the_card(cuda, monkeypatch):
+    """The close-pair case with the two stars of every pair in different
+    chunks (chunks of 256 of N = 600, STREAM_N lowered), so that K15 and
+    K16 carry them: the extended chunked route stays inside 2e-5 of max|a|
+    and 5e-5 of max|j| of the f64 oracle, the f32 chunked route errs past
+    1e-3."""
+    monkeypatch.setattr(cg, "STREAM_N", 512)
+    for name in ("CHUNK_SYM", "CHUNK_SYMJ", "CHUNK_SYMX", "CHUNK_SYMXJ"):
+        monkeypatch.setattr(cg, name, 256)
+    rng = np.random.default_rng(7)
+    n, eps = 600, 1e-4
+    pos = rng.normal(size=(n, 3))
+    pos[300:350] = pos[:50] + 1e-5 * rng.normal(size=(50, 3))
+    pos = torch.from_numpy(pos).to(cuda)
+    vel = torch.from_numpy(0.3 * rng.normal(size=(n, 3))).to(cuda)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, n) / n).to(cuda)
+    a_ref, j_ref = gravity.accel_jerk_direct(pos, vel, mass, eps)
+
+    def rel(got, want):
+        return float(torch.linalg.norm(got - want, dim=1).max()
+                     / torch.linalg.norm(want, dim=1).max())
+
+    launches = dict(cg.LAUNCHES)
+    assert rel(cg.accel(pos, mass, eps), a_ref) > 1e-3
+    assert rel(cg.accel_x(pos, mass, eps), a_ref) < 2e-5
+    acc, jerk = cg.accel_jerk_x(pos, vel, mass, eps)
+    assert rel(acc, a_ref) < 2e-5 and rel(jerk, j_ref) < 5e-5
+    torch.cuda.synchronize()
+    for key in ("cross", "cross_x", "cross_jerk_x"):
+        assert cg.LAUNCHES[key] == launches[key] + 3
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 256])
+@pytest.mark.parametrize("nr,ns", [(1, 300), (37, 300), (1000, 40000),
+                                   (64, 300000), (70000, 70000)])
+def test_rows_jerk_x_stream_kernel_matches_plain(cuda, nr, ns, eps):
+    """K17 (K9 with Kahan steps across stages and chunks) against its f64
+    twin, 2e-5 of max past 16,384 sources; a row count past RT_MAX_ROWS;
+    two launches bitwise equal."""
+    hi, lo, gm, vhi, vlo = _planes(ns, ns + 13, cuda)
+    rows = ((hi[:nr] + 1e-3).contiguous(), lo[:nr].contiguous(),
+            (vhi[:nr] - 1e-3).contiguous(), vlo[:nr].contiguous())
+    guarded = eps == 0.0
+    args = (*rows, hi, lo, vhi, vlo, gm, eps)
+    out = cg.rows_jerk_x_stream_kernel(*args, guarded=guarded)
+    again = cg.rows_jerk_x_stream_kernel(*args, guarded=guarded)
+    ref = cg.rows_jerk_x_stream_plain(*args, dtype=torch.float64,
+                                      guarded=guarded)
+    _check_x(out, ref, tol=(2e-5, 2e-5) if ns > 16384 else (5e-6, 1e-5))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("guarded", [True, False])
+def test_rows_jerk_x_stream_rows_are_independent_of_the_launch(cuda,
+                                                               guarded):
+    """K17 gives a row the same bits alone, in a subset, or among all
+    300,000 rows, and the dispatcher takes it past either cap."""
+    hi, lo, gm, vhi, vlo = _planes(300000, 8, cuda)
+    eps = 0.0 if guarded else 1.0 / 256
+    src = (hi, lo, vhi, vlo)
+    launches = dict(cg.LAUNCHES)
+    full = cg.accel_jerk_rows_x_hilo(*src, *src, gm, eps, guarded=guarded)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["rows_jerk_x_stream"] == \
+        launches["rows_jerk_x_stream"] + 1
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    for k in (1, 64, 4095):
+        rows = torch.randperm(300000, generator=gen)[:k].to(cuda)
+        sub = cg.rows_jerk_x_stream_kernel(*(p[rows] for p in src), *src, gm,
+                                           eps, guarded=guarded)
+        for got, want in zip(sub, full):
+            assert torch.equal(got, want[rows])
 
 
 # ---- the two-float (df32) tier: K10, K11 -----------------------------------

@@ -386,8 +386,11 @@ def _ran(before):
 def test_dispatch_thresholds(monkeypatch):
     """All three extended self-interaction forms switch to the
     pair-symmetric kernel at SYM_MIN, the jerk too (the f32 jerk switches at
-    RT_MIN_JERK); past STREAM_N sources or RT_MAX_ROWS rows the port
-    refuses, naming the ROADMAP item. Thresholds lowered, not N raised."""
+    RT_MIN_JERK), and past STREAM_N to the chunked route (K6/K7's twins on
+    the diagonal chunks, K15/K16's on the chunk pairs); rows past STREAM_N
+    sources or RT_MAX_ROWS rows take K17's twin for the jerk, while the rows
+    accel forms refuse there, naming ROADMAP A15. Thresholds lowered, not N
+    raised."""
     monkeypatch.setattr(cg, "SYM_MIN", 64)
     monkeypatch.setattr(cg, "RT_MIN_JERK", 128)
     pos, vel, mass = _cluster(200, 19)
@@ -412,22 +415,35 @@ def test_dispatch_thresholds(monkeypatch):
     assert cg.RT_MAX_ROWS == pg.RT_MAX_ROWS == 65536
 
     monkeypatch.setattr(cg, "STREAM_N", 128)
-    for call in (lambda: cg.accel_x(tp, tm, EPS),
-                 lambda: cg.accel_potential_x(tp, tm, EPS),
-                 lambda: cg.accel_jerk_x(tp, tv, tm, EPS),
-                 lambda: cg.accel_jerk_rows_x(tp[:4], tv[:4], tp, tv, tm,
-                                              EPS)):
-        with pytest.raises(NotImplementedError, match="B7"):
+    monkeypatch.setattr(cg, "CHUNK_SYMX", 64)
+    monkeypatch.setattr(cg, "CHUNK_SYMXJ", 64)
+    for calls, want in (
+            ((lambda: cg.accel_x(tp, tm, EPS),
+              lambda: cg.accel_potential_x(tp, tm, EPS)),
+             {"sym_x", "cross_x"}),
+            ((lambda: cg.accel_jerk_x(tp, tv, tm, EPS),),
+             {"sym_jerk_x", "cross_jerk_x"}),
+            ((lambda: cg.accel_jerk_rows_x(tp[:4], tv[:4], tp, tv, tm, EPS),),
+             {"rows_jerk_x_stream"})):
+        before = dict(cg.PLAIN_CALLS)
+        for call in calls:
             call()
+        assert _ran(before) == want
+    before = dict(cg.PLAIN_CALLS)
     cg.accel_x(tp[:128], tm[:128], EPS)     # at STREAM_N: resident
+    assert _ran(before) == {"rows_x"}
     monkeypatch.setattr(cg, "STREAM_N", 262144)
     monkeypatch.setattr(cg, "RT_MAX_ROWS", 16)
     hi, lo, gm = tgrav.prepare_x(tp, tm, 1.0)
-    with pytest.raises(NotImplementedError, match="RT_MAX_ROWS"):
+    with pytest.raises(NotImplementedError, match="A15"):
         cg.accel_rows_x_hilo(hi[:17].contiguous(), lo[:17].contiguous(), hi,
                              lo, gm, EPS)
     cg.accel_rows_x_hilo(hi[:16].contiguous(), lo[:16].contiguous(), hi, lo,
                          gm, EPS)
+    for nr, want in ((16, {"rows_jerk_x"}), (17, {"rows_jerk_x_stream"})):
+        before = dict(cg.PLAIN_CALLS)
+        cg.accel_jerk_rows_x(tp[:nr], tv[:nr], tp, tv, tm, EPS)
+        assert _ran(before) == want
     # the row cap is the rows forms' alone: a pair-symmetric
     # self-interaction of more particles than RT_MAX_ROWS runs (c5x's
     # 131,072 against 65,536)
@@ -446,7 +462,7 @@ def test_wrappers_refuse_mixed_devices_and_count_only_plain_on_cpu():
     cg.accel_x(tp, tm, EPS)
     cg.accel_jerk_x(tp, tv, tm, EPS)
     assert cg.LAUNCHES == launches        # no kernel on CPU tensors
-    assert set(cg.LAUNCHES) == set(cg.PLAIN_CALLS) and len(cg.LAUNCHES) == 14
+    assert set(cg.LAUNCHES) == set(cg.PLAIN_CALLS) and len(cg.LAUNCHES) == 17
     hi, lo, gm = tgrav.prepare_x(tp, tm, 1.0)
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         cg.accel_rows_x_hilo(hi, lo, hi.to("meta"), lo, gm, EPS)

@@ -333,8 +333,8 @@ def test_cli_info_and_refusals(capsys):
                     "integrator.macro_batches=4"])
     with pytest.raises(NotImplementedError, match="A14"):
         tmain.main(["run", C1, "--device", "cpu", "--set", "ic.kind=dehnen"])
-    # the precision tiers: extended and df32 run, what lies past the
-    # resident kernels is refused by name
+    # the precision tiers: extended and df32 run; past the resident kernels
+    # the extended tier goes chunked and the df32 tier is refused by name
     assert tmain.main(["info", C5X]) == 0
     out = capsys.readouterr().out
     assert "pairwise precision tier: extended; diagnostics potential: f64" \
@@ -353,8 +353,12 @@ def test_cli_info_and_refusals(capsys):
     assert t_make_force_model(0.01, precision="df32").precision == "df32"
     with pytest.raises(ValueError, match="unknown precision"):
         t_make_force_model(0.01, precision="f16")
-    with pytest.raises(NotImplementedError, match="B7"):
-        tmain.main(["run", C5X, "--device", "cpu", "--set", "ic.n=262145"])
+    assert tmain.main(["info", C5X, "--set", "ic.n=262145"]) == 0
+    assert ("N = 262145: accel and potential: chunked pair-symmetric: K6 on "
+            "3 diagonal chunks" in capsys.readouterr().out)
+    with pytest.raises(NotImplementedError, match="B10"):
+        tmain.main(["run", C5X, "--device", "cpu", "--set", "ic.n=262145",
+                    "--set", "integrator.precision=df32"])
     with pytest.raises(NotImplementedError, match="A17"):
         tmain.main(["run", C5X, "--device", "cpu", "--set",
                     "mesh.n_devices=4"])
