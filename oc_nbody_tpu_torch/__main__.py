@@ -4,7 +4,9 @@ The JAX package's ``run`` and ``info`` commands with ``--set a.b=v``
 overrides, plus ``--device cuda|cpu`` (default cuda; with no card it
 raises rather than fall back). ``info`` also prints the stepper the config
 builds, at the f32 and the extended tier the kernels it runs on the card
-at the config's N, and its pairwise precision tier; a config the port does
+at the config's N (under escape pruning also the two sweeps' kernels at
+the smallest and the largest cluster bucket), and its pairwise precision
+tier; a config the port does
 not run yet is reported as such (NotImplementedError from
 ``check_supported``).
 ``--resume`` and ``ensemble`` are not ported yet and raise.
@@ -13,6 +15,24 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+
+def _print_pruned_route(cfg, n, kind, precision):
+    """The pruned evaluation's kernels at the smallest and the largest
+    cluster bucket this config can build."""
+    from oc_nbody_tpu_torch.ops import cuda_gravity
+    smallest = max(int(cfg.escape.min_bucket), 1)
+    largest = 1
+    while 4 * largest < n:        # the largest power of two B with 2B < N
+        largest *= 2
+    print("escape pruning: the cluster bucket B is the next power of two at "
+          "or above the cluster's size, at least min_bucket = "
+          f"{cfg.escape.min_bucket}, and under N/2 (B <= {largest}); while "
+          "the cluster is larger, the unpruned route runs")
+    for b in sorted({smallest, largest}):
+        if 2 * b < n:
+            print(f"  pruned at B = {b}: "
+                  f"{cuda_gravity.route_pruned(n, b, kind, precision)}")
 
 
 def main(argv=None):
@@ -68,6 +88,8 @@ def main(argv=None):
             n = n_particles(cfg)
             print(f"kernels on the card at N = {n}: "
                   f"{cuda_gravity.route(n, kind, force.precision)}")
+            if cfg.escape.prune:
+                _print_pruned_route(cfg, n, kind, force.precision)
         print(f"pairwise precision tier: {force.precision}; diagnostics "
               f"potential: {'f64' if cfg.output.diag_f64 else 'the tier'}")
         return 0
@@ -75,10 +97,14 @@ def main(argv=None):
     from oc_nbody_tpu_torch.run import run
 
     result = run(cfg, device=args.device, resume=args.resume)
-    drift = max(abs(float(x)) for x in result.diagnostics["dE_over_E_int"])
+    d = result.diagnostics
+    drift = max(abs(float(x)) for x in d["dE_over_E_int"])
+    cons = (f" max|dE_cons/E_int|="
+            f"{max(abs(float(x)) for x in d['dE_cons_over_E_int']):.3e}"
+            if "dE_cons_over_E_int" in d else "")
     per_step = result.phase_s.get("advance", 0.0) / max(1, result.n_steps)
     print(f"done: t={result.state.time:.6g} steps={result.n_steps} "
-          f"wall={result.wall_time_s:.1f}s max|dE/E_int|={drift:.3e} "
+          f"wall={result.wall_time_s:.1f}s max|dE/E_int|={drift:.3e}{cons} "
           f"advance={per_step:.6g} s/step")
     return 0
 

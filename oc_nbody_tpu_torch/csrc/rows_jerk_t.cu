@@ -33,49 +33,27 @@
 // per block from device memory (or L2) for 32 rows, and the partial sums
 // are 24 bytes per row and chunk, so bytes never bind: the FMA pipe does.
 //
-// Design: two passes, no atomics, fixed summation order.
-//   Pass 1, grid (row tiles of kRows, source chunks). The sources are cut
-//     into chunks whose size depends on ns alone (chunk_size()). A block of
-//     kRows x kLanes threads takes kRows rows and one chunk: it stages the
-//     chunk in shared memory kStage sources at a time, as float4(x, y, z,
-//     G m) and float4(vx, vy, vz, 0). Thread (lane l, row r) sums the
-//     sources l, l + kLanes, l + 2 kLanes, ... of each stage serially into
-//     its six sums (K14: into a stage partial, then Kahan into its sums);
-//     the 32 threads of a warp share l, so each shared read is a broadcast.
-//     The kLanes sums of a row are then added in lane order, and the row's
-//     six chunk partials are stored to scratch.
-//   Pass 2, one thread per (row, component): the chunk partials summed in
-//     chunk order (K14: by Kahan steps).
-// Every row's arithmetic depends only on its own position and velocity and
-// on the sources: the chunk boundaries, the lane split and both orders are
-// fixed by ns. So a row's result is bitwise the same whatever other rows
-// share the launch (a compacted active set and the masked full set agree),
-// and two launches agree bitwise. At nr = 64 and ns = 32,768 the first pass
-// runs 2 x 128 blocks of 256 threads. Past STREAM_N there are 128 chunks
-// and the scratch is 6 x 128 x nr floats, 3.2 GB at nr = 1,048,576; every
-// scratch offset is 64-bit.
+// Design: the source-split layout of rows_split.cuh (two passes, no
+// atomics, fixed summation order). Pass 1 stages the chunk as float4(x, y,
+// z, G m) and float4(vx, vy, vz, 0); each thread sums its sources into its
+// six sums (K14: into a stage partial, then Kahan into its sums); pass 2
+// adds the chunk partials (K14: by Kahan steps). A row's result does not
+// depend on the launch's other rows, so a compacted active set and the
+// masked full set agree. At nr = 64 and ns = 32,768 the first pass runs
+// 2 x 128 blocks of 256 threads. Past STREAM_N there are 128 chunks and the
+// scratch is 6 x 128 x nr floats, 3.2 GB at nr = 1,048,576.
 //
 // The ragged last stage is masked by the loop bound; rows past nr compute
 // and store nothing, so no input is padded.
 
-#include "pair.cuh"
+#include "rows_split.cuh"
 
 namespace {
 
-constexpr int kRows = 32;    // rows per block: one warp's lanes
-constexpr int kLanes = 8;    // source lanes per row: one warp each
-constexpr int kThreads = kRows * kLanes;
-constexpr int kStage = kThreads;  // sources staged in shared memory per step
-constexpr int kMinChunk = 256;    // sources per chunk at ns <= kMaxChunks * 256
-constexpr int kMaxChunks = 128;
-
-// Sources per chunk: kMinChunk, doubled until at most kMaxChunks chunks
-// cover ns. A function of ns alone.
-inline int chunk_size(int ns) {
-  int c = kMinChunk;
-  while (static_cast<long long>(c) * kMaxChunks < ns) c *= 2;
-  return c;
-}
+using ocn::split::kLanes;
+using ocn::split::kRows;
+using ocn::split::kStage;
+using ocn::split::kThreads;
 
 template <bool GUARDED, bool COMP>
 __global__ void __launch_bounds__(kThreads)
@@ -131,71 +109,26 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
-  red[lane][0][r] = a.x;
-  red[lane][1][r] = a.y;
-  red[lane][2][r] = a.z;
-  red[lane][3][r] = jk.x;
-  red[lane][4][r] = jk.y;
-  red[lane][5][r] = jk.z;
-  __syncthreads();
-  // six warps each add one component's kLanes sums in lane order
-  if (lane < 6 && live) {
-    float t = red[0][lane][r];
-#pragma unroll
-    for (int l = 1; l < kLanes; ++l) t += red[l][lane][r];
-    // scratch planes: part[(c * 6 + component) * nr + row]
-    part[(static_cast<long long>(c) * 6 + lane) * nr + i] = t;
-  }
-}
-
-template <bool COMP>
-__global__ void rows_jerk_t_reduce(const float* __restrict__ part, int nr,
-                                   int nchunks, float* __restrict__ acc,
-                                   float* __restrict__ jerk) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (t >= 6LL * nr) return;
-  const int k = static_cast<int>(t / nr);
-  const int i = static_cast<int>(t % nr);
-  float s = 0.f, comp = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < nchunks; ++c) {
-    const float p = part[(static_cast<long long>(c) * 6 + k) * nr + i];
-    if (COMP)
-      ocn::kahan_add(s, comp, p);
-    else
-      s += p;
-  }
-  if (k < 3)
-    acc[3 * i + k] = s;
-  else
-    jerk[3 * i + k - 3] = s;
+  const float v[6] = {a.x, a.y, a.z, jk.x, jk.y, jk.z};
+  ocn::split::store_partials<6>(red, v, lane, r, live, c, nr, i, part);
 }
 
 template <bool GUARDED, bool COMP>
 void launch(const float* rows, const float* vrows, int nr, const float* src,
             const float* svel, const float* mass, int ns, float G, float eps2,
             float* part, float* acc, float* jerk, cudaStream_t s) {
-  const int chunk = chunk_size(ns);
-  const int nchunks = (ns + chunk - 1) / chunk;
-  const dim3 grid((nr + kRows - 1) / kRows, nchunks);
-  rows_jerk_t_partial<GUARDED, COMP><<<grid, kThreads, 0, s>>>(
-      rows, vrows, nr, src, svel, mass, ns, chunk, G, eps2, part);
-  constexpr int kReduceThreads = 256;
-  const long long work = 6LL * nr;
-  const int blocks = static_cast<int>((work + kReduceThreads - 1) /
-                                      kReduceThreads);
-  rows_jerk_t_reduce<COMP><<<blocks, kReduceThreads, 0, s>>>(part, nr, nchunks,
-                                                             acc, jerk);
+  rows_jerk_t_partial<GUARDED, COMP>
+      <<<ocn::split::partial_grid(nr, ns), kThreads, 0, s>>>(
+          rows, vrows, nr, src, svel, mass, ns, ocn::split::chunk_size(ns), G,
+          eps2, part);
+  ocn::split::launch_reduce<6, COMP, false>(part, nr, ns, acc, jerk, s);
 }
 
 }  // namespace
 
 // Floats of scratch the launch needs: six per row and source chunk.
 extern "C" long long ocn_rows_jerk_t_scratch(int nr, int ns) {
-  const int chunk = chunk_size(ns);
-  const long long nchunks = (ns + chunk - 1) / chunk;
-  return 6LL * nchunks * nr;
+  return ocn::split::scratch_floats(nr, ns, 6);
 }
 
 // rows, vrows (nr, 3), src, svel (ns, 3), mass (ns,), acc and jerk (nr, 3)

@@ -28,6 +28,23 @@ so the ladder is not ported. ``n_buckets = 0`` keeps the masked full-row
 evaluation (every row evaluated, the inactive results discarded); any
 other value compacts.
 
+Escape pruning. Under a pruned force model (``ForceModel.with_sources``)
+the active rows keep the JAX package's contract (its ``_eval_active`` with
+the membership, ``ForceModel.accel_jerk_on_rows`` with ``rows_mask``):
+cluster rows against all sources, tail rows against the cluster bucket.
+The JAX package chooses among all-cluster, all-tail and mixed steps with a
+``lax.switch`` and pays both sweeps on every row of a mixed step. Here the
+micro-step's one read carries the active cluster count too, the compaction
+orders the active cluster rows first and the active tail rows after them,
+and each group is launched on exactly its own rows: a step pays rows x N for
+its cluster rows and rows x B for its tail rows, never both for one row. A
+row's force does not depend on the other rows of its launch, so the result
+is the JAX package's. The bucket and the rows in its frame are formed in
+``_pre`` with the sources; under CUDA graphs the partition lives in buffers
+of the graphs (``_StepGraphs.load_sources``), so a re-partition of the same
+bucket size replays the same graphs and a new bucket size captures new
+ones.
+
 Rung selector. ``_rung_from_float`` picks the largest power of two <= x
 exactly (``torch.frexp``). The JAX package takes floor(jnp.log2(x)), which
 rounds down at some exact powers of two (floor(log2(8.0)) is 2 on
@@ -52,6 +69,12 @@ _AUX_KEYS = ("acc", "jerk", "a_ext", "j_ext", "t_i", "dt_i", "t_origin",
 
 def _norm(x):
     return torch.sqrt(torch.sum(x * x, dim=-1))
+
+
+def _pruned(force) -> bool:
+    """Whether ``force`` carries an escape-pruning partition (a force
+    model without the attribute, as the tests' direct sums, does not)."""
+    return getattr(force, "pruned", False)
 
 
 def _interp_derivs(a0, j0, a1, j1, h, inv_h2, inv_h3):
@@ -165,28 +188,52 @@ class BlockHermite:
     # kernels, bound by launching them.
 
     def _pre(self, force, t_i, dt_i, pos, vel, acc, jerk, mass):
-        """Enqueued without a sync: (sched = [t_next, n_active] int64,
-        t_next 0-d, active mask, compaction order or None when masked,
-        predicted xp and vp of every particle, the centred sources as the
-        force model's pair kernels take them: f32 casts, at the extended
-        tier the eight hi/lo planes, split here once per micro-step, at the
-        df32 tier the f64 predictions themselves)."""
+        """Enqueued without a sync: (sched = [t_next, n_active] int64, with
+        the active cluster count appended under pruning, t_next 0-d, active
+        mask, compaction order or None when masked, predicted xp and vp of
+        every particle, the centred sources as the force model's pair
+        kernels take them: f32 casts, at the extended tier the eight hi/lo
+        planes, split here once per micro-step, at the df32 tier the f64
+        predictions themselves; under pruning also ``_sources``' pruned
+        operands, else None)."""
         tn = t_i + dt_i
         t_next = torch.min(tn)
         active = tn == t_next
-        sched = torch.stack([t_next, torch.sum(active)])
-        idx = (torch.argsort((~active).to(torch.uint8), stable=True)
-               if self.n_buckets else None)
+        if _pruned(force):
+            # active cluster rows first, then active tail rows, then the rest
+            member = force.src_mask >= 0.5
+            sched = torch.stack([t_next, torch.sum(active),
+                                 torch.sum(active & member)])
+            key = ((~active).to(torch.uint8) * 2
+                   + (active & ~member).to(torch.uint8))
+        else:
+            sched = torch.stack([t_next, torch.sum(active)])
+            key = (~active).to(torch.uint8)
+        idx = torch.argsort(key, stable=True) if self.n_buckets else None
         # predict ALL particles to t_next (O(N))
         d = ((t_next - t_i).to(torch.float64) * self.dt_min)[:, None]
         d2, d3 = d * d, d * d * d
         xp = pos + d * vel + (d2 / 2) * acc + (d3 / 6) * jerk
         vp = vel + d * acc + (d2 / 2) * jerk
-        sources = force.centred_sources(xp, vp, mass)[:-2]
-        return sched, t_next, active, idx, xp, vp, sources
+        sources, psrc = self._sources(force, xp, vp, mass)
+        return sched, t_next, active, idx, xp, vp, sources, psrc
 
     @staticmethod
-    def _pair(force, sources, idx, n_active, out=None):
+    def _sources(force, xp, vp, mass):
+        """(sources, psrc): the sources as ``centred_sources`` gives them,
+        without the centres, and under pruning (rows, bucket, member) — every
+        particle's planes in the bucket's frame, the bucket's sources
+        (``ForceModel.pruned_row_sources``) and the cluster membership as a
+        bool mask — else None."""
+        sources = force.centred_sources(xp, vp, mass)[:-2]
+        if not _pruned(force):
+            return sources, None
+        rows, bucket = force.pruned_row_sources(xp, vp, mass)
+        return sources, (rows, bucket, force.src_mask >= 0.5)
+
+    @staticmethod
+    def _pair(force, sources, idx, n_active, out=None, psrc=None,
+              n_cluster=None):
         """Pairwise (a, j) as one (2, N, 3) tensor in the pair sum's dtype
         (f32; f64 at the df32 tier): of the active rows and zero elsewhere
         (compacted), or of every row (masked, ``idx`` None). ``out``, if
@@ -194,21 +241,39 @@ class BlockHermite:
         are the particles' planes (position and velocity; hi and lo of each
         at the extended tier) and, last, their masses. A row centred (and
         split) by its gather from the sources' planes is the row centred on
-        its own, bit for bit."""
+        its own, bit for bit.
+
+        Under pruning ``psrc`` is ``_sources``' (rows, bucket, member) and
+        ``n_cluster`` the count of active cluster rows, which ``idx`` puts
+        first: they take the sources, the active tail rows after them the
+        bucket (the masked form evaluates every row both ways and keeps
+        each row's own)."""
         planes = sources[:-1]
         if out is None:
             out = torch.zeros((2,) + tuple(planes[0].shape),
                               dtype=planes[0].dtype, device=planes[0].device)
         if idx is None:
             a, j = force.pair_accel_jerk_rows(*planes, *sources)
+            if psrc is not None:
+                brows, bucket, member = psrc
+                a_t, j_t = force.pair_accel_jerk_rows(*brows, *bucket)
+                a = torch.where(member[:, None], a, a_t)
+                j = torch.where(member[:, None], j, j_t)
             out[0].copy_(a)
             out[1].copy_(j)
             return out
-        rows = idx[:n_active]
-        a_r, j_r = force.pair_accel_jerk_rows(*(p[rows] for p in planes),
-                                              *sources)
-        out[0].index_copy_(0, rows, a_r)
-        out[1].index_copy_(0, rows, j_r)
+        groups = [(idx[:n_active], planes, sources)]
+        if psrc is not None:
+            brows, bucket, _ = psrc
+            groups = [(idx[:n_cluster], planes, sources),
+                      (idx[n_cluster:n_active], brows, bucket)]
+        for rows, rplanes, srcs in groups:
+            if rows.shape[0] == 0:
+                continue
+            a_r, j_r = force.pair_accel_jerk_rows(
+                *(p[rows] for p in rplanes), *srcs)
+            out[0].index_copy_(0, rows, a_r)
+            out[1].index_copy_(0, rows, j_r)
         return out
 
     def _corrector(self, h, pos, vel, a0, j0, a1, j1):
@@ -220,15 +285,15 @@ class BlockHermite:
     def _recorrect(self, force, active, xp, vp, pair, pos, vel, acc, jerk,
                    dt_i, mass):
         """PEC²'s part between the two force evaluations: correct the
-        active rows with the first evaluation and return (xe, ve, sources),
-        the state the second evaluation sees (inactive particles keep their
-        prediction) and its sources as ``_pre`` gives them."""
+        active rows with the first evaluation and return (xe, ve, sources,
+        psrc), the state the second evaluation sees (inactive particles
+        keep their prediction) and its sources as ``_pre`` gives them."""
         h = (dt_i.to(torch.float64) * self.dt_min)[:, None]
         a1, j1, _, _ = self._total(force, xp, vp, pair)
         x1, v1 = self._corrector(h, pos, vel, acc, jerk, a1, j1)
         am = active[:, None]
         xe, ve = torch.where(am, x1, xp), torch.where(am, v1, vp)
-        return xe, ve, force.centred_sources(xe, ve, mass)[:-2]
+        return (xe, ve, *self._sources(force, xe, ve, mass))
 
     def _total(self, force, xe, ve, pair):
         """(a1, j1, a_ext1, j_ext1): total force at the evaluation state,
@@ -280,12 +345,26 @@ class BlockHermite:
         return carry.t_i.device.type == "cuda"
 
     def _graphs(self, carry: BlockCarry) -> "_StepGraphs":
-        key = (carry.t_i.device, carry.state.n)
+        """The graphs of this carry's shape and, under pruning, bucket size
+        (captured on first use; a new key drops the old graphs), loaded
+        with the force model's partition."""
+        bucket = (self.force.src_idx.shape[0] if _pruned(self.force)
+                  else None)
+        key = (carry.t_i.device, carry.state.n, bucket)
         g = self._graph_cache.get(key)
         if g is None:
             self._graph_cache.clear()
             g = self._graph_cache[key] = _StepGraphs(self, carry)
+        g.load_sources(self.force)
         return g
+
+    def with_force(self, force: ForceModel) -> "BlockHermite":
+        """This stepper with another force model (a re-partition of escape
+        pruning), sharing the captured graphs: a partition of the same
+        bucket size replays them."""
+        new = dataclasses.replace(self, force=force)
+        object.__setattr__(new, "_graph_cache", self._graph_cache)
+        return new
 
     def _micro_step(self, carry: BlockCarry, t_end_int=None, known=None):
         """One micro-step, or None when ``t_end_int`` is given and the next
@@ -296,15 +375,18 @@ class BlockHermite:
             g = self._graphs(carry)
             g.load(carry)
             g.pre.replay()
-            sched, _, _, idx, xp, _, sources = g.pre_out
-            t_next, n_active = known or sched.tolist()  # the one read
+            sched, _, _, idx, xp, _, sources, psrc = g.pre_out
+            t_next, n_active, *n_cl = known or sched.tolist()  # the one read
             if t_end_int is not None and t_next > t_end_int:
                 return None
+            n_cl = n_cl[0] if n_cl else None
             force = self.force.at_time(carry.t_origin + t_next * self.dt_min)
-            self._pair(force, sources, idx, n_active, out=g.pair)
+            self._pair(force, sources, idx, n_active, out=g.pair, psrc=psrc,
+                       n_cluster=n_cl)
             if self.pec2:
                 g.mid.replay()
-                self._pair(force, g.mid_out[2], idx, n_active, out=g.pair)
+                self._pair(force, g.mid_out[2], idx, n_active, out=g.pair,
+                           psrc=g.mid_out[3], n_cluster=n_cl)
             g.post.replay()
             f, i = g.f64.clone(), g.i64.clone()
             pos, vel, acc, jerk, a_ext, j_ext = f.unbind(0)
@@ -312,23 +394,26 @@ class BlockHermite:
             g.last = self._carry(carry, t_next, n_active, pos, vel, acc, jerk,
                                  a_ext, j_ext, t_i, dt_i)
             return g.last
-        sched, t_dev, active, idx, xp, vp, sources = self._pre(
+        sched, t_dev, active, idx, xp, vp, sources, psrc = self._pre(
             self.force, carry.t_i, carry.dt_i, s.pos, s.vel, carry.acc,
             carry.jerk, s.mass)
-        t_next, n_active = known or sched.tolist()      # the one read
+        t_next, n_active, *n_cl = known or sched.tolist()  # the one read
         if t_end_int is not None and t_next > t_end_int:
             return None
+        n_cl = n_cl[0] if n_cl else None
         # every evaluation of this micro-step happens at physical t_next
         force = self.force.at_time(carry.t_origin + t_next * self.dt_min)
-        pair = self._pair(force, sources, idx, n_active)
+        pair = self._pair(force, sources, idx, n_active, psrc=psrc,
+                          n_cluster=n_cl)
         xe, ve = xp, vp
         if self.pec2:
             # re-evaluate at the corrected active rows (inactive sources
             # keep their prediction, as pass 1 saw them), correct once more
-            xe, ve, sources = self._recorrect(
+            xe, ve, sources, psrc = self._recorrect(
                 force, active, xp, vp, pair, s.pos, s.vel, carry.acc,
                 carry.jerk, carry.dt_i, s.mass)
-            pair = self._pair(force, sources, idx, n_active)
+            pair = self._pair(force, sources, idx, n_active, psrc=psrc,
+                              n_cluster=n_cl)
         out = self._finish(force, t_dev, active, xe, ve, pair, s.pos, s.vel,
                            carry.acc, carry.jerk, carry.a_ext, carry.j_ext,
                            carry.t_i, carry.dt_i)
@@ -346,11 +431,14 @@ class BlockHermite:
     def step(self, carry: BlockCarry) -> BlockCarry:
         return self._micro_step(carry)
 
-    def step_known(self, carry: BlockCarry, t_next: int,
-                   n_active: int) -> BlockCarry:
-        """``step`` with (t_next, n_active) known on the host already: the
-        same device work without the read (to measure the read's cost)."""
-        return self._micro_step(carry, known=(t_next, n_active))
+    def step_known(self, carry: BlockCarry, t_next: int, n_active: int,
+                   n_cluster=None) -> BlockCarry:
+        """``step`` with (t_next, n_active) known on the host already (and
+        under pruning the active cluster count): the same device work
+        without the read (to measure the read's cost)."""
+        known = ((t_next, n_active) if n_cluster is None
+                 else (t_next, n_active, n_cluster))
+        return self._micro_step(carry, known=known)
 
     # ---- driving ------------------------------------------------------
     def _t_end_int(self, carry: BlockCarry, t_end) -> int:
@@ -443,12 +531,23 @@ class _StepGraphs:
     carry once and clones two buffers per micro-step for the carry it
     returns. ``pair`` is the (2, N, 3) buffer, in the pair sum's dtype, that
     the eager pairwise force fills between the replays; ``pre`` zeroes it,
-    and pec2's second evaluation overwrites the same active rows."""
+    and pec2's second evaluation overwrites the same active rows. Under
+    pruning the partition (the bucket's indices and weights, the
+    membership) lives in three more buffers, which the captured force model
+    reads; ``load_sources`` copies a new partition of the same bucket size
+    into them."""
 
     def __init__(self, stepper: BlockHermite, carry: BlockCarry):
         s = carry.state
         dev = carry.t_i.device
         force = stepper.force.at_time(s.time)   # static fields only
+        self.partition = None
+        self._partition_of = None
+        if _pruned(force):
+            self.partition = tuple(torch.empty_like(t) for t in (
+                force.src_idx, force.src_wgt, force.src_mask))
+            self.load_sources(force)
+            force = force.with_sources(*self.partition)
         self.f64 = torch.empty((6, s.n, 3), dtype=torch.float64, device=dev)
         self.i64 = torch.empty((2, s.n), dtype=torch.int64, device=dev)
         self.mass = torch.empty_like(s.mass)
@@ -467,14 +566,14 @@ class _StepGraphs:
         def mid(pre_out):
             if not stepper.pec2:
                 return None
-            _, _, active, _, xp, vp, _ = pre_out
+            _, _, active, _, xp, vp, _, _ = pre_out
             return stepper._recorrect(force, active, xp, vp, self.pair, pos,
                                       vel, acc, jerk, dt_i, self.mass)
 
         def post(pre_out, mid_out):
-            _, t_next, active, _, xe, ve, _ = pre_out
+            _, t_next, active, _, xe, ve, _, _ = pre_out
             if mid_out is not None:
-                xe, ve, _ = mid_out
+                xe, ve, _, _ = mid_out
             out = stepper._finish(force, t_next, active, xe, ve, self.pair,
                                   pos, vel, acc, jerk, a_ext, j_ext, t_i,
                                   dt_i)
@@ -501,6 +600,16 @@ class _StepGraphs:
                 self.mid_out = mid(self.pre_out)
         with torch.cuda.graph(self.post, pool=self.pre.pool()):
             post(self.pre_out, self.mid_out)
+
+    def load_sources(self, force) -> None:
+        """Copy ``force``'s partition into the graphs' buffers unless they
+        hold it already."""
+        if self.partition is None or force.src_idx is self._partition_of:
+            return
+        for buf, t in zip(self.partition, (force.src_idx, force.src_wgt,
+                                           force.src_mask)):
+            buf.copy_(t)
+        self._partition_of = force.src_idx
 
     def load(self, carry: BlockCarry, force: bool = False) -> None:
         """Copy the carry into the buffers unless they hold it already."""

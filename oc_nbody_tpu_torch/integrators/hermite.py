@@ -216,6 +216,11 @@ class Hermite4:
             carry = self._exec_step(carry, t_end - carry.state.time)
         return carry
 
+    def with_force(self, force: ForceModel):
+        """This stepper with another force model (a re-partition of escape
+        pruning)."""
+        return dataclasses.replace(self, force=force)
+
     def reached(self, carry: HermiteCarry, t_end: float) -> bool:
         te = float(t_end)
         return carry.state.time >= te - 1e-14 * abs(te) - 1e-300

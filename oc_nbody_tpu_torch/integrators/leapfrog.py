@@ -72,6 +72,11 @@ class LeapfrogKDK:
             carry = self.step(carry)
         return carry
 
+    def with_force(self, force: ForceModel):
+        """This stepper with another force model (a re-partition of escape
+        pruning)."""
+        return dataclasses.replace(self, force=force)
+
     def reached(self, carry: KDKCarry, t_end: float) -> bool:
         return carry.state.time >= _stop_time(float(t_end))
 

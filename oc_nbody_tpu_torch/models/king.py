@@ -162,9 +162,11 @@ def king(n: int, w0: float, seed: int = 0, total_mass: float = 1.0,
 
 def _potential_energy_np(pos, m, chunk: int = 512):
     """Exact (unsoftened, f64) pairwise PE of host arrays, through the
-    port's blocked plain op on the CPU."""
+    port's blocked plain op on the CPU: ``gravity.potential``, whose phi is
+    ``accel_potential``'s bit for bit without the acceleration sums (1.7x
+    faster on the CPU; O(N^2), over a minute at N = 65,536)."""
     pos_t = torch.from_numpy(np.asarray(pos, np.float64))
     m_t = torch.from_numpy(np.asarray(m, np.float64))
-    _, phi = gravity.accel_potential(pos_t, m_t, 0.0, 1.0,
-                                     compute_dtype=torch.float64, chunk=chunk)
+    phi = gravity.potential(pos_t, m_t, 0.0, 1.0,
+                            compute_dtype=torch.float64, chunk=chunk)
     return 0.5 * float(torch.sum(m_t * phi))

@@ -1,6 +1,6 @@
 """The pairwise force on the card: hand-written CUDA kernels for Hopper
 (``sm_90a``), each beside its plain PyTorch twin. This module holds the f32
-tier (K1-K5, K12-K14) and the extended tier (K6-K9, K15-K17) and builds the
+tier (K1-K5, K12-K14, K18) and the extended tier (K6-K9, K15-K17, K19) and builds the
 one library all kernels live in; the two-float tier's K10 and K11 are wrapped
 in ``ops/cuda_df.py``.
 
@@ -29,6 +29,16 @@ in ``ops/cuda_df.py``.
     across source stages and chunks) — accel + jerk of any number of rows
     from more than ``STREAM_N`` sources. Replaces
     ``_accel_jerk_stream_kernel`` (pallas_gravity.py:586).
+  * K18 ``csrc/rows_accel_t.cu`` — one-sided accel, optional potential,
+    of few rows from many sources, the sources split over blocks as in K5;
+    a row's bits do not depend on the other rows of the launch. Replaces
+    ``_accel_kernel_t`` / ``_sweep_t_accel`` and ``_accel_phi_kernel_t`` /
+    ``_sweep_t_phi`` (pallas_gravity.py:857, :763, :913, :869).
+  * K18<comp>, K18's compensated variant (the same source, Kahan steps
+    across source stages and chunks on the accel and on the potential) —
+    rows from more than ``STREAM_N`` sources. Replaces
+    ``_accel_stream_kernel`` and ``_accel_phi_stream_kernel``
+    (pallas_gravity.py:419, :495).
 
 and the extended (hi/lo) precision tier, on pre-split f32 planes:
 
@@ -56,11 +66,18 @@ and the extended (hi/lo) precision tier, on pre-split f32 planes:
     across source stages and chunks) — accel + jerk of rows from more than
     ``STREAM_N`` sources, or of more than ``RT_MAX_ROWS`` rows. Replaces
     ``_accel_jerk_stream_kernel_x`` (pallas_gravity.py:1415).
+  * K19 ``csrc/rows_accel_xs.cu`` — one-sided accel, optional raw
+    potential, of rows from sources with Kahan steps across source stages
+    and chunks, in K17's layout — past ``STREAM_N`` sources or
+    ``RT_MAX_ROWS`` rows. Replaces ``_accel_stream_kernel_x`` and
+    ``_accel_phi_stream_kernel_x`` (pallas_gravity.py:1361, :1384).
 
 The public wrappers keep the signatures and return contracts of
 ``oc_nbody_tpu.ops.pallas_gravity``: ``accel_rows`` and
 ``accel_potential_rows`` take centred f32 rows and sources and return f32
-(the rows potential includes the softened self term); ``accel_sym``,
+(the rows potential includes the softened self term; K18<comp> past
+``STREAM_N`` sources at any row count, K18 from ``RT_MIN_ACCEL`` sources
+with at most ``RT_MAX_ROWS`` rows, K1 otherwise); ``accel_sym``,
 ``accel_potential_sym``, ``accel`` and ``accel_potential`` take the state's
 positions, centre and cast them, and return the positions' dtype with the
 self term removed from the potential. ``accel_jerk_rows`` takes centred f32
@@ -99,18 +116,19 @@ or K7 on the diagonal chunks and K15 or K16 on the chunk pairs);
 ``accel_cross_pair_x_hilo`` & co. are the disjoint-set forms on pre-split
 planes.
 ``accel_jerk_rows_x_hilo`` takes K17 past ``STREAM_N`` sources or
-``RT_MAX_ROWS`` rows. The rows accel forms (``accel_rows_x_hilo``,
-``accel_potential_rows_x_hilo``) stream there in the JAX package (#13,
-#14), reached only by pruning and sharding; the port raises
-NotImplementedError there (ROADMAP A15).
+``RT_MAX_ROWS`` rows, and the rows accel forms (``accel_rows_x_hilo``,
+``accel_potential_rows_x_hilo``) take K19 there, K8 otherwise; escape
+pruning reaches both. ``rows_route`` names the kernel every rows-vs-sources
+call takes, and ``route`` the kernels of a run, pruned or not.
 
 A wrapper launches its kernel for CUDA tensors and calls the plain twin
 (``rows_plain``, ``sym_plain``, ``rows_jerk_plain``, ``sym_jerk_plain``,
 ``rows_jerk_t_plain``, ``rows_jerk_stream_plain``, ``cross_plain``,
-``cross_jerk_plain``, built on ``ops/gravity.py``; ``rows_x_plain``,
-``sym_x_plain``, ``rows_jerk_x_plain``, ``sym_jerk_x_plain``,
-``cross_x_plain``, ``cross_jerk_x_plain``, ``rows_jerk_x_stream_plain``,
-built on ``ops/df32.py``) for CPU tensors; there
+``cross_jerk_plain``, built on
+``ops/gravity.py``; ``rows_x_plain``, ``sym_x_plain``,
+``rows_jerk_x_plain``, ``sym_jerk_x_plain``, ``cross_x_plain``,
+``cross_jerk_x_plain``, ``rows_jerk_x_stream_plain``,
+``rows_x_stream_plain``, built on ``ops/df32.py``) for CPU tensors; there
 is no fallback from one to the other. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls
 of the plain twins, so a run can show which one it went through.
 
@@ -145,6 +163,11 @@ SYM_MIN = 8192
 # between K4 and K5 is measured by chip_smoke.py, not used here.
 RT_MIN_JERK = 16384
 RT_MAX_ROWS = 65536
+# The same for the rows accel forms: K18 over K1 from RT_MIN_ACCEL sources,
+# up to RT_MAX_ROWS rows (the TPU's crossover, pallas_gravity.py:726; the
+# H100's is not measured; chip_smoke.py times K1 beside K18 at escape
+# pruning's shapes).
+RT_MIN_ACCEL = 32768
 # Largest N the resident sym kernels take (pallas_gravity.py:2233-2276);
 # past it the self-interaction is chunked and rows against more sources
 # take K14 (K17 at the extended tier). The df32 tier stops here
@@ -164,19 +187,21 @@ CHUNK_SYMXJ = 73728
 _KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
             "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df",
             "cross", "cross_jerk", "rows_jerk_stream", "cross_x",
-            "cross_jerk_x", "rows_jerk_x_stream")
+            "cross_jerk_x", "rows_jerk_x_stream", "rows_t", "rows_stream",
+            "rows_x_stream")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
-_HEADERS = ("pair.cuh", "df.cuh")
+_HEADERS = ("pair.cuh", "rows_split.cuh", "df.cuh")
 _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
             "rows_accel_x.cu", "rows_jerk_x.cu", "rows_accel_df.cu",
             "rows_jerk_df.cu", "df_selftest.cu", "cross_accel.cu",
-            "cross_jerk.cu", "cross_accel_x.cu", "cross_jerk_x.cu")
+            "cross_jerk.cu", "cross_accel_x.cu", "cross_jerk_x.cu",
+            "rows_accel_t.cu", "rows_accel_xs.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -304,6 +329,16 @@ def _library():
         lib.ocn_cross_jerk_x.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i,
                                          f, i, p, p, p, p, p, p]
         lib.ocn_cross_jerk_x.restype = i
+        lib.ocn_rows_accel_t.argtypes = [p, i, p, p, i, f, f, i, i, p, p, p,
+                                         p]
+        lib.ocn_rows_accel_t.restype = i
+        lib.ocn_rows_accel_t_scratch.argtypes = [i, i, i]
+        lib.ocn_rows_accel_t_scratch.restype = ctypes.c_longlong
+        lib.ocn_rows_accel_xs.argtypes = [p, p, i, p, p, p, i, f, i, p, p, p,
+                                          p]
+        lib.ocn_rows_accel_xs.restype = i
+        lib.ocn_rows_accel_xs_scratch.argtypes = [i, i, i]
+        lib.ocn_rows_accel_xs_scratch.restype = ctypes.c_longlong
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]
@@ -354,11 +389,13 @@ def _stream(t) -> int:
 # --------------------------------------------------------------------------
 
 def rows_plain(rows, src, mass, eps, G=1.0, with_phi=False,
-               dtype=torch.float32, chunk=1024):
+               dtype=torch.float32, chunk=1024, key="rows"):
     """K1's function in plain PyTorch, computed in ``dtype`` (f64: the
     oracle the kernel is held to on the card). Returns acc, or (acc, phi)
-    with the self term kept, in ``dtype``."""
-    PLAIN_CALLS["rows"] += 1
+    with the self term kept, in ``dtype``. It is K18's and K18<comp>'s
+    function too, counted under ``key`` ("rows_t", "rows_stream"; its f32
+    sum is not compensated, the f64 one is the oracle)."""
+    PLAIN_CALLS[key] += 1
     rows, src, mass = rows.to(dtype), src.to(dtype), mass.to(dtype)
     fn = gravity.accel_potential_rows if with_phi else gravity.accel_rows
     return fn(rows, src, mass, eps, G, chunk)
@@ -486,6 +523,16 @@ def rows_jerk_x_stream_plain(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm,
                                        svlo, gm, eps, chunk, guarded, dtype)
 
 
+def rows_x_stream_plain(rhi, rlo, shi, slo, gm, eps, with_phi=False,
+                        dtype=torch.float32, chunk=256, guarded=True):
+    """K19's function in plain PyTorch: K8's function, counted apart (its
+    f32 sum is not compensated; the f64 one is the oracle)."""
+    PLAIN_CALLS["rows_x_stream"] += 1
+    fn = (df32.accel_potential_rows_x_hilo if with_phi
+          else df32.accel_rows_x_hilo)
+    return fn(rhi, rlo, shi, slo, gm, eps, chunk, guarded, dtype)
+
+
 def cross_x_plain(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
                   dtype=torch.float32, chunk=256, guarded=True):
     """K15's function in plain PyTorch on the same (hi, lo) planes, computed
@@ -548,6 +595,47 @@ def rows_kernel(rows, src, mass, eps, G=1.0, with_phi=False, guarded=True):
         phi.data_ptr() if with_phi else None, _stream(rows))
     LAUNCHES["rows"] += 1
     _check_launch(lib, code, "rows_accel")
+    return (acc, phi) if with_phi else acc
+
+
+def rows_t_kernel(rows, src, mass, eps, G=1.0, with_phi=False,
+                  guarded=True):
+    """Launch K18 (both passes) on centred f32 CUDA tensors; the same
+    contract as ``rows_plain``."""
+    return _rows_accel_t_launch("rows_t", False, rows, src, mass, eps, G,
+                                with_phi, guarded)
+
+
+def rows_stream_kernel(rows, src, mass, eps, G=1.0, with_phi=False,
+                       guarded=True):
+    """Launch K18<comp>, K18 with Kahan steps across source stages and
+    chunks, on centred f32 CUDA tensors; the same contract as
+    ``rows_plain``."""
+    return _rows_accel_t_launch("rows_stream", True, rows, src, mass, eps, G,
+                                with_phi, guarded)
+
+
+def _rows_accel_t_launch(key, compensated, rows, src, mass, eps, G, with_phi,
+                         guarded):
+    nr, ns = rows.shape[0], src.shape[0]
+    _check_f32("pos_rows", rows, (nr, 3))
+    _check_f32("src_pos", src, (ns, 3))
+    _check_f32("src_mass", mass, (ns,))
+    lib = _library()
+    dev = rows.device
+    scratch = torch.empty((lib.ocn_rows_accel_t_scratch(nr, ns,
+                                                        int(with_phi)),),
+                          dtype=torch.float32, device=dev)
+    acc = torch.empty((nr, 3), dtype=torch.float32, device=dev)
+    phi = (torch.empty((nr,), dtype=torch.float32, device=dev)
+           if with_phi else None)
+    code = lib.ocn_rows_accel_t(
+        rows.data_ptr(), nr, src.data_ptr(), mass.data_ptr(), ns, _f32(G),
+        _f32(_f32(eps) ** 2), int(guarded), int(compensated),
+        scratch.data_ptr(), acc.data_ptr(),
+        phi.data_ptr() if with_phi else None, _stream(rows))
+    LAUNCHES[key] += 1
+    _check_launch(lib, code, key)
     return (acc, phi) if with_phi else acc
 
 
@@ -751,6 +839,32 @@ def rows_x_kernel(rhi, rlo, shi, slo, gm, eps, with_phi=False, guarded=True):
     return (acc, phi) if with_phi else acc
 
 
+def rows_x_stream_kernel(rhi, rlo, shi, slo, gm, eps, with_phi=False,
+                         guarded=True):
+    """Launch K19 (both passes) on (hi, lo) f32 CUDA planes; the same
+    contract as ``rows_x_stream_plain``."""
+    nr, ns = rhi.shape[0], shi.shape[0]
+    _check_planes(nr, rows_hi=rhi, rows_lo=rlo)
+    _check_planes(ns, src_hi=shi, src_lo=slo)
+    _check_f32("gm", gm, (ns,))
+    lib = _library()
+    dev = rhi.device
+    scratch = torch.empty((lib.ocn_rows_accel_xs_scratch(nr, ns,
+                                                         int(with_phi)),),
+                          dtype=torch.float32, device=dev)
+    acc = torch.empty((nr, 3), dtype=torch.float32, device=dev)
+    phi = (torch.empty((nr,), dtype=torch.float32, device=dev)
+           if with_phi else None)
+    code = lib.ocn_rows_accel_xs(
+        rhi.data_ptr(), rlo.data_ptr(), nr, shi.data_ptr(), slo.data_ptr(),
+        gm.data_ptr(), ns, _f32(_f32(eps) ** 2), int(guarded),
+        scratch.data_ptr(), acc.data_ptr(),
+        phi.data_ptr() if with_phi else None, _stream(rhi))
+    LAUNCHES["rows_x_stream"] += 1
+    _check_launch(lib, code, "rows_x_stream")
+    return (acc, phi) if with_phi else acc
+
+
 def sym_x_kernel(hi, lo, gm, eps, with_phi=False, guarded=True,
                  scratch=None):
     """Launch K6 (both passes) on (hi, lo) f32 CUDA planes; the same
@@ -899,24 +1013,60 @@ def cross_jerk_x_kernel(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
 # public wrappers (pallas_gravity's signatures and return contracts)
 # --------------------------------------------------------------------------
 
+def rows_route(nr: int, ns: int, jerk: bool = False,
+               extended: bool = False) -> str:
+    """The launch-counter key of the kernel a rows-vs-sources call of ``nr``
+    rows against ``ns`` sources takes: the accel forms (with or without the
+    potential) or the accel + jerk form (``jerk``), at the f32 or the
+    ``extended`` tier. The JAX package's rule (pallas_gravity.py:156-168,
+    :248-256, :350-360, :1461, :1524, :1596): at the f32 tier the
+    compensated streamed kernel past STREAM_N sources at any row count, the
+    source-split kernel from RT_MIN_ACCEL (RT_MIN_JERK) sources up to
+    RT_MAX_ROWS rows, the one-thread-per-row kernel otherwise; at the
+    extended tier the compensated kernel past STREAM_N sources or
+    RT_MAX_ROWS rows."""
+    if extended:
+        big = ns > STREAM_N or nr > RT_MAX_ROWS
+        if jerk:
+            return "rows_jerk_x_stream" if big else "rows_jerk_x"
+        return "rows_x_stream" if big else "rows_x"
+    if ns > STREAM_N:
+        return "rows_jerk_stream" if jerk else "rows_stream"
+    if nr <= RT_MAX_ROWS and ns >= (RT_MIN_JERK if jerk else RT_MIN_ACCEL):
+        return "rows_jerk_t" if jerk else "rows_t"
+    return "rows_jerk" if jerk else "rows"
+
+
+# rows_route's f32 accel keys -> kernel (the plain twin is rows_plain)
+_ROWS_ACCEL = {"rows": rows_kernel, "rows_t": rows_t_kernel,
+               "rows_stream": rows_stream_kernel}
+
+
+def _accel_rows(pos_rows, src_pos, src_mass, eps, G, guarded, with_phi):
+    key = rows_route(pos_rows.shape[0], src_pos.shape[0])
+    if _on_cuda(pos_rows, src_pos, src_mass):
+        return _ROWS_ACCEL[key](pos_rows, src_pos, src_mass, eps, G,
+                                with_phi, guarded)
+    return rows_plain(pos_rows, src_pos, src_mass, eps, G, with_phi=with_phi,
+                      key=key)
+
+
 def accel_rows(pos_rows, src_pos, src_mass, eps, G=1.0, chunk: int = 0,
                guarded: bool = True):
     """Accel on centred f32 rows from centred f32 sources; f32 out.
-    ``chunk`` is accepted for the pallas_gravity signature and ignored."""
-    if _on_cuda(pos_rows, src_pos, src_mass):
-        return rows_kernel(pos_rows, src_pos, src_mass, eps, G, False,
-                           guarded)
-    return rows_plain(pos_rows, src_pos, src_mass, eps, G)
+    K18<comp> (compensated) past STREAM_N sources at any row count; K18 for
+    RT_MIN_ACCEL <= sources with at most RT_MAX_ROWS rows; K1 otherwise
+    (``rows_route``). ``chunk`` is accepted for the pallas_gravity signature
+    and ignored."""
+    return _accel_rows(pos_rows, src_pos, src_mass, eps, G, guarded, False)
 
 
 def accel_potential_rows(pos_rows, src_pos, src_mass, eps, G=1.0,
                          chunk: int = 0, guarded: bool = True):
     """(accel, phi) on rows; phi includes the softened self term where rows
-    overlap sources (the caller adds ``self_phi``)."""
-    if _on_cuda(pos_rows, src_pos, src_mass):
-        return rows_kernel(pos_rows, src_pos, src_mass, eps, G, True,
-                           guarded)
-    return rows_plain(pos_rows, src_pos, src_mass, eps, G, with_phi=True)
+    overlap sources (the caller adds ``self_phi``). The dispatch rule of
+    ``accel_rows``."""
+    return _accel_rows(pos_rows, src_pos, src_mass, eps, G, guarded, True)
 
 
 def accel_sym(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
@@ -1127,14 +1277,12 @@ def accel_jerk_rows(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps,
     RT_MIN_JERK <= sources with at most RT_MAX_ROWS rows; K4 otherwise (the
     dispatch rule of pallas_gravity.accel_jerk_rows). ``chunk`` is accepted
     for the pallas_gravity signature and ignored."""
-    ns = src_pos.shape[0]
     on_cuda = _on_cuda(pos_rows, vel_rows, src_pos, src_vel, src_mass)
-    if ns > STREAM_N:
-        launch, plain = rows_jerk_stream_kernel, rows_jerk_stream_plain
-    elif ns >= RT_MIN_JERK and pos_rows.shape[0] <= RT_MAX_ROWS:
-        launch, plain = rows_jerk_t_kernel, rows_jerk_t_plain
-    else:
-        launch, plain = rows_jerk_kernel, rows_jerk_plain
+    launch, plain = {
+        "rows_jerk_stream": (rows_jerk_stream_kernel, rows_jerk_stream_plain),
+        "rows_jerk_t": (rows_jerk_t_kernel, rows_jerk_t_plain),
+        "rows_jerk": (rows_jerk_kernel, rows_jerk_plain),
+    }[rows_route(pos_rows.shape[0], src_pos.shape[0], jerk=True)]
     if on_cuda:
         return launch(pos_rows, vel_rows, src_pos, src_vel, src_mass, eps, G,
                       guarded)
@@ -1205,40 +1353,71 @@ def route(n: int, kind: str = "kdk", precision: str = "f32") -> str:
     return line
 
 
+# rows_route's keys -> the kernels' names in this module's docstring
+KERNEL_LABEL = {"rows": "K1", "rows_t": "K18", "rows_stream": "K18<comp>",
+                "rows_jerk": "K4", "rows_jerk_t": "K5",
+                "rows_jerk_stream": "K14", "rows_x": "K8",
+                "rows_x_stream": "K19", "rows_jerk_x": "K9",
+                "rows_jerk_x_stream": "K17"}
+
+
+def route_pruned(n: int, bucket: int, kind: str = "kdk",
+                 precision: str = "f32") -> str:
+    """The kernels of an escape-pruned evaluation at N = n with a cluster
+    bucket of ``bucket`` sources: sweep 1 (all n rows against the bucket)
+    and sweep 2 (the bucket's rows against all n sources), in the accel
+    form under KDK and for the diagnostics potential, in the accel + jerk
+    form under Hermite and block steps; under block steps the active rows
+    take sweep 2's jerk kernel when they are cluster members and the
+    bucket's when they are tail stars (``rows_route`` at one row)."""
+    ext = precision == "extended"
+
+    def sweeps(jerk):
+        one = KERNEL_LABEL[rows_route(n, bucket, jerk, ext)]
+        two = KERNEL_LABEL[rows_route(bucket, n, jerk, ext)]
+        return (f"sweep 1 ({n} rows x {bucket} bucket sources) {one}, "
+                f"sweep 2 ({bucket} rows x {n} sources) {two}")
+
+    if kind == "kdk":
+        return f"accel and potential: {sweeps(False)}"
+    line = f"accel + jerk: {sweeps(True)}; potential: {sweeps(False)}"
+    if kind == "block":
+        line += (f"; active rows: cluster rows x all sources "
+                 f"{KERNEL_LABEL[rows_route(1, n, True, ext)]}, tail rows x "
+                 f"the bucket {KERNEL_LABEL[rows_route(1, bucket, True, ext)]}")
+    return line
+
+
 # --------------------------------------------------------------------------
 # the extended (hi/lo) tier: pallas_gravity's *_x and *_x_hilo functions
 # --------------------------------------------------------------------------
 
-def _check_resident(nr: int, ns: int) -> None:
-    if ns > STREAM_N or nr > RT_MAX_ROWS:
-        raise NotImplementedError(
-            f"{nr} rows against {ns} sources: past STREAM_N = {STREAM_N} "
-            f"sources or RT_MAX_ROWS = {RT_MAX_ROWS} rows the extended "
-            "tier's rows accel streams its sources (the JAX package's "
-            "_accel_stream_kernel_x and _accel_phi_stream_kernel_x), which "
-            "only escape pruning and sharding reach and which are not "
-            "ported yet (ROADMAP A15)")
+def _accel_rows_x(rhi, rlo, shi, slo, gm, eps, guarded, with_phi):
+    big = rows_route(rhi.shape[0], shi.shape[0],
+                     extended=True) == "rows_x_stream"
+    launch, plain = ((rows_x_stream_kernel, rows_x_stream_plain) if big
+                     else (rows_x_kernel, rows_x_plain))
+    if _on_cuda(rhi, rlo, shi, slo, gm):
+        return launch(rhi, rlo, shi, slo, gm, eps, with_phi, guarded)
+    return plain(rhi, rlo, shi, slo, gm, eps, with_phi=with_phi,
+                 guarded=guarded)
 
 
 def accel_rows_x_hilo(rhi, rlo, shi, slo, gm, eps, guarded: bool = True):
     """Extended-tier accel of rows from sources on pre-split (hi, lo) f32
-    planes (one centring for both sets); f32 out (K8)."""
-    _check_resident(rhi.shape[0], shi.shape[0])
-    if _on_cuda(rhi, rlo, shi, slo, gm):
-        return rows_x_kernel(rhi, rlo, shi, slo, gm, eps, False, guarded)
-    return rows_x_plain(rhi, rlo, shi, slo, gm, eps, guarded=guarded)
+    planes (one centring for both sets); f32 out. K19 (compensated) past
+    STREAM_N sources or RT_MAX_ROWS rows, K8 otherwise (the dispatch rule of
+    pallas_gravity.accel_rows_x_hilo)."""
+    return _accel_rows_x(rhi, rlo, shi, slo, gm, eps, guarded, False)
 
 
 def accel_potential_rows_x_hilo(rhi, rlo, shi, slo, gm, eps,
                                 guarded: bool = True):
     """Extended-tier (accel, raw phi) of rows from sources on pre-split
-    planes; f32 out (K8). With eps > 0 phi includes the softened self term
-    of a row that is also a source (the caller adds ``self_phi``)."""
-    _check_resident(rhi.shape[0], shi.shape[0])
-    if _on_cuda(rhi, rlo, shi, slo, gm):
-        return rows_x_kernel(rhi, rlo, shi, slo, gm, eps, True, guarded)
-    return rows_x_plain(rhi, rlo, shi, slo, gm, eps, with_phi=True,
-                        guarded=guarded)
+    planes; f32 out, the dispatch rule of ``accel_rows_x_hilo``. With eps >
+    0 phi includes the softened self term of a row that is also a source
+    (the caller adds ``self_phi``)."""
+    return _accel_rows_x(rhi, rlo, shi, slo, gm, eps, guarded, True)
 
 
 def accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
@@ -1249,7 +1428,8 @@ def accel_jerk_rows_x_hilo(rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm, eps,
     pallas_gravity.accel_jerk_rows_x_hilo)."""
     planes = (rhi, rlo, vhi, vlo, shi, slo, svhi, svlo, gm)
     on_cuda = _on_cuda(*planes)
-    if shi.shape[0] > STREAM_N or rhi.shape[0] > RT_MAX_ROWS:
+    if rows_route(rhi.shape[0], shi.shape[0], jerk=True,
+                  extended=True) == "rows_jerk_x_stream":
         launch, plain = rows_jerk_x_stream_kernel, rows_jerk_x_stream_plain
     else:
         launch, plain = rows_jerk_x_kernel, rows_jerk_x_plain

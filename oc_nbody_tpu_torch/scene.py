@@ -6,7 +6,8 @@ optionally a primordial binary population, isolated or on a circular or
 eccentric (optionally inclined) orbit in the analytic Milky Way,
 integrated with fixed-dt KDK, shared-dt Hermite-4 or block timesteps on one
 device, at the f32, the extended (hi/lo) or the two-float (df32) pairwise
-precision tier. Every other config value is refused
+precision tier, optionally with escape pruning (``escape.prune``, the f32
+and extended tiers; run.py). Every other config value is refused
 with the ROADMAP item that ports it, so a config never runs as something it
 does not say.
 """
@@ -44,7 +45,6 @@ _UNPORTED = (
     ("potential.gas.kind", "none", "A14 (time-dependent fields)"),
     ("friction.kind", "none", "A14 (dynamical friction)"),
     ("sev.kind", "none", "A14 (stellar evolution)"),
-    ("escape.prune", False, "A15 (escape pruning)"),
     ("ic.vel_scale", 1.0, "A8 (scene options)"),
     ("ic.rotation", 0.0, "A14 (models/rotation.py)"),
     ("ic.segregation", 0.0, "A14 (models/segregation.py)"),

@@ -14,7 +14,9 @@ CPU.
   * a short block + extended + pec2 run of a cluster with embedded circular
     pairs keeps every pair's semi-major axis to 5e-4 and puts the pairs on
     the deepest rungs, as ``tests/physics/test_block_binary.py`` asks of the
-    JAX package.
+    JAX package;
+  * on binaries_8k's IC as the JAX package draws it, both packages'
+    ``orbital_elements`` read every pair bound at t = 0 (ROADMAP fault C3).
 """
 import os
 
@@ -271,3 +273,59 @@ def test_block_extended_pec2_keeps_embedded_pairs():
     assert float(e1.max()) < 0.02
     occ = block.rung_occupancy(carry).numpy()
     assert occ[6:].sum() >= 38 and occ[:4].sum() >= 100, occ
+
+
+def test_binaries_8k_pairs_read_bound_at_t0_in_both_packages():
+    """ROADMAP fault C3: 4.3% of binaries_8k's 2,458 pairs read unbound
+    (two-body a < 0 or e >= 1) by t = 0.125 at every tier on the card. On
+    the IC the JAX package draws (its scene's ``build_ic``), carried
+    across, both packages' ``orbital_elements`` read every pair bound, with
+    the same elements: the IC and the element code agree. What the run does
+    to the pairs is the widest pairs' neighbourhood: 13% of the pairs reach
+    apocentre beyond their nearest third star at t = 0 (26% beyond half of
+    it), where two-body elements ignore a perturber inside the orbit."""
+    import dataclasses
+    from oc_nbody_tpu import config as jconfig
+    from oc_nbody_tpu import scene as jscene
+    cfg = jconfig.load_config(BIN)
+    us = jscene.build_units(cfg)
+    ic = cfg.ic
+    singles = jscene.build_ic(dataclasses.replace(
+        cfg, ic=dataclasses.replace(ic, binary_fraction=0.0)), us)
+    pop = jbin.add_binaries(
+        singles, jax.random.fold_in(jax.random.PRNGKey(ic.seed), 0x42494E),
+        fraction=ic.binary_fraction, a_min=ic.binary_a_min,
+        a_max=ic.binary_a_max, G=us.G, q_min=ic.binary_q_min,
+        e_max=ic.binary_e_max)
+    js = pop.state
+    assert js.pos.shape[0] == 10650 and pop.primary_idx.shape[0] == 2458
+    i, j = np.asarray(pop.primary_idx), np.asarray(pop.secondary_idx)
+    pos, vel = np.asarray(js.pos), np.asarray(js.vel)
+    m = np.asarray(js.mass).astype(np.float64)
+    gm = us.G * (m[i] + m[j])
+    ja, je = (np.asarray(x) for x in jbin.orbital_elements(
+        pos[i] - pos[j], vel[i] - vel[j], gm))
+    ts = state_from_numpy(pos, vel, np.asarray(js.mass), np.asarray(js.ids),
+                          0.0, "cpu")
+    ti, tj = torch.from_numpy(i.copy()).long(), torch.from_numpy(
+        j.copy()).long()
+    ta, te = tbin.orbital_elements(ts.pos[ti] - ts.pos[tj],
+                                   ts.vel[ti] - ts.vel[tj],
+                                   torch.from_numpy(gm))
+    np.testing.assert_allclose(ta.numpy(), ja, rtol=1e-12)
+    np.testing.assert_allclose(te.numpy(), je, rtol=0, atol=1e-12)
+    bound_j = float(np.mean((ja > 0) & (je < 1)))
+    bound_t = float(((ta > 0) & (te < 1)).double().mean())
+    assert bound_t == bound_j == 1.0
+    # the pairs' neighbourhood at t = 0: apocentre against the distance
+    # from the pair's centre of mass to the nearest other star
+    mi, mj = torch.from_numpy(m[i])[:, None], torch.from_numpy(m[j])[:, None]
+    com = (ts.pos[ti] * mi + ts.pos[tj] * mj) / (mi + mj)
+    d = torch.cdist(com, ts.pos)
+    rows = torch.arange(len(i))
+    d[rows, ti] = np.inf
+    d[rows, tj] = np.inf
+    near = d.min(dim=1).values.numpy()
+    apo = ja * (1.0 + je)
+    assert 0.10 < float(np.mean(apo > near)) < 0.16
+    assert 0.20 < float(np.mean(apo > 0.5 * near)) < 0.32

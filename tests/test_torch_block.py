@@ -141,7 +141,8 @@ def test_accel_jerk_on_rows_matches_jax():
     the raw rows) against the JAX package's f32 jnp path, to the f32 pair
     tolerances of max|pairwise a| and |j|; the stepper's split path (rows
     gathered from the centred sources, the field added apart) gives the
-    same numbers; rows_mask (pruning) is refused."""
+    same numbers; an unpruned model ignores rows_mask (the pruning
+    membership), as the JAX package's does."""
     pos, vel, mass, ids = numpy_plummer(256, seed=13)
     pos, vel, jext, text = _c4_orbit(pos, vel, mass, ids)
     rows = np.sort(np.random.default_rng(1).choice(256, 37, replace=False))
@@ -163,9 +164,10 @@ def test_accel_jerk_on_rows_matches_jax():
     a1, j1, _, _ = stepper._total(tf, p64, v64, pair)
     for g, w in ((a1[idx], got[0]), (j1[idx], got[1])):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-14, atol=0)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tf.accel_jerk_on_rows(p64, v64, p64, v64, m32,
-                              rows_mask=torch.ones(256))
+    masked = tf.accel_jerk_on_rows(p64[rows], v64[rows], p64, v64, m32,
+                                   rows_mask=torch.zeros(len(rows)))
+    for g, w in zip(masked, got):
+        assert torch.equal(g, w)
 
 
 def test_accel_jerk_on_rows_extended_matches_jax(monkeypatch):

@@ -39,7 +39,12 @@ K17 (K9's compensated variant, rows past STREAM_N sources or RT_MAX_ROWS
 rows) are held to their f64 twins the same way; the extended chunked route
 runs on the card with STREAM_N lowered, and on the close-pair case with
 every pair split across chunks it stays inside the tier's bounds where the
-f32 chunked route errs past 1e-3.
+f32 chunked route errs past 1e-3. Escape pruning's K18 (rows_accel_t, and
+its compensated form K18<comp>) and K19 (rows_accel_xs) are held to their
+f64 twins the same way, repeat bitwise and give a row the same bits
+whatever other rows share the launch; past STREAM_N their Kahan steps are
+shown to work: K18<comp> and K19 err at most 5e-7 of max|a| and at most a
+third of what their layout errs without them.
 """
 import numpy as np
 import pytest
@@ -199,11 +204,18 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda, monkeypatch):
     cg.accel_jerk_cross_pair_x_hilo(hi[:100], lo[:100], vhi[:100], vlo[:100],
                                     hi[100:], lo[100:], vhi[100:], vlo[100:],
                                     gm[:100], gm[100:], 1.0 / 64)  # K16
+    monkeypatch.setattr(cg, "RT_MIN_ACCEL", 16384)
+    cg.accel_rows(pos[:64], pos, mass, 1.0 / 64)        # rows: K18
     monkeypatch.setattr(cg, "STREAM_N", 8191)
     cg.accel_jerk_rows(pos[:64], vel[:64], pos[:8192], vel[:8192],
                        mass[:8192], 1.0 / 64)           # past STREAM_N: K14
     cg.accel_jerk_rows_x(pos64[:64], vel64[:64], pos64[:8192], vel64[:8192],
                          mass[:8192], 1.0 / 64)         # past STREAM_N: K17
+    cg.accel_potential_rows(pos[:64], pos[:8192], mass[:8192],
+                            1.0 / 64)                   # K18<comp>
+    monkeypatch.setattr(cg, "RT_MAX_ROWS", 63)
+    cg.accel_rows_x_hilo(hi[:64], lo[:64], hi, lo, gm,
+                         1.0 / 64)                      # past it: K19
     torch.cuda.synchronize()
     assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
     assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}
@@ -605,10 +617,14 @@ def test_extended_launchers_check_their_input(cuda):
         cg.sym_x_kernel(hi, lo[:10], gm, 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         cg.sym_jerk_x_kernel(hi, lo, hi.t().contiguous().t(), lo, gm, 0.1)
-    with pytest.raises(NotImplementedError, match="A15"):
-        big = torch.zeros((cg.STREAM_N + 1, 3), dtype=torch.float32,
-                          device=cuda)
-        cg.accel_rows_x_hilo(hi, lo, big, big, big[:, 0].contiguous(), 0.1)
+    # past STREAM_N sources the rows accel form takes K19 (zero masses: a
+    # zero force)
+    big = torch.zeros((cg.STREAM_N + 1, 3), dtype=torch.float32, device=cuda)
+    launches = cg.LAUNCHES["rows_x_stream"]
+    out = cg.accel_rows_x_hilo(hi, lo, big, big, big[:, 0].contiguous(), 0.1)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["rows_x_stream"] == launches + 1
+    assert not bool(out.any())
 
 
 @pytest.mark.parametrize("n", [4096, 16384])
@@ -795,6 +811,179 @@ def test_rows_jerk_x_stream_rows_are_independent_of_the_launch(cuda,
                                            eps, guarded=guarded)
         for got, want in zip(sub, full):
             assert torch.equal(got, want[rows])
+
+
+# ---- escape pruning: K18 (and K18<comp>) and K19 ---------------------------
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 256])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("comp", [False, True])
+@pytest.mark.parametrize("nr,ns", [(1, 300), (37, 4097), (1000, 40000),
+                                   (4096, 65536), (70000, 300000)])
+def test_rows_t_kernel_matches_plain(cuda, nr, ns, comp, with_phi, eps):
+    """K18 (compensated or not) against its f64 twin: 5e-6 of max|a| up to
+    16,384 sources, 2e-5 past them (PERF.md section 2), phi rtol 3e-5; two
+    launches bitwise equal."""
+    src, mass = _cluster(ns, ns + 17, cuda)
+    rows = (src[torch.arange(nr, device=cuda) % ns] + 0.01).contiguous()
+    launch = cg.rows_stream_kernel if comp else cg.rows_t_kernel
+    args = (rows, src, mass, eps, 1.3, with_phi)
+    out = launch(*args, guarded=eps == 0.0)
+    again = launch(*args, guarded=eps == 0.0)
+    ref = cg.rows_plain(*args, dtype=torch.float64, chunk=256)
+    out, again, ref = ((x if with_phi else (x,)) for x in (out, again, ref))
+    tol = 2e-5 if ns > 16384 else 5e-6
+    err = float((out[0].double() - ref[0]).abs().max())
+    assert out[0].dtype == torch.float32
+    assert err <= tol * float(ref[0].abs().max())
+    if with_phi:
+        torch.testing.assert_close(out[1].double(), ref[1], rtol=3e-5,
+                                   atol=0.0)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("comp", [False, True])
+def test_rows_t_rows_are_independent_of_the_launch(cuda, comp):
+    """K18 gives a row the same bits alone, in a subset, or among all
+    rows, with and without the potential (the pruned scatter writes the
+    bucket's padding rows twice and needs them equal)."""
+    n = 300000 if comp else 65536
+    src, mass = _cluster(n, 21, cuda)
+    launch = cg.rows_stream_kernel if comp else cg.rows_t_kernel
+    rows_all = src[:8192].contiguous()
+    full = launch(rows_all, src, mass, 1.0 / 256, with_phi=True,
+                  guarded=False)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    for k in (1, 64, 4095):
+        rows = torch.randperm(8192, generator=gen)[:k].to(cuda)
+        sub = launch(rows_all[rows].contiguous(), src, mass, 1.0 / 256,
+                     with_phi=True, guarded=False)
+        for got, want in zip(sub, full):
+            assert torch.equal(got, want[rows])
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 256])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("nr,ns", [(1, 300), (37, 4097), (70000, 4096),
+                                   (64, 300000)])
+def test_rows_x_stream_kernel_matches_plain(cuda, nr, ns, with_phi, eps):
+    """K19 against the f64 evaluation of the same (hi, lo) planes: 5e-6 of
+    max|a| up to 16,384 sources, 2e-5 past them, phi rtol 3e-5; many rows
+    against few sources and few against many; two launches bitwise
+    equal."""
+    hi, lo, gm = _planes(ns, ns + 19, cuda, vel=False)
+    sel = torch.arange(nr, device=cuda) % ns
+    rows = ((hi[sel] + 1e-3).contiguous(), lo[sel].contiguous())
+    args = (*rows, hi, lo, gm, eps, with_phi)
+    out = cg.rows_x_stream_kernel(*args, guarded=eps == 0.0)
+    again = cg.rows_x_stream_kernel(*args, guarded=eps == 0.0)
+    ref = cg.rows_x_stream_plain(*args, dtype=torch.float64,
+                                 guarded=eps == 0.0)
+    tol = 2e-5 if ns > 16384 else 5e-6
+    _check_x(out, ref, tol=(tol,), phi=with_phi)
+    out = out if with_phi else (out,)
+    again = again if with_phi else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_rows_x_stream_rows_are_independent_of_the_launch(cuda):
+    """K19 gives a row the same bits alone, in a subset, or among all
+    rows."""
+    hi, lo, gm = _planes(131072, 23, cuda, vel=False)
+    full = cg.rows_x_stream_kernel(hi, lo, hi[:4096].contiguous(),
+                                   lo[:4096].contiguous(), gm[:4096], 1e-3,
+                                   with_phi=True, guarded=False)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    for k in (1, 64, 4095):
+        rows = torch.randperm(131072, generator=gen)[:k].to(cuda)
+        sub = cg.rows_x_stream_kernel(hi[rows], lo[rows],
+                                      hi[:4096].contiguous(),
+                                      lo[:4096].contiguous(), gm[:4096],
+                                      1e-3, with_phi=True, guarded=False)
+        for got, want in zip(sub, full):
+            assert torch.equal(got, want[rows])
+
+
+@pytest.mark.parametrize("tier", ["f32", "extended"])
+def test_compensated_rows_kernels_beat_their_uncompensated_layout(cuda, tier):
+    """The Kahan steps of #4/#5 (K18<comp>) and #13/#14 (K19) at 512 rows x
+    300,000 sources, past STREAM_N, against the f64 twin: the compensated
+    kernel errs at most 5e-7 of max|a|, and at most a third of what the
+    same source-split layout errs without its Kahan steps on the same
+    operands (K18; K9's accel at the extended tier). A kernel that dropped
+    them, or a wrapper that asked for the uncompensated form, fails."""
+    ns, nr, eps = 300000, 512, 1.0 / 256
+    if tier == "f32":
+        src, mass = _cluster(ns, 29, cuda)
+        rows = src[:nr].contiguous()
+        ref = cg.rows_plain(rows, src, mass, eps, dtype=torch.float64,
+                            chunk=64)
+        comp = cg.rows_stream_kernel(rows, src, mass, eps, guarded=False)
+        plain = cg.rows_t_kernel(rows, src, mass, eps, guarded=False)
+    else:
+        hi, lo, gm, vhi, vlo = _planes(ns, 31, cuda)
+        rows = [t[:nr].contiguous() for t in (hi, lo, vhi, vlo)]
+        ref = cg.rows_x_stream_plain(*rows[:2], hi, lo, gm, eps,
+                                     dtype=torch.float64, chunk=64,
+                                     guarded=False)
+        comp = cg.rows_x_stream_kernel(*rows[:2], hi, lo, gm, eps,
+                                       guarded=False)
+        plain = cg.rows_jerk_x_kernel(*rows, hi, lo, vhi, vlo, gm, eps,
+                                      guarded=False)[0]
+    scale = float(ref.abs().max())
+    err, err_plain = (float((x.double() - ref).abs().max()) / scale
+                      for x in (comp, plain))
+    print(f"{tier}: compensated {err:.3e}, uncompensated {err_plain:.3e} "
+          "of max|a|")
+    assert err <= 5e-7
+    assert 3 * err <= err_plain
+
+
+@pytest.mark.parametrize("precision", ["f32", "extended"])
+def test_pruned_block_graphs_agree_with_eager(cuda, precision):
+    """Block micro-steps under a pruned force on the card (c4's scene at N
+    = 4,096): the CUDA-graph replay equals the eager micro-step bit for
+    bit, also across a re-partition of the same bucket size (the graphs'
+    partition buffers are reloaded, not re-captured), and the pruned run
+    differs from the unpruned one."""
+    import os
+    from oc_nbody_tpu_torch import escape
+    from oc_nbody_tpu_torch.config import apply_overrides, load_config
+    from oc_nbody_tpu_torch.integrators.block import BlockHermite
+    from oc_nbody_tpu_torch.scene import build_scene
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "c4_block_32k_eccentric.toml")
+    over = ["ic.n=4096", f"integrator.precision={precision}"]
+    cfg = apply_overrides(load_config(path), over)
+    scene = build_scene(cfg, cuda)
+    pos = scene.state.pos
+    r = torch.linalg.vector_norm(pos - pos.mean(dim=0), dim=1).cpu().numpy()
+    parts = []
+    for q in (0.2, 0.15):              # two partitions of one bucket size
+        mask = r <= np.quantile(r, q)
+        idx, wgt, _ = escape.build_sources(mask, 1024)
+        parts.append(scene.force.with_sources(
+            torch.from_numpy(idx).to(cuda), torch.from_numpy(wgt).to(cuda),
+            torch.from_numpy(mask.astype(np.float64)).to(cuda)))
+    assert parts[0].src_idx.shape == parts[1].src_idx.shape
+    ic = cfg.integrator
+    out = {}
+    for eager in (True, False):
+        stepper = BlockHermite(force=parts[0], eta=ic.eta,
+                               eta_init=ic.eta_init, dt_max=ic.dt_max,
+                               n_levels=ic.n_levels)
+        if eager:
+            object.__setattr__(stepper, "_use_graphs", lambda carry: False)
+        carry = stepper.advance(stepper.init(scene.state), 16)
+        stepper = stepper.with_force(parts[1])
+        out[eager] = stepper.advance(carry, 16)
+        if not eager:
+            assert len(stepper._graph_cache) == 1
+    assert out[True].n_steps == out[False].n_steps == 32
+    for a, b in zip(_carry_fields(out[True]), _carry_fields(out[False])):
+        assert torch.equal(a, b)
+    plain = _block_run(cuda, 4096, 32, over=over[1:])
+    assert not torch.equal(plain.acc, out[False].acc)
 
 
 # ---- the two-float (df32) tier: K10, K11 -----------------------------------

@@ -388,8 +388,8 @@ def test_dispatch_thresholds(monkeypatch):
     pair-symmetric kernel at SYM_MIN, the jerk too (the f32 jerk switches at
     RT_MIN_JERK), and past STREAM_N to the chunked route (K6/K7's twins on
     the diagonal chunks, K15/K16's on the chunk pairs); rows past STREAM_N
-    sources or RT_MAX_ROWS rows take K17's twin for the jerk, while the rows
-    accel forms refuse there, naming ROADMAP A15. Thresholds lowered, not N
+    sources or RT_MAX_ROWS rows take K17's twin for the jerk and K19's for
+    the rows accel forms (escape pruning's). Thresholds lowered, not N
     raised."""
     monkeypatch.setattr(cg, "SYM_MIN", 64)
     monkeypatch.setattr(cg, "RT_MIN_JERK", 128)
@@ -435,11 +435,13 @@ def test_dispatch_thresholds(monkeypatch):
     monkeypatch.setattr(cg, "STREAM_N", 262144)
     monkeypatch.setattr(cg, "RT_MAX_ROWS", 16)
     hi, lo, gm = tgrav.prepare_x(tp, tm, 1.0)
-    with pytest.raises(NotImplementedError, match="A15"):
-        cg.accel_rows_x_hilo(hi[:17].contiguous(), lo[:17].contiguous(), hi,
+    for nr, want in ((16, {"rows_x"}), (17, {"rows_x_stream"})):
+        before = dict(cg.PLAIN_CALLS)
+        cg.accel_rows_x_hilo(hi[:nr].contiguous(), lo[:nr].contiguous(), hi,
                              lo, gm, EPS)
-    cg.accel_rows_x_hilo(hi[:16].contiguous(), lo[:16].contiguous(), hi, lo,
-                         gm, EPS)
+        cg.accel_potential_rows_x_hilo(hi[:nr].contiguous(),
+                                       lo[:nr].contiguous(), hi, lo, gm, EPS)
+        assert _ran(before) == want
     for nr, want in ((16, {"rows_jerk_x"}), (17, {"rows_jerk_x_stream"})):
         before = dict(cg.PLAIN_CALLS)
         cg.accel_jerk_rows_x(tp[:nr], tv[:nr], tp, tv, tm, EPS)
@@ -462,7 +464,7 @@ def test_wrappers_refuse_mixed_devices_and_count_only_plain_on_cpu():
     cg.accel_x(tp, tm, EPS)
     cg.accel_jerk_x(tp, tv, tm, EPS)
     assert cg.LAUNCHES == launches        # no kernel on CPU tensors
-    assert set(cg.LAUNCHES) == set(cg.PLAIN_CALLS) and len(cg.LAUNCHES) == 17
+    assert set(cg.LAUNCHES) == set(cg.PLAIN_CALLS) and len(cg.LAUNCHES) == 20
     hi, lo, gm = tgrav.prepare_x(tp, tm, 1.0)
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         cg.accel_rows_x_hilo(hi, lo, hi.to("meta"), lo, gm, EPS)
