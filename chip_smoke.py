@@ -2,6 +2,10 @@
 """Smoke test of the PyTorch port (oc_nbody_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded   # the build and the sharded phase alone
+
+With ``--sharded`` on a machine with several cards, the sharded phase also
+runs every mode, the race check and c5 (rdma) on a mesh of up to 4 cards.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -126,8 +130,28 @@ thread while the kernel checks run), each with its ledger (|dE_cons_over_E_int| 
 1e-5 for escape_prune_65k, 2e-5 under block steps; the column identity to
 1e-9), no self-interaction kernel while pruned, and the N_cluster series
 printed; then K18, K18<comp> and K19 timed at the buckets those paths
-built. Then the card's name and power limit, one JSON line with the
-kernels' numbers (K1-K19), and as the last line
+built. Then the sharded force (``run_sharded_phase``): K20 (ring_accel),
+K20<phi> and K21 (ring_jerk) at c5's ring step on 4 shards (32,768 rows
+against a 32,768-source slab), ragged (2,664 a shard: 10,650 stars split 4
+ways) and, for K21, at c3's step on 4 shards (4,096²), each a first step (a
+store) and a step onto non-zero incoming sums against its f64 twin inside
+2e-5 of max (phi rtol 3e-5), bitwise repeatable, timed beside its f32
+twin; every mode (allgather, ring, rdma, halfring) x accel / accel + phi /
+accel + jerk at N = 131,072 on 4 shards of this card (and, with more
+cards visible, on a mesh of up to 4 cards), against the unsharded
+ForceModel and the f64 oracle on 4,096 sampled rows inside 2e-5, each
+timed beside the unsharded evaluation; rdma at d = 1 (one launch) and d =
+8 (no worse than the unsharded evaluation against the oracle); the race
+check (the three ring evaluations with overlap bitwise equal to the same
+schedule synchronised after every ring step, 5 repeats); then through
+``run.run`` with ``Mesh.on_one_device(4)``: c5_131k_sharded as committed
+but for length (64 KDK steps) in mode ring (K18 per hop, diag_f64 rows)
+and rdma (K20, f32 rows through K20<phi>), c3 on the mesh (rdma, K21) to
+t = 1/16, each beside its unsharded run on the same card, with the drift
+class of c5x (c3: 1e-6 of E) and exactly 4² launches per force evaluation
+and per f32 row. A mesh of shards on one card measures the cost of
+sharding, never a multi-card speed. Then the card's name and power limit,
+one JSON line with the kernels' numbers (K1-K21), and as the last line
 ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or without the package beside
 it, the script exits non-zero and prints no result.
@@ -189,8 +213,9 @@ C4_MIN_T = 8.0
 CUTTABLE = ("c1", "north_star")
 # and c5x's last, to whole diagnostics intervals
 # the script must finish in 1200 s with the build included; the paths are
-# cut to this so that the whole run ends in about half of that
-BUDGET_S = 640.0
+# cut to this so that the whole run ends in about half of that (640 s less
+# the sharded phase's 30 s, measured on an H100)
+BUDGET_S = 610.0
 DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                "north_star": ("dE_over_E_int", 1e-5),
                "c2": ("dE_over_E_int", 1e-5),
@@ -240,7 +265,16 @@ DRIFT_BOUND = {"c1": ("dE_over_E", 1e-6),
                "escape_65k": ("dE_cons_over_E_int", 1e-5),
                "escape_65k_x": ("dE_cons_over_E_int", 1e-5),
                "escape_65k_hermite": ("dE_cons_over_E_int", 1e-5),
-               "escape_65k_block": ("dE_cons_over_E_int", 2e-5)}
+               "escape_65k_block": ("dE_cons_over_E_int", 2e-5),
+               # the sharded phase: c5_131k_sharded in the c5x class
+               # (BASELINE.json:11's accuracy, RESULTS.md:590-593), c3 in
+               # its own
+               "c5_ring": ("dE_over_E_int", 1e-6),
+               "c5_rdma": ("dE_over_E_int", 1e-6),
+               "c5_single": ("dE_over_E_int", 1e-6),
+               "c3_mesh": ("dE_over_E", 1e-6),
+               "c3_single": ("dE_over_E", 1e-6),
+               "c5_cards": ("dE_over_E_int", 1e-6)}
 # pairs of binaries_8k still mutually bound at the end of its run
 BOUND_PAIRS_MIN = 0.95
 # c2's bound mass stripped over the run: the JAX package's recorded run
@@ -291,7 +325,11 @@ FLOPS_PER_PAIR = {"rows": 18, "rows_phi": 19, "rows_jerk": 41,
                   # plus the same Kahan steps
                   "rows_t": 18, "rows_t_phi": 19, "rows_stream": 18.375,
                   "rows_stream_phi": 19.5, "rows_x_stream": 36.375,
-                  "rows_x_stream_phi": 37.5}
+                  "rows_x_stream_phi": 37.5,
+                  # K20 runs K18's pair (18, 19 with phi) and K21 K5's (41);
+                  # their Kahan step across ring steps is per row, counted
+                  # apart (RING_KAHAN_FLOPS)
+                  "ring": 18, "ring_phi": 19, "ring_jerk": 41}
 # K5's shapes: c4's 32,768 sources against these active-row counts
 K5_ROWS = (1, 64, 1024, 8192, 32768)
 K5_NS = 32768
@@ -424,6 +462,34 @@ PATHS_PRUNE = {
                                "output.diag_every=0.00390625"],
                          "rows_jerk_t"),
 }
+
+# the sharded phase: c5_131k_sharded as committed but for length (64 KDK
+# steps) on a mesh of MESH_D shards on one card (mode "ring" as committed,
+# and "rdma" with f32 diagnostics rows, through K20<phi>), its unsharded
+# control on the same card, and c3 on the mesh (Hermite, rdma: K21) beside
+# its unsharded control, to a fixed t. Run through run.run with the API's
+# mesh (a config's mesh.n_devices counts cards; this card is one)
+C5S = "configs/c5_131k_sharded.toml"
+C3 = "configs/c3_hermite_16k_kroupa.toml"
+MESH_D = 4
+MESH_N = 131072
+PATHS_MESH = {
+    "c5_ring": (C5S, ["output.t_end=0.0625"], "rows_t"),
+    "c5_rdma": (C5S, ["output.t_end=0.0625", "mesh.mode=rdma",
+                      "output.diag_f64=false"], "ring"),
+    # the unsharded control: mesh.n_devices = 0 is every card visible
+    "c5_single": (C5S, ["output.t_end=0.0625", "mesh.n_devices=1"], "sym"),
+    "c3_mesh": (C3, ["output.t_end=0.0625", "mesh.mode=rdma"], "ring_jerk"),
+    "c3_single": (C3, ["output.t_end=0.0625"], "sym_jerk"),
+    # c5_rdma on a mesh of up to MESH_D cards, where more than one is visible
+    "c5_cards": (C5S, ["output.t_end=0.0625", "mesh.mode=rdma",
+                       "output.diag_f64=false"], "ring"),
+}
+# the runs of PATHS_MESH that shard on this card's MESH_D shards
+MESH_RUNS = ("c5_ring", "c5_rdma", "c3_mesh")
+# flops per row and ring step of K20 / K20<phi> / K21's Kahan add: 4 per
+# component (y = x - c, t = s + y, c = (t - s) - y)
+RING_KAHAN_FLOPS = {"ring": 12, "ring_phi": 16, "ring_jerk": 24}
 
 
 def _fail(msg):
@@ -1720,7 +1786,8 @@ def run_big_paths(cg, device):
 
 def _load(name):
     from oc_nbody_tpu_torch.config import apply_overrides, load_config
-    path, over, _ = {**PATHS, **PATHS_DF, **PATHS_BIG, **PATHS_PRUNE}[name]
+    path, over, _ = {**PATHS, **PATHS_DF, **PATHS_BIG, **PATHS_PRUNE,
+                     **PATHS_MESH}[name]
     return apply_overrides(load_config(os.path.join(ROOT, path)), over)
 
 
@@ -2628,8 +2695,369 @@ def run_prune_paths(cg, device):
     return runs, launches
 
 
+def _ring_operands(key, nr, ns, device, seed):
+    """A ring step's operands: the first nr stars of one Plummer sphere of
+    nr + ns as the rows and the other ns as the slab (two shards of one
+    cluster, centred in one frame), G m = m: (rows, [vrows,] src, [svel,]
+    gm)."""
+    pos, mass, vel = _moving_cluster(nr + ns, seed, device)
+    rows, src, gm = (pos[:nr].contiguous(), pos[nr:].contiguous(),
+                     mass[nr:].contiguous())
+    if key == "ring_jerk":
+        return rows, vel[:nr].contiguous(), src, vel[nr:].contiguous(), gm
+    return rows, src, gm
+
+
+def ring_case(cg, cr, key, nr, ns, eps, device, plain=False, seed=71):
+    """One ring step of K20 (``ring``), K20<phi> (``ring_phi``) or K21
+    (``ring_jerk``) on nr rows against an ns-source slab, eps > 0: the first
+    step (a store) and a step accumulating onto non-zero incoming sums and
+    compensations, each against the f64 twin (2e-5 of max|a| and max|j|,
+    phi rtol 3e-5; the accumulated sum read as sum - comp, against the
+    incoming sum - comp plus the f64 step); launched twice from the same
+    incoming sums, bitwise equal; the accumulating step timed (CUDA-graph
+    replays) beside its f32 twin (once, with ``plain``). Prints one line;
+    returns dict(max_abs_err, ms, plain_ms, shape, bound)."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    jerk = key == "ring_jerk"
+    ops = _ring_operands(key, nr, ns, device, seed)
+    shapes = [(nr, 3), (nr,)] if key == "ring_phi" else (
+        [(nr, 3), (nr, 3)] if jerk else [(nr, 3)])
+    scratch = torch.empty((cr.ring_scratch_floats(
+        nr, ns, with_phi=key == "ring_phi", jerk=jerk),), dtype=f32,
+        device=device)
+
+    def bufs(dtype, fill=None):
+        return [torch.full(sh, fill, dtype=dtype, device=device) if fill
+                is not None else torch.zeros(sh, dtype=dtype, device=device)
+                for sh in shapes]
+
+    def launch(sums, comps, first, twin=False):
+        if jerk:
+            fn = cr.ring_step_jerk_plain if twin else cr.ring_step_jerk_kernel
+            args = (*ops, eps, sums[0], sums[1], comps[0], comps[1])
+        else:
+            fn = cr.ring_step_plain if twin else cr.ring_step_kernel
+            args = (*ops, eps, sums[0], comps[0], *(
+                (sums[1], comps[1]) if key == "ring_phi" else ()))
+        kw = (dict(dtype=sums[0].dtype) if twin
+              else dict(guarded=False, scratch=scratch))
+        fn(*args, first=first, **kw)
+
+    def check(got, want):
+        if jerk:
+            return _compare_jerk(tuple(got), tuple(want), 2e-5, 2e-5)[:2]
+        return _compare(tuple(got) if key == "ring_phi" else got[0],
+                        tuple(want) if key == "ring_phi" else want[0],
+                        key == "ring_phi", 2e-5)[:2]
+
+    # the first step: a store, the compensations zeroed
+    step64, c64 = bufs(f64), bufs(f64)
+    launch(step64, c64, True, twin=True)
+    first, comps = bufs(f32), bufs(f32, 1.0)
+    launch(first, comps, True)
+    if any(float(c.abs().max()) != 0.0 for c in comps):
+        raise AssertionError(f"{key} ({nr},{ns}): the first step left a "
+                             "compensation")
+    check(first, step64)
+    # an accumulating step onto incoming sums (three slabs' worth) and
+    # compensations of the size a Kahan step leaves
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    out0 = [3.0 * t for t in first]
+    comp0 = [(1e-7 * t.abs() * torch.randn(t.shape, generator=gen,
+                                           device=device)).to(f32)
+             for t in out0]
+    sums, comps = [t.clone() for t in out0], [t.clone() for t in comp0]
+    launch(sums, comps, False)
+    again_s, again_c = [t.clone() for t in out0], [t.clone() for t in comp0]
+    launch(again_s, again_c, False)
+    if not _same_bits(tuple(sums + comps), tuple(again_s + again_c)):
+        raise AssertionError(f"{key} ({nr},{ns}): two launches differ "
+                             "bitwise")
+    got = [s.double() - c.double() for s, c in zip(sums, comps)]
+    want = [o.double() - c.double() + x
+            for o, c, x in zip(out0, comp0, step64)]
+    err, rel = check(got, want)
+    ms = _graph_ms(lambda: launch(again_s, again_c, False))
+    pms = float("nan")
+    if plain:
+        ps, pc = [t.clone() for t in out0], [t.clone() for t in comp0]
+        pms = _once_ms(lambda: launch(ps, pc, False, twin=True))
+    nbytes = ((24 if jerk else 12) * nr + (28 if jerk else 16) * ns
+              + 4 * 4 * sum(math.prod(sh) for sh in shapes))
+    bound = _bound(nr * ns, FLOPS_PER_PAIR[key]
+                   + RING_KAHAN_FLOPS[key] / ns, nbytes)
+    print(f"{cg.KERNEL_LABEL[key]:<10}({nr},{ns}){'':<{15 - len(str(nr)) - len(str(ns))}}"
+          f"{err:<11.3e}{rel:<9.2e}{ms:<10.4f}{pms:<10.2f}{bound[0]:<9.5f}"
+          f"{bound[0] / ms:.0%}  first and accumulating, bitwise-repeatable",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, shape=[nr, ns],
+                bound=bound)
+
+
+def check_kernels_ring(cg, cr, device):
+    """K20, K20<phi> and K21 at c5's ring step on a 4-shard mesh (32,768
+    rows against a 32,768-source slab, eps = 1/512) and ragged (10,650
+    stars padded to 10,656, 2,664 a shard), K21 also at c3's step on the
+    mesh (4,096 x 4,096, eps = 1/256): ``ring_case``. Returns
+    {key: ring_case's dict} at the main paths' shapes."""
+    print("kernel    shape              max|da|    rel      ms        "
+          "plain_ms  bound_ms share")
+    main = {}
+    s5 = MESH_N // MESH_D
+    for key in ("ring", "ring_phi", "ring_jerk"):
+        m = ring_case(cg, cr, key, s5, s5, 1.0 / 512, device,
+                      plain=key != "ring_jerk")
+        if key != "ring_jerk":
+            main[key] = m
+        ring_case(cg, cr, key, 2664, 2664, 1.0 / 512, device, seed=72)
+    main["ring_jerk"] = ring_case(cg, cr, "ring_jerk", 4096, 4096, 1.0 / 256,
+                                  device, plain=True, seed=73)
+    return main
+
+
+def _sharded_eval(sf, want, pos, vel, mass):
+    if want == "jerk":
+        return sf.accel_jerk(pos, vel, mass)
+    if want == "phi":
+        return sf.accel_potential(pos, mass)[:2]
+    return sf.accel(pos, mass)
+
+
+def check_ring_evals(cg, cr, device):
+    """The sharded force at N = 131,072 (eps = 1/512) in every mode, on a
+    4-shard mesh on this card and, with more than one card visible, on
+    ``make_mesh(min(4, count))``: accel, accel + phi and accel + jerk
+    against the unsharded ForceModel within 2e-5 of max|a| and max|j| (phi
+    rtol 3e-5) and against the f64 oracle on 4,096 sampled rows, each
+    timed beside the unsharded evaluation; rdma at d = 1 (one launch, no
+    slab) and d = 8 (its error against the oracle no worse than the
+    unsharded evaluation's); then the race check: the three ring evaluations with
+    overlap bitwise equal, over 5 repeats, to the same schedule with the
+    host waiting for the card after every ring step."""
+    import torch
+    from oc_nbody_tpu_torch.forces import make_force_model
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    from oc_nbody_tpu_torch.ops import gravity
+    from oc_nbody_tpu_torch.parallel.force import MODES, make_sharded_force
+    from oc_nbody_tpu_torch.parallel.mesh import Mesh, make_mesh
+    f64 = torch.float64
+    eps = 1.0 / 512
+    state = plummer(MESH_N, torch.Generator().manual_seed(81), device=device)
+    pos, mass, vel = state.pos, state.mass, state.vel
+    pos_c, mass_c, vel_c = gravity.prepare_f32(pos, mass, vel=vel)
+    rows = torch.randperm(MESH_N, generator=torch.Generator().manual_seed(
+        82))[:BIG_SAMPLE].to(device)
+    ref_a, ref_phi = cg.rows_plain(pos_c[rows], pos_c, mass_c, eps,
+                                   with_phi=True, dtype=f64, chunk=256)
+    ref_phi = ref_phi + gravity.self_phi(mass_c[rows].to(f64), eps, 1.0)
+    ref_j = cg.rows_jerk_plain(pos_c[rows], vel_c[rows], pos_c, vel_c,
+                               mass_c, eps, dtype=f64, chunk=256)
+    oracle = {"accel": ref_a, "phi": (ref_a, ref_phi), "jerk": ref_j}
+    single = make_force_model(eps)
+
+    def errors(out, want, against):
+        if want == "jerk":
+            return _compare_jerk(out, against, 2e-5, 2e-5)
+        if want == "phi":
+            return _compare(out, against, True, 2e-5)
+        return _compare(out, against, False, 2e-5)
+
+    def sample(out):
+        return (tuple(o[rows] for o in out) if isinstance(out, tuple)
+                else out[rows])
+
+    base = {w: _sharded_eval(single, w, pos, vel, mass)
+            for w in ("accel", "phi", "jerk")}
+    base_ms = {w: _median_ms(lambda: _sharded_eval(single, w, pos, vel,
+                                                   mass), reps=3)
+               for w in base}
+    meshes = [("one card", Mesh.on_one_device(MESH_D, device))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("cards", make_mesh(min(MESH_D,
+                                              torch.cuda.device_count()))))
+    print(f"the sharded force at N = {MESH_N} (eps = 1/512): against the "
+          "unsharded evaluation and the f64 oracle on "
+          f"{BIG_SAMPLE} rows; meshes: "
+          + "; ".join(f"{m.describe()}" for _, m in meshes), flush=True)
+    times = {}
+    for label, mesh in meshes:
+        for mode in MODES:
+            sf = make_sharded_force(eps, mesh=mesh, mode=mode)
+            for want in ("accel", "phi", "jerk"):
+                out = _sharded_eval(sf, want, pos, vel, mass)
+                e_single = errors(out, want, base[want])
+                e_oracle = errors(sample(out), want, oracle[want])
+                ms = _median_ms(lambda: _sharded_eval(sf, want, pos, vel,
+                                                      mass), reps=3)
+                times[label, mode, want] = ms
+                print(f"  {mesh.n_devices} shards ({label}) {mode:<9} "
+                      f"{want:<5} against unsharded {e_single[1]:.3e}, "
+                      f"against f64 {e_oracle[1]:.3e} of max|a|"
+                      + (f" ({e_oracle[2]:.3e} of max|j|)" if want == "jerk"
+                         else "")
+                      + f"; {ms:.3f} ms (unsharded {base_ms[want]:.3f})",
+                      flush=True)
+                del out
+            torch.cuda.empty_cache()
+    # rdma at d = 1: one launch from the shard's own planes
+    sf1 = make_sharded_force(eps, mesh=Mesh.on_one_device(1, device),
+                             mode="rdma")
+    before = cg.LAUNCHES["ring"]
+    a1 = sf1.accel(pos, mass)
+    if cg.LAUNCHES["ring"] - before != 1 or sf1.buffers.rings:
+        raise AssertionError("rdma at d = 1: not one launch without a slab")
+    e1 = errors(a1, "accel", base["accel"])
+    # rdma at d = 8 against the oracle, beside the unsharded evaluation
+    sf8 = make_sharded_force(eps, mesh=Mesh.on_one_device(8, device),
+                             mode="rdma")
+    a8 = sf8.accel(pos, mass)
+    e8 = errors(a8[rows], "accel", ref_a)
+    es = errors(base["accel"][rows], "accel", ref_a)
+    e8_mean = float((a8[rows].double() - ref_a).abs().mean())
+    es_mean = float((base["accel"][rows].double() - ref_a).abs().mean())
+    print(f"  rdma d = 1 against unsharded {e1[1]:.3e} (one launch); d = 8 "
+          f"against f64 {e8[1]:.3e} of max|a| (mean {e8_mean:.3e}), the "
+          f"unsharded evaluation {es[1]:.3e} (mean {es_mean:.3e})",
+          flush=True)
+    if not e8[0] <= es[0]:
+        raise AssertionError("rdma at d = 8: the compensated ring errs more "
+                             "than the unsharded evaluation")
+    del a1, a8, sf1, sf8
+    # the race check on each mesh
+    for _, mesh in meshes:
+        d = mesh.n_devices
+        size = MESH_N // d
+        ps, vs, ms_ = ([x[s * size:(s + 1) * size].to(dev)
+                        for s, dev in enumerate(mesh.devices)]
+                       for x in (pos_c, vel_c, mass_c))
+        kw = dict(guarded=False, buffers=cr.RingBuffers())
+        for name, fn in (("accel_ring", lambda serial: cr.accel_ring(
+                ps, ms_, eps, serial=serial, **kw)),
+                         ("accel_potential_ring",
+                          lambda serial: cr.accel_potential_ring(
+                              ps, ms_, eps, serial=serial, **kw)),
+                         ("accel_jerk_ring",
+                          lambda serial: cr.accel_jerk_ring(
+                              ps, vs, ms_, eps, serial=serial, **kw))):
+            serial = _flat(fn(True))
+            for _ in range(5):
+                if not _same_bits(_flat(fn(False)), serial):
+                    raise AssertionError(
+                        f"{name} on {mesh.describe()}: the overlapped ring "
+                        "differs from the serial schedule (a race)")
+        print(f"  race check on {mesh.describe()}: accel_ring, "
+              "accel_potential_ring and accel_jerk_ring with overlap bitwise "
+              "equal to the serial schedule over 5 repeats each", flush=True)
+        del kw, ps, vs, ms_
+    torch.cuda.empty_cache()
+    return times, base_ms
+
+
+def _flat(out):
+    """A ring evaluation's per-shard outputs as one flat tuple."""
+    return tuple(t for o in out for t in (o if isinstance(o, tuple)
+                                          else (o,)))
+
+
+def _drive_api(cg, paths, meshes):
+    """``run.run`` on each of ``paths`` (the API a caller with its own mesh
+    uses), on its mesh from ``meshes`` (none: the config's own, one card),
+    the launch counters set to 0 just before each and read just after;
+    returns ({name: RunResult}, {name: launches})."""
+    import oc_nbody_tpu_torch.run as run_mod
+    runs, launches = {}, {}
+    for k, (path, over, want) in paths.items():
+        mesh = meshes.get(k)
+        print(f"--- main path: run.run({path} "
+              f"{' '.join('--set ' + o for o in over)}, device cuda, mesh "
+              f"{mesh.describe() if mesh else 'from the config: one card'})",
+              flush=True)
+        cfg = _load(k)
+        for key in cg.LAUNCHES:
+            cg.LAUNCHES[key] = 0
+        for key in cg.PLAIN_CALLS:
+            cg.PLAIN_CALLS[key] = 0
+        runs[k] = run_mod.run(cfg, device="cuda", mesh=mesh)
+        launches[k] = dict(cg.LAUNCHES)
+        print(f"{k}: kernel launches "
+              f"{ {n: c for n, c in launches[k].items() if c} }", flush=True)
+        if launches[k][want] <= 0:
+            raise AssertionError(f"{k}: the {want} kernel never launched")
+        if any(cg.PLAIN_CALLS.values()):
+            raise AssertionError(f"{k}: plain twins ran on the path: "
+                                 f"{cg.PLAIN_CALLS}")
+    for k, res in runs.items():
+        _check_run(k, res)
+    return runs, launches
+
+
+def run_sharded_paths(cg, device):
+    """The sharded phase's paths (PATHS_MESH) through ``run.run``: c5 and c3
+    on a MESH_D-shard mesh on this card, each beside its unsharded control,
+    and where more cards are visible c5 (rdma) on a mesh of up to MESH_D
+    cards; every sharded force evaluation is d^2 launches of its kernel
+    (K18 per hop under ring, K20 / K21 under rdma) and every f32
+    diagnostics row d^2 of K20<phi>, and no other kernel runs. Returns
+    ({name: RunResult}, {name: launches})."""
+    import torch
+    from oc_nbody_tpu_torch.parallel.mesh import Mesh, make_mesh
+    mesh = Mesh.on_one_device(MESH_D, device)
+    meshes = {k: mesh for k in MESH_RUNS}
+    paths = {k: v for k, v in PATHS_MESH.items() if k != "c5_cards"}
+    if torch.cuda.device_count() > 1:
+        meshes["c5_cards"] = make_mesh(min(MESH_D,
+                                           torch.cuda.device_count()))
+        paths["c5_cards"] = PATHS_MESH["c5_cards"]
+    runs, launches = _drive_api(cg, paths, meshes)
+    for k, run_mesh in meshes.items():
+        res = runs[k]
+        rows = len(res.diagnostics["time"])
+        d2 = run_mesh.n_devices ** 2
+        want = {PATHS_MESH[k][2]: d2 * (res.n_steps + 1)}
+        if not _load(k).output.diag_f64:
+            want["ring_phi"] = d2 * rows
+        got = {n: c for n, c in launches[k].items() if c}
+        if got != want:
+            raise AssertionError(f"{k}: launches {got}, expected {want} "
+                                 f"(d^2 per force evaluation: "
+                                 f"{res.n_steps} steps, init, {rows} rows)")
+    for sharded, single in (("c5_ring", "c5_single"), ("c5_rdma", "c5_single"),
+                            ("c3_mesh", "c3_single"), ("c5_cards", "c5_single")):
+        if sharded not in runs:
+            continue
+        a, b = runs[sharded], runs[single]
+        ta = a.phase_s["advance"] / a.n_steps * 1e3
+        tb = b.phase_s["advance"] / b.n_steps * 1e3
+        what = ("a multi-card speed" if sharded == "c5_cards" else
+                "the cost of sharding on one card, not a multi-card speed")
+        print(f"{sharded}: {ta:.3f} ms/step on {meshes[sharded].describe()} "
+              f"against {tb:.3f} unsharded on one card ({ta / tb:.2f}x: "
+              f"{what}); {a.n_steps} steps against {b.n_steps}", flush=True)
+    return runs, launches
+
+
+def run_sharded_phase(cg, device):
+    """The sharded phase: K20, K20<phi> and K21 against their twins, the
+    sharded force at N = 131,072 in every mode, the race check, and the
+    sharded paths. Returns (runs, launches, main shapes of K20/K20<phi>/K21,
+    seconds)."""
+    from oc_nbody_tpu_torch.ops import cuda_ring as cr
+    t = time.perf_counter()
+    shapes = check_kernels_ring(cg, cr, device)
+    check_ring_evals(cg, cr, device)
+    runs, launches = run_sharded_paths(cg, device)
+    seconds = time.perf_counter() - t
+    print(f"sharded phase: {seconds:.1f} s", flush=True)
+    return runs, launches, shapes, seconds
+
+
 def main():
     t_start = time.perf_counter()
+    if sys.argv[1:] not in ([], ["--sharded"]):
+        _fail("usage: python3 chip_smoke.py [--sharded]")
     if not os.path.isfile(os.path.join(ROOT, "oc_nbody_tpu_torch",
                                        "__init__.py")):
         _fail("the oc_nbody_tpu_torch package is not beside this script")
@@ -2657,6 +3085,10 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas: " + line.strip())
 
+    if sys.argv[1:] == ["--sharded"]:
+        run_sharded_phase(cg, device)
+        print(smi_line)
+        return 0
     from oc_nbody_tpu_torch.ops import cuda_df
     main_shapes = check_kernels(cg, device)
     check_kernels_x(cg, device, main_shapes)
@@ -2740,6 +3172,12 @@ def main():
               f"{nr} rows against {ns} sources):")
         main_shapes[key] = prune_case(cg, key, nr, ns, cfg.integrator.eps,
                                       device, plain=True)
+    # the sharded force: K20, K20<phi>, K21, every mode at N = 131,072, the
+    # race check, c5_131k_sharded and c3 on a mesh of this card's shards
+    mesh_runs, mesh_launches, ring_shapes, _ = run_sharded_phase(cg, device)
+    runs.update(mesh_runs)
+    launches.update(mesh_launches)
+    main_shapes.update(ring_shapes)
     measure_steps(device)
 
     kernels = []
@@ -2814,7 +3252,14 @@ def main():
             ("rows_x_stream", "rows_accel_xs",
              "oc_nbody_tpu_torch/csrc/rows_accel_xs.cu",
              "oc_nbody_tpu/ops/pallas_gravity.py:1361",
-             "oc_nbody_tpu/ops/pallas_gravity.py:1384")):
+             "oc_nbody_tpu/ops/pallas_gravity.py:1384"),
+            ("ring", "ring_accel", "oc_nbody_tpu_torch/csrc/ring_accel.cu",
+             "oc_nbody_tpu/ops/pallas_ring.py:135", None),
+            ("ring_phi", "ring_accel_phi",
+             "oc_nbody_tpu_torch/csrc/ring_accel.cu",
+             "oc_nbody_tpu/ops/pallas_ring.py:169", None),
+            ("ring_jerk", "ring_jerk", "oc_nbody_tpu_torch/csrc/ring_jerk.cu",
+             "oc_nbody_tpu/ops/pallas_ring.py:202", None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

@@ -3,7 +3,9 @@
 The JAX package's ``run`` and ``info`` commands with ``--set a.b=v``
 overrides, plus ``--device cuda|cpu`` (default cuda; with no card it
 raises rather than fall back). ``info`` also prints the stepper the config
-builds, at the f32 and the extended tier the kernels it runs on the card
+builds, the mesh ``mesh.n_devices`` resolves to here (its shards,
+devices and mode; on a mesh of more than one shard the sharded force's
+kernels), at the f32 and the extended tier the kernels it runs on the card
 at the config's N (under escape pruning also the two sweeps' kernels at
 the smallest and the largest cluster bucket), and its pairwise precision
 tier; a config the port does
@@ -33,6 +35,31 @@ def _print_pruned_route(cfg, n, kind, precision):
         if 2 * b < n:
             print(f"  pruned at B = {b}: "
                   f"{cuda_gravity.route_pruned(n, b, kind, precision)}")
+
+
+def _print_mesh(cfg, n, kind):
+    """The mesh ``mesh.n_devices`` resolves to on this machine (its cards,
+    else the CPU) and, past one shard, the sharded force's kernels.
+    Returns True when the run would shard."""
+    import torch
+    from oc_nbody_tpu_torch.parallel import force as pforce
+    from oc_nbody_tpu_torch.scene import mesh_mode, resolve_mesh
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    try:
+        mesh = resolve_mesh(cfg, device)
+    except ValueError as err:
+        print(f"mesh: mesh.n_devices = {cfg.mesh.n_devices}: {err}, so a "
+              "run here raises")
+        return False
+    if mesh is None:
+        print(f"mesh: one device ({device.type}; mesh.n_devices = "
+              f"{cfg.mesh.n_devices}), the unsharded force")
+        return False
+    mode = mesh_mode(cfg)
+    print(f"mesh: {mesh.describe()}, mode {mode}; kernels per force "
+          f"evaluation at N = {n}: "
+          f"{pforce.route(n, mesh.n_devices, mode, kind)}")
+    return True
 
 
 def main(argv=None):
@@ -84,8 +111,9 @@ def main(argv=None):
         fields = {k: v for k, v in vars(stepper).items()
                   if k != "force" and not k.startswith("_")}
         print(f"stepper: {kind} {type(stepper).__name__}({fields})")
-        if force.precision in ("f32", "extended"):
-            n = n_particles(cfg)
+        n = n_particles(cfg)
+        sharded = _print_mesh(cfg, n, kind)
+        if force.precision in ("f32", "extended") and not sharded:
             print(f"kernels on the card at N = {n}: "
                   f"{cuda_gravity.route(n, kind, force.precision)}")
             if cfg.escape.prune:

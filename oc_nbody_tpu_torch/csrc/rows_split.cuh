@@ -1,9 +1,11 @@
 // The source-split layout of the rows-vs-sources kernels for few rows
 // against many sources: K5/K14 (rows_jerk_t.cu), K9/K17 (rows_jerk_x.cu),
-// K18 (rows_accel_t.cu) and K19 (rows_accel_xs.cu). Each of those files
-// writes its own first pass (what it stages and which pair function it
-// runs); the shape of the passes, the lane reduction, the chunk-order
-// reduction and the scratch size live here, once.
+// K18 (rows_accel_t.cu), K19 (rows_accel_xs.cu) and the ring steps K20
+// (ring_accel.cu) and K21 (ring_jerk.cu). Each kernel family writes its own
+// first pass (what it stages and which pair function it runs; K18's and
+// K5's live in rows_accel_t.cuh and rows_jerk_t.cuh, which K20 and K21
+// share); the shape of the passes, the lane reduction, the chunk-order
+// reductions and the scratch size live here, once.
 //
 // Two passes, no atomics, fixed summation order.
 //   Pass 1, grid (row tiles of kRows, source chunks) of kThreads threads.
@@ -18,7 +20,9 @@
 //   Pass 2, reduce(): one thread per (row, component), the chunk partials
 //     summed in chunk order (COMP: by Kahan steps); components 0-2 go to
 //     acc (nr, 3), the rest to tail (nr, kComp - 3), negated with NEG_TAIL
-//     (the potential is summed as G m / r).
+//     (the potential is summed as G m / r). The ring steps' pass 2 is
+//     accumulate(): the same plain chunk-order sum, then added by a Kahan
+//     step into running sums that persist across launches.
 // Every row's arithmetic depends only on its own inputs and on the sources:
 // the chunk boundaries, the lane split and both orders are fixed by ns. So
 // a row's result is bitwise the same whatever other rows share the launch,
@@ -114,6 +118,63 @@ void launch_reduce(const float* part, int nr, int ns, float* acc,
                                       kReduceThreads);
   reduce<kComp, COMP, NEG_TAIL><<<blocks, kReduceThreads, 0, s>>>(
       part, nr, num_chunks(ns), acc, tail);
+}
+
+// The ring steps' pass 2 (K20, K21): the oc_nbody_tpu/ops/pallas_gravity.py
+// _accumulate_t of one ring step. One thread per (row, component) sums the
+// step's chunk partials in chunk order, in plain f32 (a step's sum, like
+// the TPU sweep's sum over its source tiles, is not compensated), negates
+// the tail with NEG_TAIL, and then either stores the step sum and zeroes the
+// compensation (first: the evaluation's first step; comp may be null when
+// the evaluation has one step) or adds it into (out, comp) by a Kahan step.
+// out and comp live in device memory across the launches of one
+// evaluation; each launch reads and writes its own rows only.
+template <int kComp, bool NEG_TAIL>
+__global__ void accumulate(const float* __restrict__ part, int nr,
+                           int nchunks, int first, float* __restrict__ acc,
+                           float* __restrict__ acc_comp,
+                           float* __restrict__ tail,
+                           float* __restrict__ tail_comp) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (t >= static_cast<long long>(kComp) * nr) return;
+  const int k = static_cast<int>(t / nr);
+  const int i = static_cast<int>(t % nr);
+  float s = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < nchunks; ++c)
+    s += part[(static_cast<long long>(c) * kComp + k) * nr + i];
+  float* out = acc;
+  float* comp = acc_comp;
+  long long o = 3LL * i + k;
+  if (k >= 3) {
+    out = tail;
+    comp = tail_comp;
+    o = static_cast<long long>(kComp - 3) * i + (k - 3);
+    if (NEG_TAIL) s = -s;
+  }
+  if (first) {
+    out[o] = s;
+    if (comp != nullptr) comp[o] = 0.f;
+  } else {
+    float sum = out[o], c = comp[o];
+    kahan_add(sum, c, s);
+    out[o] = sum;
+    comp[o] = c;
+  }
+}
+
+// The ring's pass 2 on stream s, after pass 1 wrote part.
+template <int kComp, bool NEG_TAIL>
+void launch_accumulate(const float* part, int nr, int ns, int first,
+                       float* acc, float* acc_comp, float* tail,
+                       float* tail_comp, cudaStream_t s) {
+  constexpr int kReduceThreads = 256;
+  const long long work = static_cast<long long>(kComp) * nr;
+  const int blocks = static_cast<int>((work + kReduceThreads - 1) /
+                                      kReduceThreads);
+  accumulate<kComp, NEG_TAIL><<<blocks, kReduceThreads, 0, s>>>(
+      part, nr, num_chunks(ns), first, acc, acc_comp, tail, tail_comp);
 }
 
 }  // namespace split

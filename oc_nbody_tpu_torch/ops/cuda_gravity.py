@@ -2,7 +2,8 @@
 (``sm_90a``), each beside its plain PyTorch twin. This module holds the f32
 tier (K1-K5, K12-K14, K18) and the extended tier (K6-K9, K15-K17, K19) and builds the
 one library all kernels live in; the two-float tier's K10 and K11 are wrapped
-in ``ops/cuda_df.py``.
+in ``ops/cuda_df.py``, the sharded ring's steps K20 and K21
+(``csrc/ring_accel.cu``, ``csrc/ring_jerk.cu``) in ``ops/cuda_ring.py``.
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
     potential. Replaces the Pallas row-grid kernels ``_accel_kernel`` and
@@ -121,7 +122,9 @@ planes.
 pruning reaches both. ``rows_route`` names the kernel every rows-vs-sources
 call takes, and ``route`` the kernels of a run, pruned or not.
 
-A wrapper launches its kernel for CUDA tensors and calls the plain twin
+Every launch goes to the current CUDA device: a caller with tensors on
+another card launches under ``on_device`` (the sharded force does, per
+shard). A wrapper launches its kernel for CUDA tensors and calls the plain twin
 (``rows_plain``, ``sym_plain``, ``rows_jerk_plain``, ``sym_jerk_plain``,
 ``rows_jerk_t_plain``, ``rows_jerk_stream_plain``, ``cross_plain``,
 ``cross_jerk_plain``, built on
@@ -139,6 +142,7 @@ the compiler's output) if ``nvcc`` is missing or refuses a source.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -188,20 +192,22 @@ _KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
             "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df",
             "cross", "cross_jerk", "rows_jerk_stream", "cross_x",
             "cross_jerk_x", "rows_jerk_x_stream", "rows_t", "rows_stream",
-            "rows_x_stream")
+            "rows_x_stream", "ring", "ring_phi", "ring_jerk")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
-_HEADERS = ("pair.cuh", "rows_split.cuh", "df.cuh")
+_HEADERS = ("pair.cuh", "rows_split.cuh", "rows_accel_t.cuh",
+            "rows_jerk_t.cuh", "df.cuh")
 _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
             "rows_accel_x.cu", "rows_jerk_x.cu", "rows_accel_df.cu",
             "rows_jerk_df.cu", "df_selftest.cu", "cross_accel.cu",
             "cross_jerk.cu", "cross_accel_x.cu", "cross_jerk_x.cu",
-            "rows_accel_t.cu", "rows_accel_xs.cu")
+            "rows_accel_t.cu", "rows_accel_xs.cu", "ring_accel.cu",
+            "ring_jerk.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -339,6 +345,16 @@ def _library():
         lib.ocn_rows_accel_xs.restype = i
         lib.ocn_rows_accel_xs_scratch.argtypes = [i, i, i]
         lib.ocn_rows_accel_xs_scratch.restype = ctypes.c_longlong
+        lib.ocn_ring_accel.argtypes = [p, i, p, p, i, f, i, i, p, p, p, p,
+                                       p, p]
+        lib.ocn_ring_accel.restype = i
+        lib.ocn_ring_accel_scratch.argtypes = [i, i, i]
+        lib.ocn_ring_accel_scratch.restype = ctypes.c_longlong
+        lib.ocn_ring_jerk.argtypes = [p, p, i, p, p, p, i, f, i, i, p, p, p,
+                                      p, p, p]
+        lib.ocn_ring_jerk.restype = i
+        lib.ocn_ring_jerk_scratch.argtypes = [i, i]
+        lib.ocn_ring_jerk_scratch.restype = ctypes.c_longlong
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]
@@ -382,6 +398,19 @@ def _f32(x) -> float:
 
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(device):
+    """The context to launch kernels for tensors on ``device`` in: that
+    CUDA device made current (a no-op on the CPU). A launch goes to the
+    current device, and a device's default stream has the handle 0, so
+    tensors on another card than the current one are launched on under
+    their own device, or the launch would run on the current card, unordered
+    with their stream."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 # --------------------------------------------------------------------------
@@ -1353,12 +1382,14 @@ def route(n: int, kind: str = "kdk", precision: str = "f32") -> str:
     return line
 
 
-# rows_route's keys -> the kernels' names in this module's docstring
+# rows_route's keys, and the sharded ring's (ops/cuda_ring.py) -> the
+# kernels' names in the modules' docstrings
 KERNEL_LABEL = {"rows": "K1", "rows_t": "K18", "rows_stream": "K18<comp>",
                 "rows_jerk": "K4", "rows_jerk_t": "K5",
                 "rows_jerk_stream": "K14", "rows_x": "K8",
                 "rows_x_stream": "K19", "rows_jerk_x": "K9",
-                "rows_jerk_x_stream": "K17"}
+                "rows_jerk_x_stream": "K17", "ring": "K20",
+                "ring_phi": "K20<phi>", "ring_jerk": "K21"}
 
 
 def route_pruned(n: int, bucket: int, kind: str = "kdk",

@@ -32,6 +32,11 @@ pruning off and says so once. Refused, with ValueError before any state is
 built: no external potential (the cut is in tidal radii), the df32 tier,
 and ``output.diag_f64`` (whose f64 potential sums over ALL pairs).
 
+On a mesh (``mesh.n_devices`` past one, or an API caller's ``mesh``) the
+force is the scene's ShardedForce: its f32 rows go through the sharded
+``accel_potential``, and an ``output.diag_f64`` row stays the f64 pair sum
+on the global state (the JAX package's diagnostics.py:48-54).
+
 Not ported yet: snapshots and ``--resume`` (ROADMAP A3: schema v1 is HDF5
 and the card's machine has no h5py; with them the ``e_prune_cum`` snapshot
 attribute), stellar evolution, friction, the macro steppers, and the TPU
@@ -50,7 +55,8 @@ import torch
 from oc_nbody_tpu_torch import diagnostics as diag_mod
 from oc_nbody_tpu_torch import escape
 from oc_nbody_tpu_torch.config import SimConfig
-from oc_nbody_tpu_torch.scene import build_scene, make_stepper
+from oc_nbody_tpu_torch.scene import (build_scene, make_stepper,
+                                      resolve_device, resolve_mesh)
 from oc_nbody_tpu_torch.utils.profiling import Stopwatch
 
 
@@ -75,8 +81,13 @@ def _to_host(row: dict) -> dict:
     return {k: host[k] if k in host else float(v) for k, v in row.items()}
 
 
-def check_prune(cfg: SimConfig) -> None:
-    """The JAX package's refusals of ``escape.prune`` (ValueError)."""
+def check_prune(cfg: SimConfig, mesh=None) -> None:
+    """The JAX package's refusals of ``escape.prune`` (ValueError), and
+    the port's on a mesh of more than one shard (``mesh``, as
+    ``scene.resolve_mesh`` gives it): not ported yet."""
+    if mesh is not None and mesh.n_devices > 1:
+        raise NotImplementedError("escape pruning on a mesh is not ported "
+                                  "yet (ROADMAP A17c)")
     if cfg.potential.kind == "none":
         raise ValueError("escape.prune needs an external potential (the cut "
                          "is in tidal radii)")
@@ -156,16 +167,20 @@ class _Pruning:
         return changed
 
 
-def run(cfg: SimConfig, device="cuda", resume: bool = False) -> RunResult:
-    """Run a simulation on ``device`` ('cuda' or 'cpu')."""
+def run(cfg: SimConfig, device="cuda", resume: bool = False,
+        mesh=None) -> RunResult:
+    """Run a simulation on ``device`` ('cuda' or 'cpu'); ``mesh``, when
+    given, is the run's mesh in place of ``mesh.n_devices`` (an API
+    caller's, e.g. ``parallel.mesh.Mesh.on_one_device``)."""
     if resume:
         raise NotImplementedError(
             "resume needs snapshot I/O, which is not ported yet "
             "(ROADMAP A3)")
     pruning = bool(cfg.escape.prune)
     if pruning:
-        check_prune(cfg)
-    scene = build_scene(cfg, device)
+        check_prune(cfg, resolve_mesh(cfg, resolve_device(device), mesh))
+    scene = (build_scene(cfg, device) if mesh is None
+             else build_scene(cfg, device, mesh=mesh))
     stepper, kind = make_stepper(cfg, scene.force)
     prune = _Pruning(cfg, scene.force, scene.state.n)
     # physical-time fields (Myr) override the code-unit ones, on a copy

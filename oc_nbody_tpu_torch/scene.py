@@ -7,7 +7,10 @@ eccentric (optionally inclined) orbit in the analytic Milky Way,
 integrated with fixed-dt KDK, shared-dt Hermite-4 or block timesteps on one
 device, at the f32, the extended (hi/lo) or the two-float (df32) pairwise
 precision tier, optionally with escape pruning (``escape.prune``, the f32
-and extended tiers; run.py). Every other config value is refused
+and extended tiers; run.py); or, at the f32 tier under KDK and Hermite, on
+a mesh of several shards (``parallel/``: ``mesh.n_devices`` resolves to
+the visible devices, 0 to all of them; an API caller may pass its own
+``Mesh``). Every other config value is refused
 with the ROADMAP item that ports it, so a config never runs as something it
 does not say.
 """
@@ -32,6 +35,9 @@ from oc_nbody_tpu_torch.models.binaries import (BinaryPopulation,
 from oc_nbody_tpu_torch.models.king import king
 from oc_nbody_tpu_torch.models.plummer import plummer
 from oc_nbody_tpu_torch.ops import cuda_gravity
+from oc_nbody_tpu_torch.parallel.force import (ShardedForce, check_sharded,
+                                               make_sharded_force)
+from oc_nbody_tpu_torch.parallel.mesh import Mesh, make_mesh
 from oc_nbody_tpu_torch.state import ParticleState
 from oc_nbody_tpu_torch.utils.units import UnitSystem
 
@@ -62,7 +68,7 @@ _POTENTIAL_ITEMS = {"point_mass": "A4", "log_halo": "A4"}
 class Scene:
     units: UnitSystem
     state: ParticleState
-    force: ForceModel
+    force: ForceModel | ShardedForce
     config: SimConfig
 
 
@@ -73,17 +79,38 @@ def _get(cfg, path: str):
     return obj
 
 
-def _check_mesh(cfg: SimConfig, device) -> None:
-    """One device only: ``mesh.n_devices`` must be 1, or 0 (all visible
-    devices) where that is one — a CPU run, or a machine with one card.
-    With ``device`` None the 0 is left to the run to resolve."""
-    n = cfg.mesh.n_devices
-    if n == 0 and device is not None:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n not in (0, 1):
+def resolve_mesh(cfg: SimConfig, device,
+                 mesh: Optional[Mesh] = None) -> Optional[Mesh]:
+    """The run's mesh: ``mesh`` when an API caller gives one (for example
+    ``Mesh.on_one_device``), else ``mesh.n_devices`` resolved against the
+    visible devices of ``device``'s type (0: all of them; more than are
+    visible: ValueError). None when that is one shard: the run builds the
+    unsharded ForceModel, as the JAX package does."""
+    if mesh is None:
+        if cfg.mesh.n_devices == 1:
+            return None
+        mesh = make_mesh(cfg.mesh.n_devices, device)
+    return mesh if mesh.n_devices > 1 else None
+
+
+def mesh_mode(cfg: SimConfig) -> str:
+    """The sharded-force mode: ``auto`` is ``allgather``."""
+    return "allgather" if cfg.mesh.mode == "auto" else cfg.mesh.mode
+
+
+def _check_sharded(cfg: SimConfig) -> None:
+    """What a mesh of more than one shard runs: the f32 tier under KDK and
+    Hermite, unpruned (ValueError for df32, ``rdma`` at the extended tier
+    and an unknown mode, as the JAX package's ``make_sharded_force``)."""
+    check_sharded(mesh_mode(cfg), cfg.integrator.precision)
+    if cfg.integrator.kind == "block":
         raise NotImplementedError(
-            f"mesh.n_devices = {cfg.mesh.n_devices!r} resolves to {n} "
-            "devices; the port runs one (ROADMAP A17, multi-GPU)")
+            "block steps on a mesh (the active rows against sharded "
+            "sources) are not ported yet (ROADMAP A17a); the port shards "
+            "KDK and Hermite")
+    if cfg.escape.prune:
+        raise NotImplementedError("escape pruning on a mesh is not ported "
+                                  "yet (ROADMAP A17c)")
 
 
 def n_particles(cfg: SimConfig) -> int:
@@ -99,10 +126,12 @@ def n_particles(cfg: SimConfig) -> int:
 _CAPPED_TIERS = {"df32": "B10: the df32 tier past STREAM_N"}
 
 
-def check_supported(cfg: SimConfig, device=None) -> None:
+def check_supported(cfg: SimConfig, device=None,
+                    mesh: Optional[Mesh] = None) -> None:
     """Raise for a config the port cannot run as written (on ``device``,
-    when given): NotImplementedError for what is not ported yet, before
-    any state or stepper is built."""
+    or on ``mesh``, when given): NotImplementedError for what is not ported
+    yet, before any state or stepper is built. Without either,
+    ``mesh.n_devices = 0`` is left to the run to resolve."""
     if cfg.backend != "auto":
         raise ValueError(
             f"backend = {cfg.backend!r} names a JAX backend; the port takes "
@@ -114,7 +143,13 @@ def check_supported(cfg: SimConfig, device=None) -> None:
             f"integrator.kind = {kind!r} is not ported yet (ROADMAP "
             f"{_INTEGRATOR_ITEMS[kind]}); the port runs 'kdk', 'hermite' and "
             "'block'")
-    _check_mesh(cfg, device)
+    if mesh is not None or device is not None:
+        mesh = resolve_mesh(cfg, device, mesh)
+        shards = mesh.n_devices if mesh is not None else 1
+    else:
+        shards = cfg.mesh.n_devices
+    if shards > 1:
+        _check_sharded(cfg)
     precision = cfg.integrator.precision
     check_precision(precision)
     n = n_particles(cfg)
@@ -275,14 +310,24 @@ def place_on_orbit(state: ParticleState,
     return state.shifted(dpos=pos0, dvel=vel0)
 
 
-def build_scene(cfg: SimConfig, device="cuda") -> Scene:
+def build_scene(cfg: SimConfig, device="cuda",
+                mesh: Optional[Mesh] = None) -> Scene:
+    """The scene on ``device``; on a mesh of more than one shard (``mesh``,
+    or ``mesh.n_devices`` resolved) its force is a ShardedForce in the
+    configured mode, whose results land on ``device``."""
     device = resolve_device(device)
-    check_supported(cfg, device)
+    check_supported(cfg, device, mesh)
+    mesh = resolve_mesh(cfg, device, mesh)
     us = build_units(cfg)
     external = build_external_potential(cfg, us)
     state = place_on_orbit(build_ic(cfg, us, device), external, cfg, us)
-    force = make_force_model(cfg.integrator.eps, us.G, external,
-                             precision=cfg.integrator.precision)
+    if mesh is not None:
+        force = make_sharded_force(cfg.integrator.eps, us.G, external,
+                                   mesh=mesh, mode=mesh_mode(cfg),
+                                   precision=cfg.integrator.precision)
+    else:
+        force = make_force_model(cfg.integrator.eps, us.G, external,
+                                 precision=cfg.integrator.precision)
     return Scene(units=us, state=state, force=force, config=cfg)
 
 

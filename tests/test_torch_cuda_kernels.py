@@ -44,13 +44,20 @@ its compensated form K18<comp>) and K19 (rows_accel_xs) are held to their
 f64 twins the same way, repeat bitwise and give a row the same bits
 whatever other rows share the launch; past STREAM_N their Kahan steps are
 shown to work: K18<comp> and K19 err at most 5e-7 of max|a| and at most a
-third of what their layout errs without them.
+third of what their layout errs without them. The sharded ring's K20
+(ring_accel, with and without the potential) and K21 (ring_jerk) are held
+to their f64 twins at the first ring step (a store, the compensations
+zeroed) and at a step onto non-zero incoming sums (sum - comp grows by the
+f64 step), at the same tolerances, and repeat bitwise; every mode of the
+sharded force on 4 shards of the card matches the unsharded ForceModel to
+2e-5 and repeats bitwise; the overlapped ring equals its serial schedule
+bitwise, and d = 1 is one launch.
 """
 import numpy as np
 import pytest
 import torch
 
-from oc_nbody_tpu_torch.ops import cuda_df
+from oc_nbody_tpu_torch.ops import cuda_df, cuda_ring
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
 from oc_nbody_tpu_torch.ops import df32, gravity
 from oc_nbody_tpu_torch.ops.gravity import prepare_f32
@@ -216,6 +223,11 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda, monkeypatch):
     monkeypatch.setattr(cg, "RT_MAX_ROWS", 63)
     cg.accel_rows_x_hilo(hi[:64], lo[:64], hi, lo, gm,
                          1.0 / 64)                      # past it: K19
+    cuda_ring.accel_ring([pos[:64]], [mass[:64]], 1.0 / 64)   # one shard: K20
+    cuda_ring.accel_potential_ring([pos[:64]], [mass[:64]],
+                                   1.0 / 64)            # K20<phi>
+    cuda_ring.accel_jerk_ring([pos[:64]], [vel[:64]], [mass[:64]],
+                              1.0 / 64)                 # K21
     torch.cuda.synchronize()
     assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
     assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}
@@ -1212,3 +1224,132 @@ def test_block_graphs_at_df32_agree_with_eager(cuda, pec2):
         else:
             scale = float(b.abs().max())
             assert float((a - b).abs().max()) <= 1e-11 * scale
+
+
+def _ring_step(key, ops, eps, sums, comps, first, twin=False):
+    """K20 / K20<phi> / K21 (or, with ``twin``, its plain twin in the
+    sums' dtype) on ``ops`` = (rows, [vrows,] src, [svel,] gm), in place."""
+    if key == "ring_jerk":
+        fn = cuda_ring.ring_step_jerk_plain if twin else \
+            cuda_ring.ring_step_jerk_kernel
+        args = (*ops, eps, sums[0], sums[1], comps[0], comps[1])
+    else:
+        fn = cuda_ring.ring_step_plain if twin else cuda_ring.ring_step_kernel
+        args = (*ops, eps, sums[0], comps[0],
+                *((sums[1], comps[1]) if key == "ring_phi" else ()))
+    kw = dict(dtype=sums[0].dtype) if twin else dict(guarded=eps == 0.0)
+    fn(*args, first=first, **kw)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 256])
+@pytest.mark.parametrize("key", ["ring", "ring_phi", "ring_jerk"])
+@pytest.mark.parametrize("nr,ns", [(1, 1), (127, 129), (2664, 2664),
+                                   (300, 4097)])
+def test_ring_step_kernels_match_their_twins(cuda, key, nr, ns, eps):
+    """K20, K20<phi> and K21: the first step stores and zeroes the
+    compensations; a step onto non-zero incoming sums adds by a Kahan
+    step (sum - comp grows by the f64 step); two launches from the same
+    incoming sums are bitwise equal."""
+    pos, mass, vel = _moving_cluster(nr + ns, nr + ns, cuda)
+    ops = ((pos[:nr], vel[:nr], pos[nr:], vel[nr:], mass[nr:])
+           if key == "ring_jerk" else (pos[:nr], pos[nr:], mass[nr:]))
+    ops = tuple(t.contiguous() for t in ops)
+    shapes = {"ring": [(nr, 3)], "ring_phi": [(nr, 3), (nr,)],
+              "ring_jerk": [(nr, 3), (nr, 3)]}[key]
+
+    def zeros(dtype):
+        return [torch.zeros(sh, dtype=dtype, device=cuda) for sh in shapes]
+
+    step64, c64 = zeros(torch.float64), zeros(torch.float64)
+    _ring_step(key, ops, eps, step64, c64, True, twin=True)
+    first = zeros(torch.float32)
+    comps = [torch.ones(sh, device=cuda) for sh in shapes]
+    _ring_step(key, ops, eps, first, comps, True)
+    assert all(float(c.abs().max()) == 0.0 for c in comps)
+    out0 = [3.0 * t + 1.0 for t in first]
+    comp0 = [1e-7 * t for t in out0]
+    sums = [[t.clone() for t in out0] for _ in range(2)]
+    cps = [[t.clone() for t in comp0] for _ in range(2)]
+    for s, c in zip(sums, cps):
+        _ring_step(key, ops, eps, s, c, False)
+    for a, b in zip(sums[0] + cps[0], sums[1] + cps[1]):
+        assert torch.equal(a, b)
+    for i, (got, want) in enumerate(zip(first, step64)):
+        grown = ((sums[0][i].double() - cps[0][i].double())
+                 - (out0[i].double() - comp0[i].double()))
+        tol = 5e-6 if i == 0 or key == "ring_phi" else 1e-5
+        scale = float(want.abs().max())
+        if key == "ring_phi" and i == 1:
+            torch.testing.assert_close(got.double(), want, rtol=3e-5, atol=0)
+            torch.testing.assert_close(grown, want, rtol=3e-5,
+                                       atol=1e-7 * float(out0[1].abs().max()))
+        else:
+            assert float((got.double() - want).abs().max()) <= tol * scale
+            assert float((grown - want).abs().max()) <= (
+                tol * scale + 1e-7 * float(out0[i].abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["allgather", "ring", "rdma", "halfring"])
+def test_sharded_force_on_the_card_matches_unsharded(cuda, mode):
+    """Every mode on 4 shards of the card, N = 10,650 (ragged: 2,664 a
+    shard): accel, accel + phi, accel + jerk within 2e-5 of the unsharded
+    ForceModel's (phi rtol 3e-5), each bitwise repeatable."""
+    from oc_nbody_tpu_torch.forces import make_force_model
+    from oc_nbody_tpu_torch.parallel.force import make_sharded_force
+    from oc_nbody_tpu_torch.parallel.mesh import Mesh
+    rng = np.random.default_rng(10650)
+    pos = torch.from_numpy(rng.normal(size=(10650, 3))).to(cuda)
+    vel = torch.from_numpy(0.3 * rng.normal(size=(10650, 3))).to(cuda)
+    mass = torch.from_numpy(rng.uniform(0.5, 1.5, 10650) / 10650).to(
+        cuda, torch.float32)
+    sf = make_sharded_force(1.0 / 256, mesh=Mesh.on_one_device(4, cuda),
+                            mode=mode)
+    single = make_force_model(1.0 / 256)
+    for name, call in (("accel", lambda f: (f.accel(pos, mass),)),
+                       ("phi", lambda f: f.accel_potential(pos, mass)[:2]),
+                       ("jerk", lambda f: f.accel_jerk(pos, vel, mass))):
+        got, again, want = call(sf), call(sf), call(single)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        for i, (g, w) in enumerate(zip(got, want)):
+            if name == "phi" and i == 1:
+                torch.testing.assert_close(g, w, rtol=3e-5, atol=0)
+            else:
+                assert float((g - w).abs().max()) <= 2e-5 * float(
+                    w.abs().max()), (mode, name, i)
+
+
+def test_ring_evaluations_are_race_free_and_launch_d_squared(cuda):
+    """The overlapped ring (compute and copy streams, events) equals the
+    same schedule with the host waiting after every ring step, bitwise,
+    over repeats; d = 1 is one launch with no slab; each evaluation is d^2
+    launches."""
+    pos, mass, vel = _moving_cluster(16384, 3, cuda)
+    d, size = 4, 4096
+    ps = [pos[s * size:(s + 1) * size] for s in range(d)]
+    vs = [vel[s * size:(s + 1) * size] for s in range(d)]
+    ms = [mass[s * size:(s + 1) * size] for s in range(d)]
+    buffers = cuda_ring.RingBuffers()
+    for key, fn in (
+            ("ring", lambda serial: cuda_ring.accel_ring(
+                ps, ms, 1.0 / 256, serial=serial, buffers=buffers)),
+            ("ring_phi", lambda serial: cuda_ring.accel_potential_ring(
+                ps, ms, 1.0 / 256, serial=serial, buffers=buffers)),
+            ("ring_jerk", lambda serial: cuda_ring.accel_jerk_ring(
+                ps, vs, ms, 1.0 / 256, serial=serial, buffers=buffers))):
+        def flat(out):
+            return [t for o in out for t in (o if isinstance(o, tuple)
+                                             else (o,))]
+        before = cg.LAUNCHES[key]
+        serial = flat(fn(True))
+        assert cg.LAUNCHES[key] - before == d * d
+        for _ in range(3):
+            assert all(torch.equal(a, b)
+                       for a, b in zip(flat(fn(False)), serial)), key
+    one_shard = cuda_ring.RingBuffers()
+    before = cg.LAUNCHES["ring"]
+    (one,) = cuda_ring.accel_ring([pos], [mass], 1.0 / 256,
+                                  buffers=one_shard)
+    assert cg.LAUNCHES["ring"] - before == 1 and not one_shard.rings
+    ref = cg.rows_plain(pos, pos, mass, 1.0 / 256, dtype=torch.float64)
+    assert float((one.double() - ref).abs().max()) <= 2e-5 * float(
+        ref.abs().max())

@@ -359,7 +359,8 @@ def test_cli_info_and_refusals(capsys):
     with pytest.raises(NotImplementedError, match="B10"):
         tmain.main(["run", C5X, "--device", "cpu", "--set", "ic.n=262145",
                     "--set", "integrator.precision=df32"])
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="requested 4 devices, only 1 "
+                                         "visible"):
         tmain.main(["run", C5X, "--device", "cpu", "--set",
                     "mesh.n_devices=4"])
 
