@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    K5 rows_jerk_t; K6-K17 below) against its plain PyTorch twin in f64 on
    the same inputs, with max error, tolerance and times (CUDA events,
    median of 5) for the kernel and the f32 plain twin (K5 and K4 beside it as CUDA-graph
-   replays of 20 calls); K2, K3 and K5 are launched twice
+   replays of 20 calls); K2 at N = 8,191, 8,192, 32,768, 65,536, 131,072
+   and 262,144 beside its bound, its tile geometry and its shared-memory
+   bytes a pair (its plain twin timed at 65,536 only; K12 likewise below);
+   K2, K3 and K5 are launched twice
    and must be bitwise equal, and K5 must give a row the same bits alone,
    in a subset and among all rows; K5 is timed beside K4 at the same
    shapes. Then the extended (hi/lo) tier the same way: K6 sym_accel_x at
@@ -294,8 +297,8 @@ PEAK_BYTES = 3.35e12
 # f32 flops per pair for the bounds, counted from the kernels' pair
 # functions (an FMA as 2, the rsqrt apart): one-sided accel 18 and 19 with
 # phi (pair.cuh:row_pair), accel+jerk 41 (pair.cuh:row_jerk_pair);
-# pair-symmetric, per unique pair, accel 26 and 28 with phi
-# (sym_accel.cu:sym_pair), accel+jerk 53 (sym_jerk.cu:sym_jerk_pair)
+# pair-symmetric, per unique pair, accel+jerk 53
+# (sym_jerk.cu:sym_jerk_pair)
 # the extended tier: the shared separation and Newton-refined inverse 27
 # (pair.cuh:hilo_sep_inv), so one-sided accel 36 and 37 with phi
 # (row_pair_x), accel+jerk 65 (row_jerk_pair_x); pair-symmetric accel 44
@@ -304,18 +307,20 @@ PEAK_BYTES = 3.35e12
 # the df32 tier, counted in df.cuh's header from its functions (two_sum 6,
 # two_prod 3, df_add 11, df_mul 10, df_sqr 9, df_rsqrt 39 without its
 # seed): accel 233 (df_accel_pair), accel+jerk 481 (df_jerk_pair)
-# the cross kernels K12 and K13 run K2's and K3's pair functions on every
-# pair of two sets (26, 28 with phi, 53); K14 is K5's pair (41) plus a Kahan
+# pair-symmetric K2 and the cross kernel K12 run their own pair
+# (sym_rows.cuh:sym_pair_rb): 25 flops, 28 with phi;
+# the cross kernel K13 runs K3's pair function on every pair of two sets
+# (53); K14 is K5's pair (41) plus a Kahan
 # step of 4 flops per component and stage of 32 pairs (24 / 32 = 0.75); at
 # the extended tier K15 and K16 run K6's and K7's pair functions (44, 46
 # with phi, 77; pair.cuh:sym_pair_x, sym_jerk_pair_x) and K17 is K9's pair
 # (65) plus the same Kahan steps
 FLOPS_PER_PAIR = {"rows": 18, "rows_phi": 19, "rows_jerk": 41,
-                  "rows_jerk_t": 41, "sym": 26, "sym_phi": 28,
+                  "rows_jerk_t": 41, "sym": 25, "sym_phi": 28,
                   "sym_jerk": 53, "rows_x": 36, "rows_x_phi": 37,
                   "rows_jerk_x": 65, "sym_x": 44, "sym_x_phi": 46,
                   "sym_jerk_x": 77, "rows_df": 233, "rows_jerk_df": 481,
-                  "cross": 26, "cross_phi": 28, "cross_jerk": 53,
+                  "cross": 25, "cross_phi": 28, "cross_jerk": 53,
                   "rows_jerk_stream": 41.75, "cross_x": 44,
                   "cross_x_phi": 46, "cross_jerk_x": 77,
                   "rows_jerk_x_stream": 65.75,
@@ -654,11 +659,18 @@ def check_kernels(cg, device):
                         max_abs_err=err, ms=ms, plain_ms=pms, shape=[nr, ns],
                         bound=_bound(nr * ns, FLOPS_PER_PAIR[key],
                                      16 * ns + (28 if with_phi else 24) * nr))
-    for n in (8191, 8192, 65536, 262144):
+    # K2 at SYM_MIN (c2), a halfring shard (32,768), the north star, c5 and
+    # c6's diagonal chunk (131,072) and STREAM_N; its plain twin is timed at
+    # the north star's N only
+    print("sym_accel: bound and share of it at each N, the tile geometry "
+          "(R rows a thread, S column parts) and its shared-memory bytes a "
+          "pair, 48 / R")
+    for n in (8191, 8192, 32768, 65536, 131072, 262144):
         pos, mass = _cluster(n, 12, device)
         tol = 2e-5 if n >= 65536 else 5e-6
         eps = 1.0 / 512
         chunk = 256 if n > 65536 else 1024
+        geo = cg.sym_geometry(n)
         for with_phi in (False, True):
             out = cg.sym_kernel(pos, mass, eps, with_phi=with_phi,
                                 guarded=False)
@@ -677,18 +689,23 @@ def check_kernels(cg, device):
             ms = _median_ms(lambda: cg.sym_kernel(pos, mass, eps,
                                                   with_phi=with_phi,
                                                   guarded=False))
-            pms = _median_ms(lambda: cg.sym_plain(pos, mass, eps,
-                                                  with_phi=with_phi,
-                                                  chunk=chunk))
+            pms = (_median_ms(lambda: cg.sym_plain(pos, mass, eps,
+                                                   with_phi=with_phi,
+                                                   chunk=chunk))
+                   if n == 65536 else None)
+            key = "sym_phi" if with_phi else "sym"
+            bound = _bound(n * (n - 1) // 2, FLOPS_PER_PAIR[key],
+                           (32 if with_phi else 28) * n)
             print(f"sym_accel   ({n}){'':<{13 - len(str(n))}}"
                   f"{int(with_phi):<5}{eps:<11.6g}{err:<11.3e}{rel:<9.2e}"
-                  f"{prel:<11.2e}{ms:<10.4f}{pms:.4f}   bitwise-repeatable")
+                  f"{prel:<11.2e}{ms:<10.4f}"
+                  f"{'-' if pms is None else f'{pms:.4f}'}   "
+                  f"bound {bound[0]:.4f} ({bound[0] / ms:.1%}), R,S = "
+                  f"{geo[0]},{geo[1]}, {48 / geo[0]:g} B/pair shared   "
+                  "bitwise-repeatable", flush=True)
             if n == 65536:
-                key = "sym_phi" if with_phi else "sym"
-                main[key] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=pms, shape=[n],
-                    bound=_bound(n * (n - 1) // 2, FLOPS_PER_PAIR[key],
-                                 (32 if with_phi else 28) * n))
+                main[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                 shape=[n], bound=bound, smem=48 / geo[0])
             torch.cuda.empty_cache()
 
     print("kernel      shape            eps        max|da|    rel_a    "
@@ -753,11 +770,11 @@ def check_kernels(cg, device):
             k5_case(cg, src, svel, mass, nr, eps)
     check_row_independence(cg, src, svel, mass)
     print("kernel     shape           ms        bound_ms   bound_by    "
-          "share of bound")
+          "share of bound  shared B/pair")
     for key, m in main.items():
         b_ms, b_by = m["bound"]
         print(f"{key:<11}{str(m['shape']):<16}{m['ms']:<10.4f}{b_ms:<11.5f}"
-              f"{b_by:<12}{b_ms / m['ms']:.1%}")
+              f"{b_by:<12}{b_ms / m['ms']:<16.1%}{m.get('smem', '-')}")
     return main
 
 
@@ -1296,9 +1313,10 @@ def check_kernels_big(cg, device, main):
     f64 = torch.float64
     eps = 1.0 / 256
     print("kernel      shape            phi  max|da| A  max|da| B  rel      "
-          "phi_rel    ms        plain_ms  bound_ms")
+          "phi_rel    ms        plain_ms  bound_ms  (R,S, shared B/pair)")
     pos, mass = _cluster(sum(K12_PAIRS[0]), 41, device)
     for nA, nB in K12_PAIRS:
+        geo = cg.cross_geometry(nA, nB)
         pA, pB = pos[:nA].contiguous(), pos[nA:nA + nB].contiguous()
         mA, mB = mass[:nA].contiguous(), mass[nA:nA + nB].contiguous()
         for with_phi in (False, True):
@@ -1330,9 +1348,12 @@ def check_kernels_big(cg, device, main):
                 bound = _bound(nA * nB, FLOPS_PER_PAIR[key],
                                (32 if with_phi else 28) * (nA + nB))
                 main[key] = dict(max_abs_err=max(e[0] for e in errs), ms=ms,
-                                 plain_ms=pms, shape=[nA, nB], bound=bound)
-                line += f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f}"
-            print(line + "   bitwise-repeatable", flush=True)
+                                 plain_ms=pms, shape=[nA, nB], bound=bound,
+                                 smem=48 / geo[0])
+                line += (f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f} "
+                         f"({bound[0] / ms:.1%})")
+            print(line + f"   ({geo[0]},{geo[1]}, {48 / geo[0]:g})   "
+                  "bitwise-repeatable", flush=True)
             torch.cuda.empty_cache()
     del pos, mass
     print("kernel      shape            max|da| A  max|da| B  rel_a    "

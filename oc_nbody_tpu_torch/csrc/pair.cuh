@@ -36,9 +36,9 @@
 
 namespace ocn {
 
-// Tile edge of the pair-symmetric kernels (K2, K3, K6, K7) and of the cross
-// kernels (K12, K13, K15, K16): one block of kSymTile threads per tile
-// pair.
+// Tile edge of the pair-symmetric kernels K3, K6, K7 and of the cross
+// kernels K13, K15, K16: one block of kSymTile threads per tile pair (K2
+// and K12 tile by their own geometry, sym_rows.cuh).
 constexpr int kSymTile = 128;
 
 // Zero-guarded rsqrt (ops/pallas_pair.py:_inv_r). GUARDED is for eps == 0,
@@ -89,35 +89,6 @@ __device__ __forceinline__ void row_jerk_pair(float4 s, float4 sv, float3 xi,
   j.x += w * dvx - sc * dx;
   j.y += w * dvy - sc * dy;
   j.z += w * dvz - sc * dz;
-}
-
-// Pair-symmetric pair (K2, K12): the action of source s on the row at (xi,
-// yi, zi) into (ax, ay, az, ph), and the row's reaction on the source,
-// -G m_i d inv^3 (and -G m_i inv for the potential), into col. ph
-// accumulates +G m_j inv; the caller stores -ph.
-template <bool WITH_PHI, bool GUARDED>
-__device__ __forceinline__ void sym_pair(float4 s, float xi, float yi,
-                                         float zi, float gmi, float eps2,
-                                         float& ax, float& ay, float& az,
-                                         float& ph, float4& col) {
-  const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
-  const float u = dx * dx + dy * dy + dz * dz + eps2;
-  const float inv = inv_r<GUARDED>(u);
-  const float inv2 = inv * inv;
-  const float gjinv = s.w * inv;
-  const float giinv = gmi * inv;
-  const float w = gjinv * inv2;
-  const float wi = giinv * inv2;
-  ax += w * dx;
-  ay += w * dy;
-  az += w * dz;
-  col.x -= wi * dx;
-  col.y -= wi * dy;
-  col.z -= wi * dz;
-  if (WITH_PHI) {
-    ph += gjinv;
-    col.w -= giinv;
-  }
 }
 
 // Pair-symmetric accel + jerk pair (K3, K13): with w = G m_j inv^3, rv =
@@ -319,8 +290,8 @@ __device__ __forceinline__ void tile_pair(long long b, int nt, int& I,
   J = i + static_cast<int>(b - triangle_start(i, nt));
 }
 
-// Second pass of the tile-pair kernels (K2, K3, K12, K13, K15, K16): row i
-// of n sums
+// Second pass of the tile-pair kernels (K3, K13, K15, K16): row i of n
+// sums
 // its np tile partials scratch[i / T][P][i % T], P = 0 .. np-1, in that
 // order (T = kSymTile), one thread a row; no atomics, so the sum is bitwise
 // the same from launch to launch. The float4 form carries (a, -phi) or (a,

@@ -9,8 +9,10 @@ in ``ops/cuda_df.py``, the sharded ring's steps K20 and K21
     potential. Replaces the Pallas row-grid kernels ``_accel_kernel`` and
     ``_accel_phi_kernel`` (oc_nbody_tpu/ops/pallas_gravity.py:110, :199).
   * K2 ``csrc/sym_accel.cu`` — pair-symmetric self-interaction, optional
-    potential, bitwise deterministic. Replaces ``_make_sym_kernel`` with
-    ``_pair_accel`` / ``_pair_phi`` (oc_nbody_tpu/ops/pallas_pair.py:256).
+    potential, bitwise deterministic; R rows a thread in registers
+    (``csrc/sym_rows.cuh``), its tile geometry chosen from N
+    (``sym_geometry``). Replaces ``_make_sym_kernel`` with ``_pair_accel`` /
+    ``_pair_phi`` (oc_nbody_tpu/ops/pallas_pair.py:256).
   * K3 ``csrc/sym_jerk.cu`` — pair-symmetric self-interaction accel + jerk,
     bitwise deterministic. Replaces ``_make_sym_kernel`` with ``_pair_jerk``
     (oc_nbody_tpu/ops/pallas_pair.py:256, :137).
@@ -21,9 +23,10 @@ in ``ops/cuda_df.py``, the sharded ring's steps K20 and K21
     on the other rows of the launch. Replaces ``_accel_jerk_kernel_t`` with
     ``_sweep_t_jerk`` (oc_nbody_tpu/ops/pallas_gravity.py:926, :801).
   * K12 ``csrc/cross_accel.cu`` — two disjoint sets, each pair once, A's
-    action and B's reaction, optional potential, bitwise deterministic.
-    Replaces ``_make_cross_kernel`` with ``_pair_accel`` / ``_pair_phi``
-    (oc_nbody_tpu/ops/pallas_pair.py:296).
+    action and B's reaction, optional potential, bitwise deterministic; K2's
+    register-blocked rows, its geometry chosen from the set sizes
+    (``cross_geometry``). Replaces ``_make_cross_kernel`` with
+    ``_pair_accel`` / ``_pair_phi`` (oc_nbody_tpu/ops/pallas_pair.py:296).
   * K13 ``csrc/cross_jerk.cu`` — the same for accel + jerk. Replaces
     ``_make_cross_kernel`` with ``_pair_jerk`` (pallas_pair.py:296, :137).
   * K14, K5's compensated variant (``csrc/rows_jerk_t.cu``, Kahan steps
@@ -199,8 +202,8 @@ PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
-_HEADERS = ("pair.cuh", "rows_split.cuh", "rows_accel_t.cuh",
-            "rows_jerk_t.cuh", "df.cuh")
+_HEADERS = ("pair.cuh", "sym_rows.cuh", "rows_split.cuh",
+            "rows_accel_t.cuh", "rows_jerk_t.cuh", "df.cuh")
 _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
             "rows_accel_x.cu", "rows_jerk_x.cu", "rows_accel_df.cu",
@@ -287,6 +290,12 @@ def _library():
         lib.ocn_rows_accel.restype = i
         lib.ocn_sym_accel.argtypes = [p, p, i, f, f, i, p, p, p, p]
         lib.ocn_sym_accel.restype = i
+        lib.ocn_sym_accel_at.argtypes = [p, p, i, f, f, i, i, p, p, p, p]
+        lib.ocn_sym_accel_at.restype = i
+        lib.ocn_sym_geometry.argtypes = [i]
+        lib.ocn_sym_geometry.restype = i
+        lib.ocn_sym_scratch.argtypes = [i, i]
+        lib.ocn_sym_scratch.restype = ctypes.c_longlong
         lib.ocn_rows_jerk.argtypes = [p, p, i, p, p, p, i, f, f, i, p, p, p]
         lib.ocn_rows_jerk.restype = i
         lib.ocn_sym_jerk.argtypes = [p, p, p, i, f, f, i, p, p, p, p]
@@ -322,6 +331,13 @@ def _library():
         lib.ocn_cross_accel.argtypes = [p, p, i, p, p, i, f, f, i, p, p, p,
                                         p, p, p]
         lib.ocn_cross_accel.restype = i
+        lib.ocn_cross_accel_at.argtypes = [p, p, i, p, p, i, f, f, i, i, p,
+                                           p, p, p, p, p]
+        lib.ocn_cross_accel_at.restype = i
+        lib.ocn_cross_geometry.argtypes = [i, i]
+        lib.ocn_cross_geometry.restype = i
+        lib.ocn_cross_accel_scratch.argtypes = [i, i, i]
+        lib.ocn_cross_accel_scratch.restype = ctypes.c_longlong
         lib.ocn_cross_scratch.argtypes = [i, i]
         lib.ocn_cross_scratch.restype = ctypes.c_longlong
         lib.ocn_cross_jerk.argtypes = [p, p, p, i, p, p, p, i, f, f, i, p, p,
@@ -599,12 +615,49 @@ def _scratch(floats: int, device, scratch=None):
     return scratch
 
 
-def sym_scratch_floats(n: int, jerk: bool = False) -> int:
-    """Floats of scratch K2 (K3 with ``jerk``) needs at N = n: nt x nt x T
-    slots of four floats (six for the jerk)."""
-    t = _library().ocn_sym_tile()
+# K2's and K12's tile geometries (csrc/sym_rows.cuh): (R, S), R rows a
+# thread and S parts of a tile pair's columns. The kernels pick one from the
+# sizes alone (``sym_geometry``, ``cross_geometry``); the ``geometry``
+# argument of ``sym_kernel`` and ``cross_kernel`` names another, for the
+# tests and the geometry sweep of sym_kernel_times.py.
+GEOMETRIES = tuple((r, s) for r in (1, 2, 4, 8) for s in (1, 2, 4, 8)
+                   if s <= r)
+
+
+def _geom(geometry) -> int:
+    """(R, S) encoded as the library takes it (0: chosen by the sizes)."""
+    if geometry is None:
+        return 0
+    if tuple(geometry) not in GEOMETRIES:
+        raise ValueError(f"geometry must be one of {GEOMETRIES}, got "
+                         f"{geometry!r}")
+    return geometry[0] * 16 + geometry[1]
+
+
+def sym_geometry(n: int) -> tuple[int, int]:
+    """K2's (R, S) at N = n."""
+    return divmod(_library().ocn_sym_geometry(n), 16)
+
+
+def cross_geometry(nA: int, nB: int) -> tuple[int, int]:
+    """K12's (R, S) on nA x nB."""
+    return divmod(_library().ocn_cross_geometry(nA, nB), 16)
+
+
+def sym_scratch_floats(n: int, kernel: str = "sym", geometry=None) -> int:
+    """Floats of scratch the pair-symmetric ``kernel`` (by its launch key:
+    "sym" K2, "sym_jerk" K3, "sym_x" K6, "sym_jerk_x" K7) needs at N = n.
+    K2's comes from the library (in ``geometry``, default its own); the
+    others tile by ``ocn_sym_tile()``: nt x nt x T slots of four floats
+    (six for the jerk forms)."""
+    lib = _library()
+    if kernel == "sym":
+        return lib.ocn_sym_scratch(n, _geom(geometry))
+    if kernel not in ("sym_jerk", "sym_x", "sym_jerk_x"):
+        raise ValueError(f"no pair-symmetric kernel {kernel!r}")
+    t = lib.ocn_sym_tile()
     nt = -(-n // t)
-    return nt * nt * t * (6 if jerk else 4)
+    return nt * nt * t * (6 if kernel in ("sym_jerk", "sym_jerk_x") else 4)
 
 
 def rows_kernel(rows, src, mass, eps, G=1.0, with_phi=False, guarded=True):
@@ -669,22 +722,27 @@ def _rows_accel_t_launch(key, compensated, rows, src, mass, eps, G, with_phi,
 
 
 def sym_kernel(pos_c, mass_c, eps, G=1.0, with_phi=False, guarded=True,
-               scratch=None):
+               scratch=None, geometry=None):
     """Launch K2 (both passes) on centred f32 CUDA tensors; the same
     contract as ``sym_plain``. ``scratch``, if given, is a float32 buffer of
-    at least ``sym_scratch_floats(n)`` elements to use."""
+    at least ``sym_scratch_floats(n, "sym", geometry)`` elements to use.
+    ``geometry`` (one of ``GEOMETRIES``) overrides ``sym_geometry(n)``;
+    every caller in the port leaves it None."""
     n = pos_c.shape[0]
     _check_f32("pos", pos_c, (n, 3))
     _check_f32("mass", mass_c, (n,))
     lib = _library()
-    scratch = _scratch(sym_scratch_floats(n), pos_c.device, scratch)
+    scratch = _scratch(sym_scratch_floats(n, "sym", geometry), pos_c.device,
+                       scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
     phi = (torch.empty((n,), dtype=torch.float32, device=pos_c.device)
            if with_phi else None)
-    code = lib.ocn_sym_accel(
-        pos_c.data_ptr(), mass_c.data_ptr(), n, _f32(G), _f32(_f32(eps) ** 2),
-        int(guarded), scratch.data_ptr(), acc.data_ptr(),
-        phi.data_ptr() if with_phi else None, _stream(pos_c))
+    head = (pos_c.data_ptr(), mass_c.data_ptr(), n, _f32(G),
+            _f32(_f32(eps) ** 2), int(guarded))
+    tail = (scratch.data_ptr(), acc.data_ptr(),
+            phi.data_ptr() if with_phi else None, _stream(pos_c))
+    code = (lib.ocn_sym_accel(*head, *tail) if geometry is None
+            else lib.ocn_sym_accel_at(*head, _geom(geometry), *tail))
     LAUNCHES["sym"] += 1
     _check_launch(lib, code, "sym_accel")
     return (acc, phi) if with_phi else acc
@@ -756,14 +814,14 @@ def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True,
                     scratch=None):
     """Launch K3 (both passes) on centred f32 CUDA tensors; the same
     contract as ``sym_jerk_plain``. ``scratch``, if given, is a float32
-    buffer of at least ``sym_scratch_floats(n, jerk=True)`` elements."""
+    buffer of at least ``sym_scratch_floats(n, "sym_jerk")`` elements."""
     n = pos_c.shape[0]
     _check_f32("pos", pos_c, (n, 3))
     _check_f32("vel", vel_c, (n, 3))
     _check_f32("mass", mass_c, (n,))
     lib = _library()
     # six floats per slot: a float4 plane, then a float2 plane
-    scratch = _scratch(sym_scratch_floats(n, jerk=True), pos_c.device,
+    scratch = _scratch(sym_scratch_floats(n, "sym_jerk"), pos_c.device,
                        scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
     jerk = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
@@ -776,20 +834,29 @@ def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True,
     return acc, jerk
 
 
-def cross_scratch_floats(nA: int, nB: int, jerk: bool = False) -> int:
-    """Floats of scratch K12 or K15 (K13 or K16 with ``jerk``) needs on nA x
-    nB."""
+def cross_scratch_floats(nA: int, nB: int, kernel: str = "cross",
+                         geometry=None) -> int:
+    """Floats of scratch the cross ``kernel`` (by its launch key: "cross"
+    K12, in ``geometry``, default its own; "cross_jerk" K13, "cross_x" K15,
+    "cross_jerk_x" K16) needs on nA x nB, as the library says."""
     lib = _library()
-    fn = lib.ocn_cross_jerk_scratch if jerk else lib.ocn_cross_scratch
-    return fn(nA, nB)
+    if kernel == "cross":
+        return lib.ocn_cross_accel_scratch(nA, nB, _geom(geometry))
+    if kernel == "cross_x":
+        return lib.ocn_cross_scratch(nA, nB)
+    if kernel in ("cross_jerk", "cross_jerk_x"):
+        return lib.ocn_cross_jerk_scratch(nA, nB)
+    raise ValueError(f"no cross kernel {kernel!r}")
 
 
 def cross_kernel(posA, posB, massA, massB, eps, G=1.0, with_phi=False,
-                 guarded=True, scratch=None):
+                 guarded=True, scratch=None, geometry=None):
     """Launch K12 (the tile pass and a reduce per set) on f32 CUDA tensors
     centred in one frame; the same contract as ``cross_plain``.
     ``scratch``, if given, is a float32 buffer of at least
-    ``cross_scratch_floats(nA, nB)`` elements."""
+    ``cross_scratch_floats(nA, nB, "cross", geometry)`` elements.
+    ``geometry`` (one of ``GEOMETRIES``) overrides ``cross_geometry(nA,
+    nB)``; every caller in the port leaves it None."""
     nA, nB = posA.shape[0], posB.shape[0]
     _check_f32("posA", posA, (nA, 3))
     _check_f32("posB", posB, (nB, 3))
@@ -797,18 +864,20 @@ def cross_kernel(posA, posB, massA, massB, eps, G=1.0, with_phi=False,
     _check_f32("massB", massB, (nB,))
     lib = _library()
     dev = posA.device
-    scratch = _scratch(cross_scratch_floats(nA, nB), dev, scratch)
+    scratch = _scratch(cross_scratch_floats(nA, nB, "cross", geometry), dev,
+                       scratch)
     accA = torch.empty((nA, 3), dtype=torch.float32, device=dev)
     accB = torch.empty((nB, 3), dtype=torch.float32, device=dev)
     phiA, phiB = ((torch.empty((nA,), dtype=torch.float32, device=dev),
                    torch.empty((nB,), dtype=torch.float32, device=dev))
                   if with_phi else (None, None))
-    code = lib.ocn_cross_accel(
-        posA.data_ptr(), massA.data_ptr(), nA, posB.data_ptr(),
-        massB.data_ptr(), nB, _f32(G), _f32(_f32(eps) ** 2), int(guarded),
-        scratch.data_ptr(), accA.data_ptr(),
-        phiA.data_ptr() if with_phi else None, accB.data_ptr(),
-        phiB.data_ptr() if with_phi else None, _stream(posA))
+    head = (posA.data_ptr(), massA.data_ptr(), nA, posB.data_ptr(),
+            massB.data_ptr(), nB, _f32(G), _f32(_f32(eps) ** 2), int(guarded))
+    tail = (scratch.data_ptr(), accA.data_ptr(),
+            phiA.data_ptr() if with_phi else None, accB.data_ptr(),
+            phiB.data_ptr() if with_phi else None, _stream(posA))
+    code = (lib.ocn_cross_accel(*head, *tail) if geometry is None
+            else lib.ocn_cross_accel_at(*head, _geom(geometry), *tail))
     LAUNCHES["cross"] += 1
     _check_launch(lib, code, "cross_accel")
     return (accA, phiA, accB, phiB) if with_phi else (accA, accB)
@@ -819,7 +888,7 @@ def cross_jerk_kernel(posA, velA, posB, velB, massA, massB, eps, G=1.0,
     """Launch K13 (the tile pass and a reduce per set) on f32 CUDA tensors
     centred in one frame; the same contract as ``cross_jerk_plain``.
     ``scratch``, if given, is a float32 buffer of at least
-    ``cross_scratch_floats(nA, nB, jerk=True)`` elements."""
+    ``cross_scratch_floats(nA, nB, "cross_jerk")`` elements."""
     nA, nB = posA.shape[0], posB.shape[0]
     _check_planes(nA, posA=posA, velA=velA)
     _check_planes(nB, posB=posB, velB=velB)
@@ -827,7 +896,8 @@ def cross_jerk_kernel(posA, velA, posB, velB, massA, massB, eps, G=1.0,
     _check_f32("massB", massB, (nB,))
     lib = _library()
     dev = posA.device
-    scratch = _scratch(cross_scratch_floats(nA, nB, jerk=True), dev, scratch)
+    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_jerk"), dev,
+                       scratch)
     accA, jerkA = (torch.empty((nA, 3), dtype=torch.float32, device=dev)
                    for _ in range(2))
     accB, jerkB = (torch.empty((nB, 3), dtype=torch.float32, device=dev)
@@ -898,12 +968,12 @@ def sym_x_kernel(hi, lo, gm, eps, with_phi=False, guarded=True,
                  scratch=None):
     """Launch K6 (both passes) on (hi, lo) f32 CUDA planes; the same
     contract as ``sym_x_plain``. ``scratch``, if given, is a float32 buffer
-    of at least ``sym_scratch_floats(n)`` elements."""
+    of at least ``sym_scratch_floats(n, "sym_x")`` elements."""
     n = hi.shape[0]
     _check_planes(n, pos_hi=hi, pos_lo=lo)
     _check_f32("gm", gm, (n,))
     lib = _library()
-    scratch = _scratch(sym_scratch_floats(n), hi.device, scratch)
+    scratch = _scratch(sym_scratch_floats(n, "sym_x"), hi.device, scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
     phi = (torch.empty((n,), dtype=torch.float32, device=hi.device)
            if with_phi else None)
@@ -961,13 +1031,14 @@ def sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=True,
                       scratch=None):
     """Launch K7 (both passes) on (hi, lo) f32 CUDA planes; the same
     contract as ``sym_jerk_x_plain``. ``scratch``, if given, is a float32
-    buffer of at least ``sym_scratch_floats(n, jerk=True)`` elements."""
+    buffer of at least ``sym_scratch_floats(n, "sym_jerk_x")`` elements."""
     n = hi.shape[0]
     _check_planes(n, pos_hi=hi, pos_lo=lo, vel_hi=vhi, vel_lo=vlo)
     _check_f32("gm", gm, (n,))
     lib = _library()
     # six floats per slot: a float4 plane, then a float2 plane
-    scratch = _scratch(sym_scratch_floats(n, jerk=True), hi.device, scratch)
+    scratch = _scratch(sym_scratch_floats(n, "sym_jerk_x"), hi.device,
+                       scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
     jerk = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
     code = lib.ocn_sym_jerk_x(
@@ -984,7 +1055,7 @@ def cross_x_kernel(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
     """Launch K15 (the tile pass and a reduce per set) on (hi, lo) f32 CUDA
     planes split under one centring; the same contract as
     ``cross_x_plain``. ``scratch``, if given, is a float32 buffer of at
-    least ``cross_scratch_floats(nA, nB)`` elements."""
+    least ``cross_scratch_floats(nA, nB, "cross_x")`` elements."""
     nA, nB = hiA.shape[0], hiB.shape[0]
     _check_planes(nA, hiA=hiA, loA=loA)
     _check_planes(nB, hiB=hiB, loB=loB)
@@ -992,7 +1063,7 @@ def cross_x_kernel(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
     _check_f32("gmB", gmB, (nB,))
     lib = _library()
     dev = hiA.device
-    scratch = _scratch(cross_scratch_floats(nA, nB), dev, scratch)
+    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_x"), dev, scratch)
     accA = torch.empty((nA, 3), dtype=torch.float32, device=dev)
     accB = torch.empty((nB, 3), dtype=torch.float32, device=dev)
     phiA, phiB = ((torch.empty((nA,), dtype=torch.float32, device=dev),
@@ -1014,7 +1085,7 @@ def cross_jerk_x_kernel(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
     """Launch K16 (the tile pass and a reduce per set) on (hi, lo) f32 CUDA
     planes; the same contract as ``cross_jerk_x_plain``. ``scratch``, if
     given, is a float32 buffer of at least ``cross_scratch_floats(nA, nB,
-    jerk=True)`` elements."""
+    "cross_jerk_x")`` elements."""
     nA, nB = hiA.shape[0], hiB.shape[0]
     _check_planes(nA, hiA=hiA, loA=loA, vhiA=vhiA, vloA=vloA)
     _check_planes(nB, hiB=hiB, loB=loB, vhiB=vhiB, vloB=vloB)
@@ -1022,7 +1093,8 @@ def cross_jerk_x_kernel(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
     _check_f32("gmB", gmB, (nB,))
     lib = _library()
     dev = hiA.device
-    scratch = _scratch(cross_scratch_floats(nA, nB, jerk=True), dev, scratch)
+    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_jerk_x"), dev,
+                       scratch)
     accA, jerkA = (torch.empty((nA, 3), dtype=torch.float32, device=dev)
                    for _ in range(2))
     accB, jerkB = (torch.empty((nB, 3), dtype=torch.float32, device=dev)
@@ -1141,14 +1213,27 @@ def _chunked_sum(n, chunk, diag, cross):
     return outs
 
 
-def _chunk_scratch(n, chunk, jerk, device):
-    """One scratch buffer for every launch of a chunked evaluation on the
-    card: sized for a full chunk pair (a lone chunk's diagonal kernel
-    needs half of that)."""
-    width = min(chunk, n)
-    floats = (cross_scratch_floats(width, width, jerk) if n > chunk
-              else sym_scratch_floats(width, jerk))
-    return torch.empty((floats,), dtype=torch.float32, device=device)
+def chunk_scratch_floats(n, chunk, jerk=False, extended=False):
+    """Floats of the one scratch buffer every launch of a chunked evaluation
+    shares: the most any of them needs. The diagonal kernel (K2, K3, K6 or
+    K7 by ``jerk`` and ``extended``) runs on full chunks and on the ragged
+    last one, the cross kernel (K12, K13, K15 or K16) on full chunk pairs
+    and on a full chunk against the ragged last one; the two tile their
+    sets differently, and K2's and K12's geometries depend on the sizes, so
+    each shape is asked."""
+    diag = "sym" + ("_jerk" if jerk else "") + ("_x" if extended else "")
+    cross = diag.replace("sym", "cross")
+    width, last = min(chunk, n), n % chunk or min(chunk, n)
+    needs = [sym_scratch_floats(w, diag) for w in {width, last}]
+    if n > chunk:
+        needs += [cross_scratch_floats(width, w, cross)
+                  for w in {width, last}]
+    return max(needs)
+
+
+def _chunk_scratch(n, chunk, jerk, extended, device):
+    return torch.empty((chunk_scratch_floats(n, chunk, jerk, extended),),
+                       dtype=torch.float32, device=device)
 
 
 def _sym_chunked(pos_c, mass_c, vel_c, eps, G, guarded, chunk, with_phi):
@@ -1161,8 +1246,8 @@ def _sym_chunked(pos_c, mass_c, vel_c, eps, G, guarded, chunk, with_phi):
     planes = (pos_c, vel_c) if jerk else (pos_c,)
     on_cuda = _on_cuda(*planes, mass_c)
     n = pos_c.shape[0]
-    scratch = (_chunk_scratch(n, chunk, jerk, pos_c.device) if on_cuda
-               else None)
+    scratch = (_chunk_scratch(n, chunk, jerk, False, pos_c.device)
+               if on_cuda else None)
 
     def diag(k0, k1):
         p, m = pos_c[k0:k1], mass_c[k0:k1]
@@ -1515,7 +1600,7 @@ def _sym_chunked_x(hi, lo, gm, vel, eps, guarded, chunk, with_phi):
     planes = (hi, lo, *vel) if jerk else (hi, lo)
     on_cuda = _on_cuda(*planes, gm)
     n = hi.shape[0]
-    scratch = (_chunk_scratch(n, chunk, jerk, hi.device) if on_cuda
+    scratch = (_chunk_scratch(n, chunk, jerk, True, hi.device) if on_cuda
                else None)
 
     def part(k0, k1):

@@ -325,3 +325,105 @@ def test_capped_tiers_are_refused_before_any_stepper(monkeypatch, capsys):
             "pair-symmetric: K6 on 11 diagonal chunks of up to 98304, K15 on "
             "55 chunk pairs; active rows: K17 (compensated, any row count)"
             in capsys.readouterr().out)
+
+
+class _FakeLibrary:
+    """The kernel library's scratch-size exports with made-up geometries
+    (``sym`` for K2, ``cross`` for K12), so that the sizing of the chunked
+    evaluation's one scratch buffer is checked without a card."""
+
+    def __init__(self, sym, cross):
+        self.sym, self.cross = sym, cross
+
+    def ocn_sym_scratch(self, n, geom):
+        assert geom == 0
+        return self.sym(n)
+
+    def ocn_sym_tile(self):
+        return 128
+
+    def ocn_cross_accel_scratch(self, nA, nB, geom):
+        assert geom == 0
+        return self.cross(nA, nB)
+
+    def ocn_cross_scratch(self, nA, nB):
+        return 3 * nA * nB + 1
+
+    def ocn_cross_jerk_scratch(self, nA, nB):
+        return 5 * nA * nB + 2
+
+
+# each makes another launch the largest: a full chunk pair, a full
+# diagonal chunk, the ragged last diagonal chunk, the ragged chunk pair
+_FAKES = {
+    "cross": _FakeLibrary(lambda n: n, lambda nA, nB: nA * nB),
+    "diag": _FakeLibrary(lambda n: 1000 * n, lambda nA, nB: nA + nB),
+    "ragged_diag": _FakeLibrary(lambda n: 10 ** 7 if n % CHUNK else n,
+                                lambda nA, nB: nA * nB),
+    "ragged_cross": _FakeLibrary(
+        lambda n: n, lambda nA, nB: 10 ** 7 if nB % CHUNK else nA * nB),
+}
+
+
+@pytest.mark.parametrize("n", [100, 300, 384])
+@pytest.mark.parametrize("jerk", [False, True])
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("fake", sorted(_FAKES))
+def test_chunk_scratch_covers_every_launch(monkeypatch, fake, extended, jerk,
+                                           n):
+    """The chunked evaluation's one scratch buffer holds what the largest of
+    its launches needs, as each kernel's own size function says: every
+    diagonal chunk (K2, K3, K6 or K7) and every chunk pair (K12, K13, K15 or
+    K16) of ``_chunked_sum``'s order at chunk 128, for one chunk (n = 100),
+    a ragged last chunk (300) and whole chunks (384), with K2's and K12's
+    sizes made up so that each kind of launch is the largest in turn."""
+    monkeypatch.setattr(cg, "_library", lambda: _FAKES[fake])
+    diag = "sym" + ("_jerk" if jerk else "") + ("_x" if extended else "")
+    cross = diag.replace("sym", "cross")
+    bounds = [(k, min(k + CHUNK, n)) for k in range(0, n, CHUNK)]
+    needs = [cg.sym_scratch_floats(k1 - k0, diag) for k0, k1 in bounds]
+    needs += [cg.cross_scratch_floats(i1 - i0, j1 - j0, cross)
+              for a, (i0, i1) in enumerate(bounds)
+              for j0, j1 in bounds[a + 1:]]
+    assert cg.chunk_scratch_floats(n, CHUNK, jerk, extended) == max(needs)
+    assert cg._chunk_scratch(n, CHUNK, jerk, extended, "cpu").numel() == \
+        max(needs)
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("sym", 7 * 300), ("sym_jerk", 3 * 3 * 128 * 6),
+    ("sym_x", 3 * 3 * 128 * 4), ("sym_jerk_x", 3 * 3 * 128 * 6)])
+def test_sym_scratch_asks_each_kernel(monkeypatch, kernel, want):
+    """K2's scratch comes from its own export; K3, K6 and K7 keep the shared
+    128-tile layout (nt x nt x 128 slots of 4 or 6 floats); an unknown
+    kernel is refused."""
+    monkeypatch.setattr(cg, "_library", lambda: _FakeLibrary(
+        lambda n: 7 * n, lambda nA, nB: 0))
+    assert cg.sym_scratch_floats(300, kernel) == want
+    with pytest.raises(ValueError, match="no pair-symmetric kernel"):
+        cg.sym_scratch_floats(300, "cross")
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("cross", 300 * 200), ("cross_x", 3 * 300 * 200 + 1),
+    ("cross_jerk", 5 * 300 * 200 + 2), ("cross_jerk_x", 5 * 300 * 200 + 2)])
+def test_cross_scratch_asks_each_kernel(monkeypatch, kernel, want):
+    """K12's scratch comes from its own export, K15's from the shared-tile
+    one, K13's and K16's from the jerk export; an unknown kernel is
+    refused."""
+    monkeypatch.setattr(cg, "_library", lambda: _FAKES["cross"])
+    assert cg.cross_scratch_floats(300, 200, kernel) == want
+    with pytest.raises(ValueError, match="no cross kernel"):
+        cg.cross_scratch_floats(300, 200, "sym")
+
+
+def test_geometries_are_checked_before_any_launch():
+    """The ten compiled (R, S) of K2 and K12 encode as the library takes
+    them; None leaves the choice to the sizes, anything else is refused."""
+    assert len(cg.GEOMETRIES) == 10
+    assert cg._geom(None) == 0
+    assert [cg._geom(g) for g in cg.GEOMETRIES] == [
+        0x11, 0x21, 0x22, 0x41, 0x42, 0x44, 0x81, 0x82, 0x84, 0x88]
+    for bad in ((3, 1), (2, 4), (16, 1)):
+        with pytest.raises(ValueError, match="geometry must be one of"):
+            cg._geom(bad)

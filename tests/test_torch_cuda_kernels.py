@@ -26,8 +26,11 @@ leaves ~1e-11; the bounds leave room for cancellation in a row's sum),
 repeat bitwise, and on the close-pair case stay inside 1e-9 / 1e-8 of the
 f64 oracle; the device's two_sum and two_prod are exact and its df_rsqrt is
 inside 1e-13. The ragged sizes 1,000 and 10,650 (the binaries config's N)
-run through K6, K7, K9, K10 and K11. K12 (cross_accel, with and without
-the potential) and K13 (cross_jerk), the disjoint-set kernels of the
+run through K6, K7, K9, K10 and K11; K2 runs at 8,192 and 10,650 too, and
+K2 and K12 in each of their tile geometries (csrc/sym_rows.cuh) on ragged
+sizes, where a NaN-filled scratch gives the same bits. K12 (cross_accel,
+with and without the potential) and K13 (cross_jerk), the disjoint-set
+kernels of the
 chunked self-interaction, are held to their f64 twins on ragged set pairs
 at the same tolerances and repeat bitwise, also on a reused scratch buffer;
 the chunked route itself runs on the card with STREAM_N lowered. K14 (K5's
@@ -122,13 +125,39 @@ def test_rows_kernel_matches_plain(cuda, nr, ns, with_phi, eps):
 
 @pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
 @pytest.mark.parametrize("with_phi", [False, True])
-@pytest.mark.parametrize("n", [1, 127, 128, 129, 300, 1000, 8191])
+@pytest.mark.parametrize("n", [1, 100, 127, 128, 129, 300, 1000, 1025, 8191,
+                               8192, 10650])
 def test_sym_kernel_matches_plain_and_repeats_bitwise(cuda, n, with_phi,
                                                       eps):
     pos, mass = _cluster(n, n, cuda)
     kw = dict(with_phi=with_phi, guarded=eps == 0.0)
     out = cg.sym_kernel(pos, mass, eps, 1.3, **kw)
     again = cg.sym_kernel(pos, mass, eps, 1.3, **kw)
+    ref = cg.sym_plain(pos, mass, eps, 1.3, with_phi=with_phi,
+                       dtype=torch.float64)
+    _check(out, ref, with_phi)
+    pairs = zip(out, again) if with_phi else [(out, again)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+
+
+def _nan_scratch(floats, device):
+    return torch.full((floats,), float("nan"), dtype=torch.float32,
+                      device=device)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("geometry", cg.GEOMETRIES)
+@pytest.mark.parametrize("n", [1000, 3001])
+def test_sym_kernel_every_geometry(cuda, n, geometry, with_phi, eps):
+    """K2 in each compiled (R rows a thread, S column parts) on ragged N
+    against its f64 twin; a launch on a NaN-filled scratch gives the same
+    bits, so every slot the reduce reads was written."""
+    pos, mass = _cluster(n, n + 7, cuda)
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0, geometry=geometry)
+    out = cg.sym_kernel(pos, mass, eps, 1.3, **kw)
+    nan = _nan_scratch(cg.sym_scratch_floats(n, "sym", geometry), cuda)
+    again = cg.sym_kernel(pos, mass, eps, 1.3, scratch=nan, **kw)
     ref = cg.sym_plain(pos, mass, eps, 1.3, with_phi=with_phi,
                        dtype=torch.float64)
     _check(out, ref, with_phi)
@@ -291,7 +320,7 @@ def test_rows_jerk_t_rows_are_independent_of_the_launch(cuda, guarded):
 @pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
 @pytest.mark.parametrize("with_phi", [False, True])
 @pytest.mark.parametrize("nA,nB", [(1, 1), (1, 300), (127, 129), (1000, 300),
-                                   (4097, 2000)])
+                                   (4097, 2000), (1025, 5000), (9000, 3001)])
 def test_cross_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
                                                         with_phi, eps):
     """K12 (K12<phi>) on disjoint ragged sets against its f64 twin, both
@@ -303,7 +332,7 @@ def test_cross_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
     kw = dict(with_phi=with_phi, guarded=eps == 0.0)
     out = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, **kw)
     again = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, **kw)
-    big = torch.empty((cg.cross_scratch_floats(nA + 128, nB + 128),),
+    big = torch.empty((cg.cross_scratch_floats(nA, nB) + 4096,),
                       dtype=torch.float32, device=cuda)
     reused = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, scratch=big, **kw)
     ref = cg.cross_plain(pA, pB, mA, mB, eps, 1.3, with_phi=with_phi,
@@ -315,6 +344,43 @@ def test_cross_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
            else ref[1], with_phi)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     assert all(torch.equal(a, b) for a, b in zip(out, reused))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("geometry", cg.GEOMETRIES)
+@pytest.mark.parametrize("nA,nB", [(1, 300), (1000, 3001), (2900, 700)])
+def test_cross_kernel_every_geometry(cuda, nA, nB, geometry, with_phi, eps):
+    """K12 in each compiled (R rows a thread, S column parts) on ragged sets
+    against its f64 twin, both sets' outputs; a launch on a NaN-filled
+    scratch gives the same bits."""
+    pos, mass = _cluster(nA + nB, nA + nB + 5, cuda)
+    pA, pB = pos[:nA].contiguous(), pos[nA:].contiguous()
+    mA, mB = mass[:nA].contiguous(), mass[nA:].contiguous()
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0, geometry=geometry)
+    out = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, **kw)
+    nan = _nan_scratch(cg.cross_scratch_floats(nA, nB, "cross", geometry),
+                       cuda)
+    again = cg.cross_kernel(pA, pB, mA, mB, eps, 1.3, scratch=nan, **kw)
+    ref = cg.cross_plain(pA, pB, mA, mB, eps, 1.3, with_phi=with_phi,
+                         dtype=torch.float64)
+    half = len(out) // 2
+    _check(out[:half] if with_phi else out[0], ref[:half] if with_phi
+           else ref[0], with_phi)
+    _check(out[half:] if with_phi else out[1], ref[half:] if with_phi
+           else ref[1], with_phi)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_geometry_follows_the_sizes(cuda):
+    """K2 and K12 pick the most rows a thread that still fills the card
+    (csrc/sym_rows.cuh: 1,024 blocks), from the sizes alone."""
+    assert cg.sym_geometry(1000) == (1, 1)
+    assert cg.sym_geometry(8192) == (2, 2)
+    assert cg.sym_geometry(32768) == (8, 2)
+    assert cg.sym_geometry(65536) == (8, 1)
+    assert cg.cross_geometry(131072, 131072) == (8, 1)
+    assert cg.cross_geometry(16384, 16384) == (8, 4)
 
 
 @pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
@@ -681,7 +747,8 @@ def test_cross_x_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
     kw = dict(with_phi=with_phi, guarded=eps == 0.0)
     out = cg.cross_x_kernel(*A, *B, gA, gB, eps, **kw)
     again = cg.cross_x_kernel(*A, *B, gA, gB, eps, **kw)
-    big = torch.empty((cg.cross_scratch_floats(nA + 128, nB + 128),),
+    big = torch.empty((cg.cross_scratch_floats(nA + 128, nB + 128,
+                                               "cross_x"),),
                       dtype=torch.float32, device=cuda)
     reused = cg.cross_x_kernel(*A, *B, gA, gB, eps, scratch=big, **kw)
     ref = cg.cross_x_plain(*A, *B, gA, gB, eps, dtype=torch.float64, **kw)
