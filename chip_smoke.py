@@ -42,7 +42,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-8 of the f64 oracle. Then the f32 tier past STREAM_N: K12
    cross_accel (with and without the potential) at a full chunk pair
    (131,072²) and a ragged one (131,072 x 82,496), K13 cross_jerk at
-   98,304² and 98,304 x 65,536, and K14 (K5 compensated) on 1 to 4,096
+   98,304² and 98,304 x 65,536 (beside its tile geometry, its shared bytes
+   a pair and the first design's time; K3 timed at 98,304, the diagonal
+   chunk of the same route), and K14 (K5 compensated) on 1 to 4,096
    rows against 1,048,576 sources, each against its f64 twin inside 2e-5
    of max (phi rtol 3e-5), launched twice and bitwise equal, K14 row-set
    independent; the chunked evaluation at N = 1,048,576 (accel, accel +
@@ -52,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    self-interaction at 1M. Then the extended tier past STREAM_N: K15
    cross_accel_x (with and without the raw potential) at a full chunk pair
    (98,304²) and a ragged one (98,304 x 65,536), K16 cross_jerk_x at
-   73,728² and 73,728 x 16,384, and K17 (K9 compensated) on 1 to 4,096
+   73,728² and 73,728 x 16,384 (as K13; K7 timed at 73,728), and K17 (K9
+   compensated) on 1 to 4,096
    rows against 1,048,576 sources and on all 131,072 rows of a set of that
    size (the row cap), each against the f64 evaluation of the same (hi, lo)
    planes inside 2e-5 of max (phi rtol 3e-5), launched twice and bitwise
@@ -61,7 +64,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    2e-5 / 5e-5 of the f64 oracle, the f32 chunked route past 1e-3); and the
    chunked extended evaluation at 1M (accel, accel + raw phi, accel +
    jerk) against the f64 oracle on 4,096 sampled rows inside 2e-5,
-   bitwise repeatable, timed beside the f32 chunked route;
+   bitwise repeatable, timed beside the f32 chunked route; K13 and K16 in
+   every compiled tile geometry (csrc/jerk_rows.cuh) on ragged sets against
+   their f64 twins, bitwise on NaN-filled scratch; and the zero guard at eps
+   = 0: a pair 1e-20 apart (u below the least normal f32) through every
+   guarded kernel K1-K21, which must give it nothing, as its f32 twin and
+   the JAX package do (every output finite, within tolerance of the
+   twin);
 4. the paths, each through ``python -m oc_nbody_tpu_torch run`` (via
    ``__main__.main``) with the launch counters set to 0 just before it and
    read just after: c1 (KDK, K1), the north star (KDK, K2), c2 (King IC,
@@ -309,8 +318,9 @@ PEAK_BYTES = 3.35e12
 # seed): accel 233 (df_accel_pair), accel+jerk 481 (df_jerk_pair)
 # pair-symmetric K2 and the cross kernel K12 run their own pair
 # (sym_rows.cuh:sym_pair_rb): 25 flops, 28 with phi;
-# the cross kernel K13 runs K3's pair function on every pair of two sets
-# (53); K14 is K5's pair (41) plus a Kahan
+# the cross kernel K13 runs K3's pair function, respelled for the issue
+# rate (jerk_rows.cuh:sym_jerk_pair_rb), on every pair of two sets (53);
+# K14 is K5's pair (41) plus a Kahan
 # step of 4 flops per component and stage of 32 pairs (24 / 32 = 0.75); at
 # the extended tier K15 and K16 run K6's and K7's pair functions (44, 46
 # with phi, 77; pair.cuh:sym_pair_x, sym_jerk_pair_x) and K17 is K9's pair
@@ -373,6 +383,16 @@ C3_1M_T = 2.0 ** -16
 # row's bits do not depend on the other rows of its launch)
 K15_PAIRS = ((98304, 98304), (98304, 65536))
 K16_PAIRS = ((73728, 73728), (73728, 16384))
+# K13's and K16's tile geometries (csrc/jerk_rows.cuh) held to their f64
+# twins on ragged sets, every compiled one; and the diagonal chunks of their
+# routes at 1M, K3 at CHUNK_SYMJ and K7 at CHUNK_SYMXJ, timed once each
+JERK_GEOMETRY_SETS = ((1000, 3001), (2900, 700))
+K3_CHUNK_N = 98304
+K7_CHUNK_N = 73728
+# the first design of K13 and K16 (one row a thread), timed on an NVIDIA
+# H100 80GB HBM3 at 700 W by sym_kernel_times.py --tree on the parent
+# checkout (PERF.md §6), printed beside this run's times
+FIRST_DESIGN_MS = {"cross_jerk": 25.45, "cross_jerk_x": 19.79}
 K17_ROWS = (1, 64, 1024, 4096)
 K17_CAP_N = 131072
 K17_CHECK_ROWS = 8192
@@ -1357,7 +1377,7 @@ def check_kernels_big(cg, device, main):
             torch.cuda.empty_cache()
     del pos, mass
     print("kernel      shape            max|da| A  max|da| B  rel_a    "
-          "rel_j    ms        plain_ms  bound_ms")
+          "rel_j    ms        plain_ms  bound_ms  (R,S, shared B/pair)")
     pos, mass, vel = _moving_cluster(sum(K13_PAIRS[0]), 42, device)
     for nA, nB in K13_PAIRS:
         args = tuple(t[a:b].contiguous() for t, (a, b) in zip(
@@ -1373,22 +1393,35 @@ def check_kernels_big(cg, device, main):
         ea = _compare_jerk(out[:2], ref[:2], 2e-5, 2e-5)
         eb = _compare_jerk(out[2:], ref[2:], 2e-5, 2e-5)
         del ref
+        geo = cg.cross_geometry(nA, nB, "cross_jerk")
         line = (f"cross_jerk  ({nA},{nB}){'':<{13 - len(str(nA)) - len(str(nB))}}"
                 f"{ea[0]:<11.3e}{eb[0]:<11.3e}{max(ea[1], eb[1]):<9.2e}"
                 f"{max(ea[2], eb[2]):<9.2e}")
+        ms = _median_ms(lambda: cg.cross_jerk_kernel(*args, eps,
+                                                     guarded=False))
+        bound = _bound(nA * nB, FLOPS_PER_PAIR["cross_jerk"], 52 * (nA + nB))
         if nA == nB:
-            ms = _median_ms(lambda: cg.cross_jerk_kernel(*args, eps,
-                                                         guarded=False))
             pms = _once_ms(lambda: cg.cross_jerk_plain(*args, eps))
-            bound = _bound(nA * nB, FLOPS_PER_PAIR["cross_jerk"],
-                           52 * (nA + nB))
             main["cross_jerk"] = dict(max_abs_err=max(ea[0], eb[0]), ms=ms,
                                       plain_ms=pms, shape=[nA, nB],
-                                      bound=bound)
-            line += f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f}"
-        print(line + "   bitwise-repeatable", flush=True)
+                                      bound=bound, smem=80 / geo[0])
+            line += (f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f} "
+                     f"({bound[0] / ms:.1%}; first design "
+                     f"{FIRST_DESIGN_MS['cross_jerk']} ms)")
+        else:
+            line += f"{ms:<10.4f}{'-':<10}{bound[0]:.4f} ({bound[0] / ms:.1%})"
+        print(line + f"   ({geo[0]},{geo[1]}, {80 / geo[0]:g})   "
+              "bitwise-repeatable", flush=True)
         torch.cuda.empty_cache()
-    del pos, mass, vel
+    # K3 on the diagonal chunk of the same route (CHUNK_SYMJ), timed once
+    p, v, m = (t[:K3_CHUNK_N].contiguous() for t in (pos, vel, mass))
+    ms = _median_ms(lambda: cg.sym_jerk_kernel(p, v, m, eps, guarded=False))
+    bound = _bound(K3_CHUNK_N * (K3_CHUNK_N - 1) // 2,
+                   FLOPS_PER_PAIR["sym_jerk"], 52 * K3_CHUNK_N)
+    print(f"sym_jerk    ({K3_CHUNK_N}) at CHUNK_SYMJ: {ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ({bound[0] / ms:.1%})", flush=True)
+    del p, v, m, pos, mass, vel
+    torch.cuda.empty_cache()
     # K14 against c6's 1M sources
     print("kernel           shape            eps        max|da|    rel_a    "
           "rel_j    ms        plain_ms  bound_ms")
@@ -1548,7 +1581,7 @@ def check_kernels_big_x(cg, device, main):
         del ref
     del hi, lo, gm
     print("kernel        shape            max|da| A  max|da| B  rel_a    "
-          "rel_j    ms        plain_ms  bound_ms")
+          "rel_j    ms        plain_ms  bound_ms  (R,S, shared B/pair)")
     hi, lo, gm, vhi, vlo = _planes(sum(K16_PAIRS[0]), 48, device)
     for nA, nB in K16_PAIRS:
         sets = [tuple(p[a:b].contiguous() for p in (hi, lo, vhi, vlo))
@@ -1564,21 +1597,34 @@ def check_kernels_big_x(cg, device, main):
         ea = _compare_jerk(out[:2], ref[:2], 2e-5, 2e-5)
         eb = _compare_jerk(out[2:], ref[2:], 2e-5, 2e-5)
         del ref, out
+        geo = cg.cross_geometry(nA, nB, "cross_jerk_x")
         ms = _median_ms(lambda: cg.cross_jerk_x_kernel(*args, eps,
                                                        guarded=False))
         pms = _once_ms(lambda: cg.cross_jerk_x_plain(*args, eps))
         bound = _bound(nA * nB, FLOPS_PER_PAIR["cross_jerk_x"],
                        76 * (nA + nB))
+        first = ""
         if nA == nB:
             main["cross_jerk_x"] = dict(max_abs_err=max(ea[0], eb[0]), ms=ms,
                                         plain_ms=pms, shape=[nA, nB],
-                                        bound=bound)
+                                        bound=bound, smem=112 / geo[0])
+            first = f"; first design {FIRST_DESIGN_MS['cross_jerk_x']} ms"
         print(f"cross_jerk_x  ({nA},{nB}){'':<{13 - len(str(nA)) - len(str(nB))}}"
               f"{ea[0]:<11.3e}{eb[0]:<11.3e}{max(ea[1], eb[1]):<9.2e}"
               f"{max(ea[2], eb[2]):<9.2e}{ms:<10.4f}{pms:<10.1f}"
-              f"{bound[0]:.4f}   bitwise-repeatable", flush=True)
+              f"{bound[0]:.4f} ({bound[0] / ms:.1%}{first})   ({geo[0]},"
+              f"{geo[1]}, {112 / geo[0]:g})   bitwise-repeatable", flush=True)
         torch.cuda.empty_cache()
-    del hi, lo, gm, vhi, vlo
+    # K7 on the diagonal chunk of the same route (CHUNK_SYMXJ), timed once
+    planes = tuple(t[:K7_CHUNK_N].contiguous() for t in (hi, lo, vhi, vlo,
+                                                         gm))
+    ms = _median_ms(lambda: cg.sym_jerk_x_kernel(*planes, eps,
+                                                 guarded=False))
+    bound = _bound(K7_CHUNK_N * (K7_CHUNK_N - 1) // 2,
+                   FLOPS_PER_PAIR["sym_jerk_x"], 76 * K7_CHUNK_N)
+    print(f"sym_jerk_x    ({K7_CHUNK_N}) at CHUNK_SYMXJ: {ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ({bound[0] / ms:.1%})", flush=True)
+    del planes, hi, lo, gm, vhi, vlo
     # K17 against c6's 1M sources, then the row cap
     print("kernel             shape            eps        max|da|    rel_a    "
           "rel_j    ms        plain_ms  bound_ms")
@@ -1779,6 +1825,177 @@ def check_chunked_big_x(cg, device):
               "interactions/s", flush=True)
     del state, pos, mass, vel
     torch.cuda.empty_cache()
+
+
+def check_jerk_geometries(cg, device):
+    """K13 and K16 in every compiled tile geometry (R rows a thread, S
+    column parts; csrc/jerk_rows.cuh) on ragged sets (JERK_GEOMETRY_SETS),
+    eps = 0 and 1/64, against their f64 twins (5e-6 of max|a|, 1e-5 of
+    max|j|), both sets' outputs; a second launch on a NaN-filled scratch
+    must give the same bits (every slot the reduces read was written)."""
+    import torch
+    f64 = torch.float64
+    t = time.perf_counter()
+    worst = {}
+    for key in ("cross_jerk", "cross_jerk_x"):
+        for nA, nB in JERK_GEOMETRY_SETS:
+            if key == "cross_jerk":
+                pos, mass, vel = _moving_cluster(nA + nB, nA + 61, device)
+                args = tuple(x[a:b].contiguous() for x, (a, b) in zip(
+                    (pos, vel, pos, vel, mass, mass),
+                    ((0, nA), (0, nA), (nA, nA + nB), (nA, nA + nB),
+                     (0, nA), (nA, nA + nB))))
+                kernel, twin = cg.cross_jerk_kernel, cg.cross_jerk_plain
+            else:
+                hi, lo, gm, vhi, vlo = _planes(nA + nB, nA + 62, device)
+                sets = [tuple(x[a:b].contiguous() for x in (hi, lo, vhi, vlo))
+                        for a, b in ((0, nA), (nA, nA + nB))]
+                args = (*sets[0], *sets[1], gm[:nA].contiguous(),
+                        gm[nA:].contiguous())
+                kernel, twin = cg.cross_jerk_x_kernel, cg.cross_jerk_x_plain
+            for eps in (0.0, 1.0 / 64):
+                guarded = eps == 0.0
+                tw = {} if key == "cross_jerk" else dict(guarded=guarded)
+                ref = twin(*args, eps, dtype=f64, **tw)
+                for g in cg.GEOMETRIES:
+                    out = kernel(*args, eps, guarded=guarded, geometry=g)
+                    nan = torch.full((cg.cross_scratch_floats(nA, nB, key,
+                                                              g),),
+                                     float("nan"), device=device)
+                    if not _same_bits(out, kernel(*args, eps,
+                                                  guarded=guarded,
+                                                  scratch=nan, geometry=g)):
+                        raise AssertionError(f"{key} ({nA},{nB}) geometry "
+                                             f"{g}: a launch on NaN scratch "
+                                             "differs bitwise")
+                    ea = _compare_jerk(out[:2], ref[:2], 5e-6, 1e-5)
+                    eb = _compare_jerk(out[2:], ref[2:], 5e-6, 1e-5)
+                    worst[key] = max(worst.get(key, 0.0), ea[1], eb[1],
+                                     ea[2], eb[2])
+    print(f"jerk geometries: K13 and K16 in each of the {len(cg.GEOMETRIES)}"
+          f" compiled (R, S) on {JERK_GEOMETRY_SETS}, eps 0 and 1/64, within "
+          "5e-6 / 1e-5 of their "
+          "f64 twins (worst relative error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"), bitwise on NaN-filled scratch; {time.perf_counter() - t:.1f}"
+          " s", flush=True)
+    torch.cuda.empty_cache()
+
+
+def check_guard(cg, cdf, cr, device):
+    """The zero guard at eps = 0 (ROADMAP C6): 64 stars, the last two 1e-20
+    apart on each axis (u = 3e-40, below the least normal f32), through
+    every guarded kernel K1-K21 and its f32 plain twin on the card. The pair
+    must add nothing, as in the JAX package (whose f32 arithmetic flushes
+    that u to 0): every output finite, the kernel's within 5e-6 of max|a|
+    and 1e-5 of max|j| (K10, K11: 1e-9, 1e-8; phi rtol 3e-5) of its
+    twin's."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(61)
+    pos = rng.normal(size=(64, 3))
+    pos[-2], pos[-1] = 0.0, 1e-20
+    pos, vel, mass = (torch.from_numpy(a).to(device=device,
+                                             dtype=torch.float32)
+                      for a in (pos, rng.normal(size=(64, 3)) * 0.5,
+                                rng.uniform(0.5, 1.5, 64) / 64))
+    z, gz, e = torch.zeros_like(pos), torch.zeros_like(mass), 0.0
+    A, B = (pos[:40].contiguous(), vel[:40].contiguous()), \
+        (pos[40:].contiguous(), vel[40:].contiguous())
+    mA, mB = mass[:40].contiguous(), mass[40:].contiguous()
+    zA, zB = torch.zeros_like(A[0]), torch.zeros_like(B[0])
+    pv, phi = (pos, z, vel, z), dict(with_phi=True)
+    cases = {
+        "K1": (cg.rows_kernel(pos, pos, mass, e, **phi),
+               cg.rows_plain(pos, pos, mass, e, **phi)),
+        "K2": (cg.sym_kernel(pos, mass, e, **phi),
+               cg.sym_plain(pos, mass, e, **phi)),
+        "K3": (cg.sym_jerk_kernel(pos, vel, mass, e),
+               cg.sym_jerk_plain(pos, vel, mass, e)),
+        "K4": (cg.rows_jerk_kernel(pos, vel, pos, vel, mass, e),
+               cg.rows_jerk_plain(pos, vel, pos, vel, mass, e)),
+        "K5": (cg.rows_jerk_t_kernel(pos, vel, pos, vel, mass, e),
+               cg.rows_jerk_t_plain(pos, vel, pos, vel, mass, e)),
+        "K6": (cg.sym_x_kernel(pos, z, mass, e, **phi),
+               cg.sym_x_plain(pos, z, mass, e, **phi)),
+        "K7": (cg.sym_jerk_x_kernel(*pv, mass, e),
+               cg.sym_jerk_x_plain(*pv, mass, e)),
+        "K8": (cg.rows_x_kernel(pos, z, pos, z, mass, e, **phi),
+               cg.rows_x_plain(pos, z, pos, z, mass, e, **phi)),
+        "K9": (cg.rows_jerk_x_kernel(*pv, *pv, mass, e),
+               cg.rows_jerk_x_plain(*pv, *pv, mass, e)),
+        "K10": (cdf.rows_df_kernel(pos, z, pos, z, mass, gz, e, e),
+                cdf.rows_df_plain(pos, z, pos, z, mass, gz, e, e)),
+        "K11": (cdf.rows_jerk_df_kernel(*pv, *pv, mass, gz, e, e),
+                cdf.rows_jerk_df_plain(*pv, *pv, mass, gz, e, e)),
+        "K12": (cg.cross_kernel(A[0], B[0], mA, mB, e, **phi),
+                cg.cross_plain(A[0], B[0], mA, mB, e, **phi)),
+        "K13": (cg.cross_jerk_kernel(*A, *B, mA, mB, e),
+                cg.cross_jerk_plain(*A, *B, mA, mB, e)),
+        "K14": (cg.rows_jerk_stream_kernel(pos, vel, pos, vel, mass, e),
+                cg.rows_jerk_stream_plain(pos, vel, pos, vel, mass, e)),
+        "K15": (cg.cross_x_kernel(A[0], zA, B[0], zB, mA, mB, e, **phi),
+                cg.cross_x_plain(A[0], zA, B[0], zB, mA, mB, e, **phi)),
+        "K16": (cg.cross_jerk_x_kernel(A[0], zA, A[1], zA, B[0], zB, B[1],
+                                       zB, mA, mB, e),
+                cg.cross_jerk_x_plain(A[0], zA, A[1], zA, B[0], zB, B[1],
+                                      zB, mA, mB, e)),
+        "K17": (cg.rows_jerk_x_stream_kernel(*pv, *pv, mass, e),
+                cg.rows_jerk_x_stream_plain(*pv, *pv, mass, e)),
+        "K18": (cg.rows_t_kernel(pos, pos, mass, e, **phi),
+                cg.rows_plain(pos, pos, mass, e, **phi)),
+        "K18<comp>": (cg.rows_stream_kernel(pos, pos, mass, e, **phi),
+                      cg.rows_plain(pos, pos, mass, e, **phi)),
+        "K19": (cg.rows_x_stream_kernel(pos, z, pos, z, mass, e, **phi),
+                cg.rows_x_stream_plain(pos, z, pos, z, mass, e, **phi)),
+    }
+
+    # K20 (K20<phi>) and K21 at a first ring step: (sums, compensations)
+    f32 = dict(dtype=torch.float32)
+    vec, sca = (lambda: torch.zeros((64, 3), device=device),
+                lambda: torch.zeros((64,), device=device))
+    for label, phi_on in (("K20", False), ("K20<phi>", True)):
+        outs = []
+        for fn, kw in ((cr.ring_step_kernel, {}), (cr.ring_step_plain, f32)):
+            acc, acc_c = vec(), vec()
+            ph = (sca(), sca()) if phi_on else ()
+            fn(pos, pos, mass, e, acc, acc_c, *ph, first=True, **kw)
+            outs.append((acc, ph[0]) if phi_on else (acc,))
+        cases[label] = tuple(outs)
+    outs = []
+    for fn, kw in ((cr.ring_step_jerk_kernel, {}),
+                   (cr.ring_step_jerk_plain, f32)):
+        sums = [vec() for _ in range(4)]  # acc, jerk and their compensations
+        fn(pos, vel, pos, vel, mass, e, *sums, first=True, **kw)
+        outs.append(tuple(sums[:2]))
+    cases["K21"] = tuple(outs)
+    torch.cuda.synchronize()
+    jerk_kernels = ("K3", "K4", "K5", "K7", "K9", "K11", "K13", "K14",
+                    "K16", "K17", "K21")
+    for label, (got, want) in cases.items():
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for k, (g, w) in enumerate(zip(got, want)):
+            g, w = g.double(), w.double()
+            if not (bool(torch.isfinite(w).all())
+                    and bool(torch.isfinite(g).all())):
+                raise AssertionError(f"guard: {label} output {k}: the pair "
+                                     "1e-20 apart gave a non-finite entry")
+            if w.dim() == 1:
+                rel = float(((g - w).abs() / w.abs()).max())
+                ok = rel <= 3e-5
+            else:
+                tol = ((1e-9, 1e-8) if label in ("K10", "K11")
+                       else (5e-6, 1e-5))[label in jerk_kernels and k % 2]
+                rel = float((g - w).abs().max() / w.abs().max())
+                ok = rel <= tol
+            if not ok:
+                raise AssertionError(f"guard: {label} output {k} differs "
+                                     f"from its twin: {rel:.3e}")
+    print(f"guard (eps = 0, a pair 1e-20 apart): {len(cases)} kernels "
+          "(K1-K21, K18<comp>) give the pair nothing, as their f32 twins "
+          "and the JAX package do; every output finite and within its "
+          "tolerance of the twin", flush=True)
 
 
 def run_big_paths(cg, device):
@@ -3116,6 +3333,9 @@ def main():
     check_kernels_df(cg, cuda_df, device, main_shapes)
     check_kernels_big(cg, device, main_shapes)
     check_kernels_big_x(cg, device, main_shapes)
+    check_jerk_geometries(cg, device)
+    from oc_nbody_tpu_torch.ops import cuda_ring
+    check_guard(cg, cuda_df, cuda_ring, device)
     runs, launches = run_df_paths(cg, device)
     big_runs, big_launches = run_big_paths(cg, device)
     runs.update(big_runs)

@@ -74,20 +74,8 @@ __global__ void __launch_bounds__(rb::kThreads)
                  nA);
 }
 
-// (ntA, ntB) in geometry (R, S).
-void cross_tiles_of(int nA, int nB, int R, int S, int& ntA, int& ntB) {
-  const int ta = R * rb::kThreads, tb = ta / S;
-  ntA = (nA + ta - 1) / ta;
-  ntB = (nB + tb - 1) / tb;
-}
-
-int cross_geometry(int nA, int nB) {
-  return rb::choose_geom([nA, nB](int R, int S) {
-    int ntA, ntB;
-    cross_tiles_of(nA, nB, R, S, ntA, ntB);
-    return static_cast<long long>(ntA) * ntB;
-  });
-}
+using rb::cross_geometry;
+using rb::cross_tiles_of;
 
 template <int R, bool WITH_PHI, bool GUARDED>
 void launch(const float* posA, const float* massA, int nA, const float* posB,

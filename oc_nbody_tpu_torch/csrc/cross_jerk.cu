@@ -10,176 +10,72 @@
 // oc_nbody_tpu/ops/pallas_gravity.py:1876) and by accel_jerk_cross_pair
 // (:2140).
 //
-// Bound on the card: K3's pair, 53 f32 flops (an FMA counts 2) and one
-// rsqrtf per pair (pair.cuh:sym_jerk_pair), plus six shared-memory accesses
-// per pair; device memory is touched only by the partials, so the FMA pipe
-// and shared-memory bandwidth bind together, as in K3.
+// Bound on the card: 53 f32 flops (an FMA counts 2) and one rsqrt per pair
+// (jerk_rows.cuh:sym_jerk_pair_rb, 33 FP32 instructions and the MUFU).
+// Device memory is touched only by the partials. The first design (one row
+// a thread, K3's block) spent 80 shared bytes a pair and ran at the
+// shared-memory rate; this one holds R rows a thread in registers
+// (csrc/jerk_rows.cuh), 80 / R bytes a pair, so from R = 4 on the issue
+// rate of the pair bounds it.
 //
-// Design: K3's block (csrc/sym_jerk.cu) on K12's plan (csrc/cross_accel.cu):
-// one block of T threads per tile pair (I, J) over all ntA x ntB pairs, the
-// rotating-diagonal column sweep with per-warp reaction accumulators in
-// shared memory (a float4 plane a.x, a.y, a.z, j.x and a float2 plane j.y,
-// j.z), the row partial to scA[I][J] and the warps' reaction partials,
-// summed in warp order, to scB[J][I]; then ocn::tile_reduce_jerk once per
-// set, partials in index order. No float atomics: two launches are bitwise
-// equal. Scratch is 2 x ntA x ntB x T slots of six floats: 3.6 GB at nA =
-// nB = 98,304, the jerk chunk; the caller allocates it once per evaluation.
-// Its layout: scA's float4 plane, scB's float4 plane, scA's float2 plane,
-// scB's float2 plane. Ragged nA and nB are masked, not padded.
+// Design: K12's plan (csrc/cross_accel.cu) on jerk_rows.cuh's rows, over all
+// ntA x ntB tile pairs. A-tiles hold TA = 128 R rows, B-tiles TB = TA / S
+// columns. Two passes, no float atomics, fixed order:
+//
+//  * rbj::cross_jerk_tiles: one block of 128 threads per tile pair (I, J),
+//    sweeping A-tile I against B-tile J pair-symmetrically. Its row
+//    partials go to slot (I, J) of A's planes, its columns' reaction
+//    partials, summed over its warps in warp order, to slot (J, I) of B's.
+//  * ocn::tile_reduce_jerk (pair.cuh), once per set, partials in slot order.
+//
+// The geometry (R, S) is chosen from (nA, nB) alone (ocn_cross_jerk_geometry:
+// the most rows a thread that still gives enough blocks to fill the card),
+// so two launches on the same sets are bitwise equal. Scratch is ntA x ntB
+// x (TA + TB) slots of six floats: 0.45 GB at nA = nB = 98,304 (R = 8, S =
+// 1), the jerk chunk of the chunked self-interaction, where the first
+// design needed 3.6 GB; the caller allocates it once per evaluation. Ragged
+// nA and nB are masked, not padded; scratch offsets are size_t.
+// Registers (ptxas -v, sm_90a): R = 8 168, R = 4 96, R = 2 64, R = 1 42, no
+// spills; 16,384 bytes of shared memory a block.
 
-#include "pair.cuh"
+#include "jerk_rows.cuh"
 
 namespace {
 
-constexpr int T = ocn::kSymTile;
-constexpr int kWarps = T / 32;
-static_assert((T & (T - 1)) == 0, "the rotating diagonal needs T = 2^k");
+namespace rbj = ocn::rbj;
 
-template <bool GUARDED>
-__global__ void __launch_bounds__(T)
-    cross_jerk_tiles(const float* __restrict__ posA,
-                     const float* __restrict__ velA,
-                     const float* __restrict__ massA, int nA, int ntA,
-                     const float* __restrict__ posB,
-                     const float* __restrict__ velB,
-                     const float* __restrict__ massB, int nB, int ntB,
-                     float G, float eps2, float4* __restrict__ sc4A,
-                     float4* __restrict__ sc4B, float2* __restrict__ sc2A,
-                     float2* __restrict__ sc2B) {
-  __shared__ float4 src[T];
-  __shared__ float4 svel[T];
-  __shared__ float4 col4[kWarps][T];
-  __shared__ float2 col2[kWarps][T];
-  const int I = static_cast<int>(blockIdx.x / ntB);
-  const int J = static_cast<int>(blockIdx.x % ntB);
-  const int r = threadIdx.x;
-  const int i = I * T + r;
-  const bool row_ok = i < nA;
-  float3 xi = make_float3(0.f, 0.f, 0.f), vi = make_float3(0.f, 0.f, 0.f);
-  float gmi = 0.f;
-  if (row_ok) {
-    xi = make_float3(posA[3 * i], posA[3 * i + 1], posA[3 * i + 2]);
-    vi = make_float3(velA[3 * i], velA[3 * i + 1], velA[3 * i + 2]);
-    gmi = G * massA[i];
-  }
-  const int jj = J * T + r;
-  if (jj < nB) {
-    src[r] = make_float4(posB[3 * jj], posB[3 * jj + 1], posB[3 * jj + 2],
-                         G * massB[jj]);
-    svel[r] = make_float4(velB[3 * jj], velB[3 * jj + 1], velB[3 * jj + 2],
-                          0.f);
-  } else {
-    src[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    svel[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    col4[w][r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    col2[w][r] = make_float2(0.f, 0.f);
-  }
-  __syncthreads();
-
-  const int ncol = min(T, nB - J * T);  // live columns of tile J
-  float3 a = make_float3(0.f, 0.f, 0.f), jk = make_float3(0.f, 0.f, 0.f);
-  float4* mine4 = col4[r >> 5];
-  float2* mine2 = col2[r >> 5];
-#pragma unroll 4
-  for (int k = 0; k < T; ++k) {
-    const int c = (r + k) & (T - 1);
-    if (row_ok && c < ncol) {
-      float4 ca = mine4[c];
-      float2 cj = mine2[c];
-      ocn::sym_jerk_pair<GUARDED>(src[c], svel[c], xi, vi, gmi, eps2, a, jk,
-                                  ca, cj);
-      mine4[c] = ca;
-      mine2[c] = cj;
-    }
-    __syncwarp();
-  }
-  if (row_ok) {
-    const size_t slot = (static_cast<size_t>(I) * ntB + J) * T + r;
-    sc4A[slot] = make_float4(a.x, a.y, a.z, jk.x);
-    sc2A[slot] = make_float2(jk.y, jk.z);
-  }
-  __syncthreads();
-  if (r < ncol) {
-    float4 s4 = col4[0][r];
-    float2 s2 = col2[0][r];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      s4.x += col4[w][r].x;
-      s4.y += col4[w][r].y;
-      s4.z += col4[w][r].z;
-      s4.w += col4[w][r].w;
-      s2.x += col2[w][r].x;
-      s2.y += col2[w][r].y;
-    }
-    const size_t slot = (static_cast<size_t>(J) * ntA + I) * T + r;
-    sc4B[slot] = s4;
-    sc2B[slot] = s2;
-  }
-}
-
-template <bool GUARDED>
-void launch(const float* posA, const float* velA, const float* massA, int nA,
-            const float* posB, const float* velB, const float* massB, int nB,
-            float G, float eps2, float* scratch, float* accA, float* jerkA,
-            float* accB, float* jerkB, cudaStream_t stream) {
-  const int ntA = (nA + T - 1) / T;
-  const int ntB = (nB + T - 1) / T;
-  const size_t slots = static_cast<size_t>(ntA) * ntB * T;
-  float4* sc4A = reinterpret_cast<float4*>(scratch);
-  float4* sc4B = sc4A + slots;
-  float2* sc2A = reinterpret_cast<float2*>(sc4B + slots);
-  float2* sc2B = sc2A + slots;
-  cross_jerk_tiles<GUARDED><<<static_cast<unsigned>(slots / T), T, 0,
-                              stream>>>(posA, velA, massA, nA, ntA, posB,
-                                        velB, massB, nB, ntB, G, eps2, sc4A,
-                                        sc4B, sc2A, sc2B);
-  constexpr int kR = ocn::kReduceThreads;
-  ocn::tile_reduce_jerk<float2><<<(nA + kR - 1) / kR, kR, 0, stream>>>(
-      sc4A, sc2A, nA, ntB, accA, jerkA);
-  ocn::tile_reduce_jerk<float2><<<(nB + kR - 1) / kR, kR, 0, stream>>>(
-      sc4B, sc2B, nB, ntA, accB, jerkB);
+rbj::F32::Set set(const float* pos, const float* vel, const float* mass,
+                  int n, float G) {
+  return {pos, vel, mass, n, G};
 }
 
 }  // namespace
 
-// Floats of scratch a call on nA x nB needs: 2 x ntA x ntB x T slots of six.
-extern "C" long long ocn_cross_jerk_scratch(int nA, int nB) {
-  const long long ntA = (nA + T - 1) / T, ntB = (nB + T - 1) / T;
-  return 12LL * ntA * ntB * T;
+// K13's geometry on nA x nB, encoded R * 16 + S (csrc/sym_rows.cuh).
+extern "C" int ocn_cross_jerk_geometry(int nA, int nB) {
+  return ocn::rb::cross_geometry(nA, nB);
 }
 
-// posA, velA (nA, 3), massA (nA,), posB, velB (nB, 3), massB (nB,), accA,
-// jerkA (nA, 3) and accB, jerkB (nB, 3) are contiguous f32 on the device,
-// positions and velocities centred in one frame; scratch holds at least
-// ocn_cross_jerk_scratch(nA, nB) floats. Returns cudaGetLastError() after
-// the launches.
+// Floats of scratch K13 needs on nA x nB in geometry geom (0: its own);
+// -1 for a geometry not compiled.
+extern "C" long long ocn_cross_jerk_scratch(int nA, int nB, int geom) {
+  return rbj::scratch_floats(nA, nB, geom);
+}
+
+// K13 in geometry geom (0: ocn_cross_jerk_geometry(nA, nB), the one every
+// caller of the port takes). posA, velA (nA, 3), massA (nA,), posB, velB
+// (nB, 3), massB (nB,), accA, jerkA (nA, 3) and accB, jerkB (nB, 3) are
+// contiguous f32 on the device, positions and velocities centred in one
+// frame; scratch holds at least ocn_cross_jerk_scratch(nA, nB, geom)
+// floats. Returns cudaGetLastError() after the launches,
+// cudaErrorInvalidValue for a geometry not compiled.
 extern "C" int ocn_cross_jerk(const float* posA, const float* velA,
                               const float* massA, int nA, const float* posB,
                               const float* velB, const float* massB, int nB,
-                              float G, float eps2, int guarded, void* scratch,
-                              float* accA, float* jerkA, float* accB,
-                              float* jerkB, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nA <= 0 || nB <= 0) {
-    if (nA > 0) {
-      cudaMemsetAsync(accA, 0, sizeof(float) * 3 * nA, s);
-      cudaMemsetAsync(jerkA, 0, sizeof(float) * 3 * nA, s);
-    }
-    if (nB > 0) {
-      cudaMemsetAsync(accB, 0, sizeof(float) * 3 * nB, s);
-      cudaMemsetAsync(jerkB, 0, sizeof(float) * 3 * nB, s);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  float* sc = static_cast<float*>(scratch);
-  if (guarded)
-    launch<true>(posA, velA, massA, nA, posB, velB, massB, nB, G, eps2, sc,
-                 accA, jerkA, accB, jerkB, s);
-  else
-    launch<false>(posA, velA, massA, nA, posB, velB, massB, nB, G, eps2, sc,
-                  accA, jerkA, accB, jerkB, s);
-  return static_cast<int>(cudaGetLastError());
+                              float G, float eps2, int guarded, int geom,
+                              void* scratch, float* accA, float* jerkA,
+                              float* accB, float* jerkB, void* stream) {
+  return rbj::cross_jerk<rbj::F32>(
+      set(posA, velA, massA, nA, G), set(posB, velB, massB, nB, G), eps2,
+      guarded, geom, scratch, accA, jerkA, accB, jerkB, stream);
 }

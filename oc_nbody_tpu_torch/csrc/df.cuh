@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "pair.cuh"  // kMinNormal, the guard's threshold
+
 namespace ocn {
 
 struct df {
@@ -90,11 +92,13 @@ __device__ __forceinline__ df df_mul_f(df x, float b) {
 // df 1/sqrt(x): the hardware seed, one plain-f32 Newton step, one df Newton
 // step y <- y (3 - x y^2) / 2. GUARDED is for eps == 0, where a self pair
 // has x == 0: the seed is then 0 and every later product keeps it 0, so the
-// pair adds nothing.
+// pair adds nothing. The seed takes pair.cuh:inv_r's guard (the reference's
+// seed, ops/pallas_df.py:_df_rsqrt, on f32 arithmetic that flushes a
+// subnormal x.hi): a pair with x.hi below 2^-126 adds nothing either.
 template <bool GUARDED>
 __device__ __forceinline__ df df_rsqrt(df x) {
-  float y = rsqrtf(x.hi);
-  if (GUARDED) y = x.hi > 0.f ? y : 0.f;
+  const float y0 = rsqrtf(x.hi);
+  float y = GUARDED ? (x.hi >= kMinNormal ? y0 : 0.f) : y0;
   const float h = __fmul_rn(0.5f, x.hi);
   y = __fmul_rn(y, __fmaf_rn(-h, __fmul_rn(y, y), 1.5f));
   const df xy2 = df_mul(x, two_prod(y, y));

@@ -37,17 +37,40 @@
 namespace ocn {
 
 // Tile edge of the pair-symmetric kernels K3, K6, K7 and of the cross
-// kernels K13, K15, K16: one block of kSymTile threads per tile pair (K2
-// and K12 tile by their own geometry, sym_rows.cuh).
+// kernel K15: one block of kSymTile threads per tile pair (K2 and K12 tile
+// by their own geometry, sym_rows.cuh; K13 and K16 by jerk_rows.cuh's).
 constexpr int kSymTile = 128;
 
-// Zero-guarded rsqrt (ops/pallas_pair.py:_inv_r). GUARDED is for eps == 0,
-// where a self pair has u == 0 and must add nothing. With eps > 0,
-// u >= eps^2 > 0 everywhere and the compare is dropped.
+// The least normal f32, 2^-126.
+constexpr float kMinNormal = 1.17549435e-38f;
+
+// Zero-guarded rsqrt, the one guard of every kernel (the df32 seed,
+// df.cuh:df_rsqrt, and inv_r_ftz below spell the same rule).
+// GUARDED is for eps == 0, where a self pair has u == 0 and must add
+// nothing; with eps > 0, u >= eps^2 > 0 everywhere and the compare is
+// dropped. The reference (ops/pallas_pair.py:_inv_r) is u > 0 ?
+// rsqrt(max(u, 2^-126)) : 0 evaluated in f32 arithmetic that flushes a
+// subnormal u to 0 (the TPU; XLA on the CPU), so a u below 2^-126 (a pair
+// closer than ~1e-19) adds nothing there. This card keeps subnormals, so
+// the flush is spelled out: u >= 2^-126 ? rsqrt(u) : 0.
 template <bool GUARDED>
 __device__ __forceinline__ float inv_r(float u) {
-  if (GUARDED) return u > 0.f ? rsqrtf(u) : 0.f;
+  if (GUARDED) return u >= kMinNormal ? rsqrtf(u) : 0.f;
   return rsqrtf(u);
+}
+
+// rsqrt(u) without the denormal path: rsqrt.approx.ftz is the same MUFU.RSQ
+// as rsqrtf, bit for bit on every normal u, minus the three instructions
+// that rescale a denormal one. GUARDED (eps == 0) is inv_r's guard: 0 for u
+// below the least normal float. With eps > 0, u >= eps^2 is normal (for
+// eps above ~1.1e-19), so inv_r_ftz and inv_r give the same bits wherever
+// either is used (K2, K12, K13 and K16 take this one).
+template <bool GUARDED>
+__device__ __forceinline__ float inv_r_ftz(float u) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(u));
+  if (GUARDED) return u >= kMinNormal ? r : 0.f;
+  return r;
 }
 
 // One-sided pair: the action of source s on the row at (xi, yi, zi).
@@ -91,9 +114,10 @@ __device__ __forceinline__ void row_jerk_pair(float4 s, float4 sv, float3 xi,
   j.z += w * dvz - sc * dz;
 }
 
-// Pair-symmetric accel + jerk pair (K3, K13): with w = G m_j inv^3, rv =
-// d.dv and B = dv - 3 rv inv^2 d, the action (w d, w B) into (a, j) and the
-// reaction -G m_i inv^3 (d, B) into (ca.xyz, ca.w, cj.xy).
+// Pair-symmetric accel + jerk pair (K3; K13 runs the same function spelled
+// for the issue rate, jerk_rows.cuh:sym_jerk_pair_rb): with w = G m_j
+// inv^3, rv = d.dv and B = dv - 3 rv inv^2 d, the action (w d, w B) into
+// (a, j) and the reaction -G m_i inv^3 (d, B) into (ca.xyz, ca.w, cj.xy).
 template <bool GUARDED>
 __device__ __forceinline__ void sym_jerk_pair(float4 s, float4 sv, float3 xi,
                                               float3 vi, float gmi,
@@ -126,10 +150,11 @@ __device__ __forceinline__ void sym_jerk_pair(float4 s, float4 sv, float3 xi,
 }
 
 // The extended tier's separation and inverse distance: s = d + e and the
-// Newton-refined inv. With GUARDED and u <= 0 (a coincident pair at eps ==
-// 0, or a u that rounds below zero), inv_r gives 0 and the Newton step
-// leaves 0 * (1.5 - 0) = 0, so the pair adds nothing.
-template <bool GUARDED>
+// Newton-refined inv. With GUARDED and u below 2^-126 (a coincident pair at
+// eps == 0, or a u that rounds below zero), inv_r gives 0 and the Newton
+// step leaves 0 * (1.5 - 0) = 0, so the pair adds nothing. FTZ takes the
+// seed from inv_r_ftz: the same bits, three instructions fewer (K16).
+template <bool GUARDED, bool FTZ = false>
 __device__ __forceinline__ float hilo_sep_inv(float4 sh, float4 sl, float3 xi,
                                               float3 li, float eps2,
                                               float3& s) {
@@ -138,7 +163,7 @@ __device__ __forceinline__ float hilo_sep_inv(float4 sh, float4 sl, float3 xi,
   const float dd = dx * dx + dy * dy + dz * dz;
   const float de = dx * ex + dy * ey + dz * ez;
   const float u = dd + (2.f * de + eps2);
-  float inv = inv_r<GUARDED>(u);
+  float inv = FTZ ? inv_r_ftz<GUARDED>(u) : inv_r<GUARDED>(u);
   inv *= 1.5f - (0.5f * u) * (inv * inv);
   s = make_float3(dx + ex, dy + ey, dz + ez);
   return inv;
@@ -225,13 +250,14 @@ __device__ __forceinline__ void sym_pair_x(float4 sh, float4 sl, float3 xi,
 // Pair-symmetric extended accel + jerk pair (K7, K16): with w = G m_j
 // inv^3, rv = s.dv and B = dv - 3 rv inv^2 s, the action (w s, w B) into
 // (a, j) and the reaction -G m_i inv^3 (s, B) into (ca.xyz, ca.w, cj.xy).
-template <bool GUARDED>
+// FTZ as in hilo_sep_inv.
+template <bool GUARDED, bool FTZ = false>
 __device__ __forceinline__ void sym_jerk_pair_x(
     float4 sh, float4 sl, float4 vh, float4 vl, float3 xi, float3 li,
     float3 vi, float3 vli, float gmi, float eps2, float3& a, float3& j,
     float4& ca, float2& cj) {
   float3 s;
-  const float inv = hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
+  const float inv = hilo_sep_inv<GUARDED, FTZ>(sh, sl, xi, li, eps2, s);
   const float3 dv = hilo_dv(vh, vl, vi, vli);
   const float inv2 = inv * inv;
   const float inv3 = inv * inv2;
@@ -290,10 +316,10 @@ __device__ __forceinline__ void tile_pair(long long b, int nt, int& I,
   J = i + static_cast<int>(b - triangle_start(i, nt));
 }
 
-// Second pass of the tile-pair kernels (K3, K13, K15, K16): row i of n
-// sums
+// Second pass of the tile-pair kernels (K3, K13, K15, K16): row i of n sums
 // its np tile partials scratch[i / T][P][i % T], P = 0 .. np-1, in that
-// order (T = kSymTile), one thread a row; no atomics, so the sum is bitwise
+// order (T = kSymTile; the jerk form takes T, the row tile of K13's and
+// K16's geometry), one thread a row; no atomics, so the sum is bitwise
 // the same from launch to launch. The float4 form carries (a, -phi) or (a,
 // j.x); the jerk form adds a float2 plane (j.y, j.z) at the same slots.
 template <bool WITH_PHI>
@@ -324,16 +350,16 @@ __global__ void tile_reduce(const float4* __restrict__ scratch, int n,
 template <typename Plane2>
 __global__ void tile_reduce_jerk(const float4* __restrict__ sc4,
                                  const Plane2* __restrict__ sc2, int n,
-                                 int np, float* __restrict__ acc,
+                                 int tile, int np, float* __restrict__ acc,
                                  float* __restrict__ jerk) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const size_t base =
-      static_cast<size_t>(i / kSymTile) * np * kSymTile + (i % kSymTile);
+  const int X = i / tile;
+  const size_t base = static_cast<size_t>(X) * np * tile + (i - X * tile);
   float4 s4 = sc4[base];
   Plane2 s2 = sc2[base];
   for (int P = 1; P < np; ++P) {
-    const size_t at = base + static_cast<size_t>(P) * kSymTile;
+    const size_t at = base + static_cast<size_t>(P) * tile;
     const float4 v4 = sc4[at];
     const Plane2 v2 = sc2[at];
     s4.x += v4.x;

@@ -142,7 +142,7 @@ void launch(const float* pos, const float* vel, const float* mass, int n,
       pos, vel, mass, n, nt, G, eps2, sc4, sc2);
   constexpr int kR = ocn::kReduceThreads;
   ocn::tile_reduce_jerk<float2><<<(n + kR - 1) / kR, kR, 0, stream>>>(
-      sc4, sc2, n, nt, acc, jerk);
+      sc4, sc2, n, T, nt, acc, jerk);
 }
 
 }  // namespace

@@ -63,18 +63,24 @@ inline int choose_geom(Blocks blocks) {
   return geom(1, 1);
 }
 
-// rsqrt(u) without the denormal path: rsqrt.approx.ftz is the same MUFU.RSQ
-// as rsqrtf, bit for bit on every normal u, minus the three instructions
-// that rescale a denormal one. GUARDED (eps == 0) gives 0 for u below the
-// least normal float, so a coincident pair, or one closer than ~1e-19,
-// adds nothing (rsqrtf's finite ~1e19 there overflowed the pair to inf);
-// with eps > 0, u >= eps^2 is normal.
-template <bool GUARDED>
-__device__ __forceinline__ float inv_r_ftz(float u) {
-  float r;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(u));
-  if (GUARDED) return u >= 1.17549435e-38f ? r : 0.f;
-  return r;
+// The tiling of a cross launch (two disjoint sets, K12, K13, K16) in
+// geometry (R, S): ntA A-tiles of TA = R * kThreads rows, ntB B-tiles of
+// TA / S columns, one block per tile pair.
+inline void cross_tiles_of(int nA, int nB, int R, int S, int& ntA,
+                           int& ntB) {
+  const int ta = R * kThreads, tb = ta / S;
+  ntA = (nA + ta - 1) / ta;
+  ntB = (nB + tb - 1) / tb;
+}
+
+// The geometry of an nA x nB cross launch (choose_geom over its ntA x ntB
+// blocks); encoded R * 16 + S.
+inline int cross_geometry(int nA, int nB) {
+  return choose_geom([nA, nB](int R, int S) {
+    int ntA, ntB;
+    cross_tiles_of(nA, nB, R, S, ntA, ntB);
+    return static_cast<long long>(ntA) * ntB;
+  });
 }
 
 // Pair-symmetric pair: the action of source s on the row at (xi, yi, zi)

@@ -27,7 +27,9 @@ in ``ops/cuda_df.py``, the sharded ring's steps K20 and K21
     register-blocked rows, its geometry chosen from the set sizes
     (``cross_geometry``). Replaces ``_make_cross_kernel`` with
     ``_pair_accel`` / ``_pair_phi`` (oc_nbody_tpu/ops/pallas_pair.py:296).
-  * K13 ``csrc/cross_jerk.cu`` — the same for accel + jerk. Replaces
+  * K13 ``csrc/cross_jerk.cu`` — the same for accel + jerk, on the
+    register-blocked rows of ``csrc/jerk_rows.cuh``, its geometry chosen
+    from the set sizes (``cross_geometry(nA, nB, "cross_jerk")``). Replaces
     ``_make_cross_kernel`` with ``_pair_jerk`` (pallas_pair.py:296, :137).
   * K14, K5's compensated variant (``csrc/rows_jerk_t.cu``, Kahan steps
     across source stages and chunks) — accel + jerk of any number of rows
@@ -64,7 +66,8 @@ and the extended (hi/lo) precision tier, on pre-split f32 planes:
     action and B's reaction, optional raw potential, bitwise deterministic.
     Replaces ``_make_cross_kernel`` with ``_pair_accel_x`` / ``_pair_phi_x``
     (oc_nbody_tpu/ops/pallas_pair.py:296).
-  * K16 ``csrc/cross_jerk_x.cu`` — the same for accel + jerk. Replaces
+  * K16 ``csrc/cross_jerk_x.cu`` — the same for accel + jerk, on K13's
+    register-blocked plan (``csrc/jerk_rows.cuh``). Replaces
     ``_make_cross_kernel`` with ``_pair_jerk_x`` (pallas_pair.py:296, :202).
   * K17, K9's compensated variant (``csrc/rows_jerk_x.cu``, Kahan steps
     across source stages and chunks) — accel + jerk of rows from more than
@@ -202,7 +205,7 @@ PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "oc_nbody_tpu_torch"
-_HEADERS = ("pair.cuh", "sym_rows.cuh", "rows_split.cuh",
+_HEADERS = ("pair.cuh", "sym_rows.cuh", "jerk_rows.cuh", "rows_split.cuh",
             "rows_accel_t.cuh", "rows_jerk_t.cuh", "df.cuh")
 _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_t.cu", "sym_accel_x.cu", "sym_jerk_x.cu",
@@ -340,17 +343,23 @@ def _library():
         lib.ocn_cross_accel_scratch.restype = ctypes.c_longlong
         lib.ocn_cross_scratch.argtypes = [i, i]
         lib.ocn_cross_scratch.restype = ctypes.c_longlong
-        lib.ocn_cross_jerk.argtypes = [p, p, p, i, p, p, p, i, f, f, i, p, p,
-                                       p, p, p, p]
+        lib.ocn_cross_jerk.argtypes = [p, p, p, i, p, p, p, i, f, f, i, i,
+                                       p, p, p, p, p, p]
         lib.ocn_cross_jerk.restype = i
-        lib.ocn_cross_jerk_scratch.argtypes = [i, i]
+        lib.ocn_cross_jerk_geometry.argtypes = [i, i]
+        lib.ocn_cross_jerk_geometry.restype = i
+        lib.ocn_cross_jerk_scratch.argtypes = [i, i, i]
         lib.ocn_cross_jerk_scratch.restype = ctypes.c_longlong
         lib.ocn_cross_accel_x.argtypes = [p, p, p, i, p, p, p, i, f, i, p, p,
                                           p, p, p, p]
         lib.ocn_cross_accel_x.restype = i
         lib.ocn_cross_jerk_x.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i,
-                                         f, i, p, p, p, p, p, p]
+                                         f, i, i, p, p, p, p, p, p]
         lib.ocn_cross_jerk_x.restype = i
+        lib.ocn_cross_jerk_x_geometry.argtypes = [i, i]
+        lib.ocn_cross_jerk_x_geometry.restype = i
+        lib.ocn_cross_jerk_x_scratch.argtypes = [i, i, i]
+        lib.ocn_cross_jerk_x_scratch.restype = ctypes.c_longlong
         lib.ocn_rows_accel_t.argtypes = [p, i, p, p, i, f, f, i, i, p, p, p,
                                          p]
         lib.ocn_rows_accel_t.restype = i
@@ -615,11 +624,14 @@ def _scratch(floats: int, device, scratch=None):
     return scratch
 
 
-# K2's and K12's tile geometries (csrc/sym_rows.cuh): (R, S), R rows a
+# The tile geometries of the register-blocked kernels K2, K12
+# (csrc/sym_rows.cuh), K13 and K16 (csrc/jerk_rows.cuh): (R, S), R rows a
 # thread and S parts of a tile pair's columns. The kernels pick one from the
 # sizes alone (``sym_geometry``, ``cross_geometry``); the ``geometry``
-# argument of ``sym_kernel`` and ``cross_kernel`` names another, for the
-# tests and the geometry sweep of sym_kernel_times.py.
+# argument of ``sym_kernel``, ``cross_kernel``, ``cross_jerk_kernel`` and
+# ``cross_jerk_x_kernel`` names another, for the tests and the geometry
+# sweep of sym_kernel_times.py. All four compile every one of them without
+# spilling (ptxas -v).
 GEOMETRIES = tuple((r, s) for r in (1, 2, 4, 8) for s in (1, 2, 4, 8)
                    if s <= r)
 
@@ -639,9 +651,15 @@ def sym_geometry(n: int) -> tuple[int, int]:
     return divmod(_library().ocn_sym_geometry(n), 16)
 
 
-def cross_geometry(nA: int, nB: int) -> tuple[int, int]:
-    """K12's (R, S) on nA x nB."""
-    return divmod(_library().ocn_cross_geometry(nA, nB), 16)
+def cross_geometry(nA: int, nB: int, kernel: str = "cross") -> tuple[int, int]:
+    """The (R, S) of the cross ``kernel`` (by its launch key: "cross" K12,
+    "cross_jerk" K13, "cross_jerk_x" K16) on nA x nB."""
+    export = {"cross": "ocn_cross_geometry",
+              "cross_jerk": "ocn_cross_jerk_geometry",
+              "cross_jerk_x": "ocn_cross_jerk_x_geometry"}.get(kernel)
+    if export is None:
+        raise ValueError(f"no register-blocked cross kernel {kernel!r}")
+    return divmod(getattr(_library(), export)(nA, nB), 16)
 
 
 def sym_scratch_floats(n: int, kernel: str = "sym", geometry=None) -> int:
@@ -837,15 +855,17 @@ def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True,
 def cross_scratch_floats(nA: int, nB: int, kernel: str = "cross",
                          geometry=None) -> int:
     """Floats of scratch the cross ``kernel`` (by its launch key: "cross"
-    K12, in ``geometry``, default its own; "cross_jerk" K13, "cross_x" K15,
-    "cross_jerk_x" K16) needs on nA x nB, as the library says."""
+    K12, "cross_jerk" K13 and "cross_jerk_x" K16, each in ``geometry``,
+    default its own; "cross_x" K15) needs on nA x nB, as the library
+    says."""
     lib = _library()
-    if kernel == "cross":
-        return lib.ocn_cross_accel_scratch(nA, nB, _geom(geometry))
+    sized = {"cross": lib.ocn_cross_accel_scratch,
+             "cross_jerk": lib.ocn_cross_jerk_scratch,
+             "cross_jerk_x": lib.ocn_cross_jerk_x_scratch}
+    if kernel in sized:
+        return sized[kernel](nA, nB, _geom(geometry))
     if kernel == "cross_x":
         return lib.ocn_cross_scratch(nA, nB)
-    if kernel in ("cross_jerk", "cross_jerk_x"):
-        return lib.ocn_cross_jerk_scratch(nA, nB)
     raise ValueError(f"no cross kernel {kernel!r}")
 
 
@@ -884,11 +904,14 @@ def cross_kernel(posA, posB, massA, massB, eps, G=1.0, with_phi=False,
 
 
 def cross_jerk_kernel(posA, velA, posB, velB, massA, massB, eps, G=1.0,
-                      guarded=True, scratch=None):
+                      guarded=True, scratch=None, geometry=None):
     """Launch K13 (the tile pass and a reduce per set) on f32 CUDA tensors
     centred in one frame; the same contract as ``cross_jerk_plain``.
     ``scratch``, if given, is a float32 buffer of at least
-    ``cross_scratch_floats(nA, nB, "cross_jerk")`` elements."""
+    ``cross_scratch_floats(nA, nB, "cross_jerk", geometry)`` elements.
+    ``geometry`` (one of ``GEOMETRIES``) overrides
+    ``cross_geometry(nA, nB, "cross_jerk")``; every caller in the port
+    leaves it None."""
     nA, nB = posA.shape[0], posB.shape[0]
     _check_planes(nA, posA=posA, velA=velA)
     _check_planes(nB, posB=posB, velB=velB)
@@ -896,8 +919,8 @@ def cross_jerk_kernel(posA, velA, posB, velB, massA, massB, eps, G=1.0,
     _check_f32("massB", massB, (nB,))
     lib = _library()
     dev = posA.device
-    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_jerk"), dev,
-                       scratch)
+    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_jerk", geometry),
+                       dev, scratch)
     accA, jerkA = (torch.empty((nA, 3), dtype=torch.float32, device=dev)
                    for _ in range(2))
     accB, jerkB = (torch.empty((nB, 3), dtype=torch.float32, device=dev)
@@ -905,9 +928,9 @@ def cross_jerk_kernel(posA, velA, posB, velB, massA, massB, eps, G=1.0,
     code = lib.ocn_cross_jerk(
         posA.data_ptr(), velA.data_ptr(), massA.data_ptr(), nA,
         posB.data_ptr(), velB.data_ptr(), massB.data_ptr(), nB, _f32(G),
-        _f32(_f32(eps) ** 2), int(guarded), scratch.data_ptr(),
-        accA.data_ptr(), jerkA.data_ptr(), accB.data_ptr(), jerkB.data_ptr(),
-        _stream(posA))
+        _f32(_f32(eps) ** 2), int(guarded), _geom(geometry),
+        scratch.data_ptr(), accA.data_ptr(), jerkA.data_ptr(),
+        accB.data_ptr(), jerkB.data_ptr(), _stream(posA))
     LAUNCHES["cross_jerk"] += 1
     _check_launch(lib, code, "cross_jerk")
     return accA, jerkA, accB, jerkB
@@ -1081,11 +1104,13 @@ def cross_x_kernel(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
 
 
 def cross_jerk_x_kernel(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
-                        eps, guarded=True, scratch=None):
+                        eps, guarded=True, scratch=None, geometry=None):
     """Launch K16 (the tile pass and a reduce per set) on (hi, lo) f32 CUDA
     planes; the same contract as ``cross_jerk_x_plain``. ``scratch``, if
     given, is a float32 buffer of at least ``cross_scratch_floats(nA, nB,
-    "cross_jerk_x")`` elements."""
+    "cross_jerk_x", geometry)`` elements. ``geometry`` (one of
+    ``GEOMETRIES``) overrides ``cross_geometry(nA, nB, "cross_jerk_x")``;
+    every caller in the port leaves it None."""
     nA, nB = hiA.shape[0], hiB.shape[0]
     _check_planes(nA, hiA=hiA, loA=loA, vhiA=vhiA, vloA=vloA)
     _check_planes(nB, hiB=hiB, loB=loB, vhiB=vhiB, vloB=vloB)
@@ -1093,8 +1118,8 @@ def cross_jerk_x_kernel(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
     _check_f32("gmB", gmB, (nB,))
     lib = _library()
     dev = hiA.device
-    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_jerk_x"), dev,
-                       scratch)
+    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_jerk_x",
+                                            geometry), dev, scratch)
     accA, jerkA = (torch.empty((nA, 3), dtype=torch.float32, device=dev)
                    for _ in range(2))
     accB, jerkB = (torch.empty((nB, 3), dtype=torch.float32, device=dev)
@@ -1103,8 +1128,8 @@ def cross_jerk_x_kernel(hiA, loA, vhiA, vloA, hiB, loB, vhiB, vloB, gmA, gmB,
         hiA.data_ptr(), loA.data_ptr(), vhiA.data_ptr(), vloA.data_ptr(),
         gmA.data_ptr(), nA, hiB.data_ptr(), loB.data_ptr(), vhiB.data_ptr(),
         vloB.data_ptr(), gmB.data_ptr(), nB, _f32(_f32(eps) ** 2),
-        int(guarded), scratch.data_ptr(), accA.data_ptr(), jerkA.data_ptr(),
-        accB.data_ptr(), jerkB.data_ptr(), _stream(hiA))
+        int(guarded), _geom(geometry), scratch.data_ptr(), accA.data_ptr(),
+        jerkA.data_ptr(), accB.data_ptr(), jerkB.data_ptr(), _stream(hiA))
     LAUNCHES["cross_jerk_x"] += 1
     _check_launch(lib, code, "cross_jerk_x")
     return accA, jerkA, accB, jerkB

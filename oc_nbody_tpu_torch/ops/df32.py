@@ -395,8 +395,8 @@ def _df_row_block(rhi, rlo, shi, slo, gm_hi, gm_lo, eps2_hi, eps2_lo,
         u = df_add(u, df_sqr(d[k]))
     u = df_add(u, (zero + eps2_hi, zero + eps2_lo))
     inv = df_rsqrt(u)
-    if guarded:
-        ok = u[0] > 0
+    if guarded:  # gravity._inv_r's guard on the hi word (csrc/df.cuh)
+        ok = u[0] >= torch.finfo(u[0].dtype).tiny
         inv = (torch.where(ok, inv[0], 0.0), torch.where(ok, inv[1], 0.0))
     gminv = df_mul((gm_hi[None, :], gm_lo[None, :]), inv)
     inv2 = df_sqr(inv)

@@ -40,8 +40,13 @@ def rounded(x, dtype) -> float:
 
 
 def _inv_r(u):
+    """The zero guard: 0 where u is below the dtype's least normal number.
+    The JAX ``_inv_r`` is u > 0 ? rsqrt(max(u, tiny)) : 0 on arithmetic that
+    flushes a subnormal u to 0 (the TPU; XLA on the CPU), so a pair with a
+    subnormal u adds nothing there; PyTorch keeps subnormals, so the flush
+    is spelled out (the kernels' ``csrc/pair.cuh:inv_r``)."""
     tiny = torch.finfo(u.dtype).tiny
-    return torch.where(u > 0, torch.rsqrt(torch.clamp(u, min=tiny)), 0.0)
+    return torch.where(u >= tiny, torch.rsqrt(u), 0.0)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,8 @@
-"""Times of the pair-symmetric kernels K2 (sym_accel) and K12 (cross_accel)
-on the card, at the sizes the main path gives them, one JSON line each.
+"""Times of the register-blocked pair-symmetric kernels on the card, at the
+sizes the main path gives them, one JSON line each: K2 (sym_accel), K12
+(cross_accel), K13 (cross_jerk) and K16 (cross_jerk_x), and beside them K3
+(sym_jerk) and K7 (sym_jerk_x), the diagonal chunks of the same chunked
+routes.
 
     python3 sym_kernel_times.py                  # this checkout's kernels
     python3 sym_kernel_times.py --tree DIR       # the package under DIR
@@ -7,19 +10,23 @@ on the card, at the sizes the main path gives them, one JSON line each.
 
 ``--tree`` imports ``oc_nbody_tpu_torch`` from another checkout (an older
 commit unpacked with ``git archive``), so that two versions are timed on one
-card in one call: run old, new, new, old. ``--sweep`` times K2 and K12 in
-each compiled geometry (R rows a thread, S column parts;
-``cuda_gravity.GEOMETRIES``), which only a checkout that has them offers.
-K2 runs at N = 8,192 (c2, ``SYM_MIN``), 32,768 (a halfring shard), 65,536
-(the north star), 131,072 (c5, c6's diagonal chunk) and 262,144
-(``STREAM_N``); K12 at c6's chunk pair 131,072^2, its ragged pair 131,072 x
-82,496, and 32,768^2 and 16,384^2. Inputs are Plummer spheres made from a
-seed, eps = 1/512 unguarded, as chip_smoke.py times them. A time is the
-median of five launches (CUDA events) after 50 ms of warm-up launches, so
-that the first size is not timed at an idle clock. Needs a card; exits
-1 without one.
+card in one call: run old, new, new, old. ``--sweep`` times K2, K12, K13
+and K16 in each compiled geometry (R rows a thread, S column parts;
+``cuda_gravity.GEOMETRIES``), where the checkout's wrapper takes one. K2
+runs at N = 8,192 (c2,
+``SYM_MIN``), 32,768 (a halfring shard), 65,536 (the north star), 131,072
+(c5, c6's diagonal chunk) and 262,144 (``STREAM_N``); K12 at c6's chunk
+pair 131,072^2, its ragged pair 131,072 x 82,496, and 32,768^2 and
+16,384^2; K13 at c3's jerk chunk pair at 1M, 98,304^2, and its ragged pair
+98,304 x 65,536; K16 at c3x's, 73,728^2 and 73,728 x 16,384; K3 at 98,304
+and K7 at 73,728 (``CHUNK_SYMJ``, ``CHUNK_SYMXJ``). Inputs are Plummer
+spheres made from a seed, eps = 1/512 unguarded, as chip_smoke.py times
+them. A time is the median of five launches (CUDA events) after 50 ms of
+warm-up launches, so that the first size is not timed at an idle clock.
+Needs a card; exits 1 without one.
 """
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -29,6 +36,10 @@ from pathlib import Path
 
 SYM_NS = (8192, 32768, 65536, 131072, 262144)
 CROSS = ((131072, 131072), (131072, 82496), (32768, 32768), (16384, 16384))
+CROSS_JERK = ((98304, 98304), (98304, 65536))
+CROSS_JERK_X = ((73728, 73728), (73728, 16384))
+SYM_JERK_N = 98304
+SYM_JERK_X_N = 73728
 EPS = 1.0 / 512
 
 
@@ -73,44 +84,85 @@ def main():
         return 1
     from oc_nbody_tpu_torch.models.plummer import plummer
     from oc_nbody_tpu_torch.ops import cuda_gravity as cg
-    from oc_nbody_tpu_torch.ops.gravity import prepare_f32
+    from oc_nbody_tpu_torch.ops.gravity import prepare_f32, prepare_x
     dev = torch.device("cuda")
     card = _card()
-    geoms = cg.GEOMETRIES if args.sweep else (None,)
+    wrapper = {"sym": cg.sym_kernel, "cross": cg.cross_kernel,
+               "cross_jerk": cg.cross_jerk_kernel,
+               "cross_jerk_x": cg.cross_jerk_x_kernel}
+
+    def geoms(key):
+        takes = key in wrapper and "geometry" in inspect.signature(
+            wrapper[key]).parameters
+        return cg.GEOMETRIES if args.sweep and takes else (None,)
 
     def emit(**kw):
         print(json.dumps(dict(label=args.label, card=card, **kw)),
               flush=True)
 
-    def cluster(n, seed):
-        state = plummer(n, torch.Generator().manual_seed(seed), device=dev)
-        return prepare_f32(state.pos, state.mass)
+    def state(n, seed):
+        return plummer(n, torch.Generator().manual_seed(seed), device=dev)
 
-    for n in SYM_NS:
-        pos, mass = cluster(n, 12)
-        for g in geoms:
+    def time_each(key, shape, launch, with_phi=(False,)):
+        for g in geoms(key):
             kw = {} if g is None else dict(geometry=g)
-            for with_phi in (False, True):
-                ms = _median_ms(lambda: cg.sym_kernel(
-                    pos, mass, EPS, with_phi=with_phi, guarded=False, **kw))
-                emit(kernel="sym_phi" if with_phi else "sym", shape=[n],
+            for phi in with_phi:
+                ms = _median_ms(lambda: launch(phi, kw))
+                emit(kernel=key + ("_phi" if phi else ""), shape=shape,
                      geometry=list(g) if g else None, ms=ms)
             torch.cuda.empty_cache()
+
+    for n in SYM_NS:
+        st = state(n, 12)
+        pos, mass = prepare_f32(st.pos, st.mass)
+        del st
+        time_each("sym", [n], lambda phi, kw: cg.sym_kernel(
+            pos, mass, EPS, with_phi=phi, guarded=False, **kw), (False, True))
         del pos, mass
     for nA, nB in CROSS:
-        pos, mass = cluster(nA + nB, 41)
+        st = state(nA + nB, 41)
+        pos, mass = prepare_f32(st.pos, st.mass)
+        del st
         pA, pB = pos[:nA].contiguous(), pos[nA:].contiguous()
         mA, mB = mass[:nA].contiguous(), mass[nA:].contiguous()
         del pos, mass
-        for g in geoms:
-            kw = {} if g is None else dict(geometry=g)
-            for with_phi in (False, True):
-                ms = _median_ms(lambda: cg.cross_kernel(
-                    pA, pB, mA, mB, EPS, with_phi=with_phi, guarded=False,
-                    **kw))
-                emit(kernel="cross_phi" if with_phi else "cross",
-                     shape=[nA, nB], geometry=list(g) if g else None, ms=ms)
-            torch.cuda.empty_cache()
+        time_each("cross", [nA, nB], lambda phi, kw: cg.cross_kernel(
+            pA, pB, mA, mB, EPS, with_phi=phi, guarded=False, **kw),
+            (False, True))
+    st = state(sum(CROSS_JERK[0]), 42)
+    pos, mass, vel = prepare_f32(st.pos, st.mass, vel=st.vel)
+    del st
+    p, v, m = (t[:SYM_JERK_N].contiguous() for t in (pos, vel, mass))
+    time_each("sym_jerk", [SYM_JERK_N], lambda phi, kw: cg.sym_jerk_kernel(
+        p, v, m, EPS, guarded=False))
+    del p, v, m
+    for nA, nB in CROSS_JERK:
+        args_ = tuple(t[a:b].contiguous() for t, (a, b) in zip(
+            (pos, vel, pos, vel, mass, mass),
+            ((0, nA), (0, nA), (nA, nA + nB), (nA, nA + nB), (0, nA),
+             (nA, nA + nB))))
+        time_each("cross_jerk", [nA, nB], lambda phi, kw: cg.cross_jerk_kernel(
+            *args_, EPS, guarded=False, **kw))
+        del args_
+    del pos, mass, vel
+    st = state(sum(CROSS_JERK_X[0]), 48)
+    hi, lo, gm, vhi, vlo = prepare_x(st.pos, st.mass, 1.0, vel=st.vel)
+    del st
+    planes = tuple(t[:SYM_JERK_X_N].contiguous()
+                   for t in (hi, lo, vhi, vlo, gm))
+    time_each("sym_jerk_x", [SYM_JERK_X_N],
+              lambda phi, kw: cg.sym_jerk_x_kernel(*planes, EPS,
+                                                   guarded=False))
+    del planes
+    for nA, nB in CROSS_JERK_X:
+        sets = [tuple(t[a:b].contiguous() for t in (hi, lo, vhi, vlo))
+                for a, b in ((0, nA), (nA, nA + nB))]
+        args_ = (*sets[0], *sets[1], gm[:nA].contiguous(),
+                 gm[nA:nA + nB].contiguous())
+        time_each("cross_jerk_x", [nA, nB],
+                  lambda phi, kw: cg.cross_jerk_x_kernel(
+                      *args_, EPS, guarded=False, **kw))
+        del sets, args_
     return 0
 
 

@@ -329,7 +329,8 @@ def test_capped_tiers_are_refused_before_any_stepper(monkeypatch, capsys):
 
 class _FakeLibrary:
     """The kernel library's scratch-size exports with made-up geometries
-    (``sym`` for K2, ``cross`` for K12), so that the sizing of the chunked
+    (``sym`` for K2, ``cross`` for K12, and K13's and K16's sizes made from
+    ``cross`` too, each its own), so that the sizing of the chunked
     evaluation's one scratch buffer is checked without a card."""
 
     def __init__(self, sym, cross):
@@ -349,8 +350,13 @@ class _FakeLibrary:
     def ocn_cross_scratch(self, nA, nB):
         return 3 * nA * nB + 1
 
-    def ocn_cross_jerk_scratch(self, nA, nB):
-        return 5 * nA * nB + 2
+    def ocn_cross_jerk_scratch(self, nA, nB, geom):
+        assert geom == 0
+        return 5 * self.cross(nA, nB) + 2
+
+    def ocn_cross_jerk_x_scratch(self, nA, nB, geom):
+        assert geom == 0
+        return 7 * self.cross(nA, nB) + 3
 
 
 # each makes another launch the largest: a full chunk pair, a full
@@ -375,8 +381,9 @@ def test_chunk_scratch_covers_every_launch(monkeypatch, fake, extended, jerk,
     its launches needs, as each kernel's own size function says: every
     diagonal chunk (K2, K3, K6 or K7) and every chunk pair (K12, K13, K15 or
     K16) of ``_chunked_sum``'s order at chunk 128, for one chunk (n = 100),
-    a ragged last chunk (300) and whole chunks (384), with K2's and K12's
-    sizes made up so that each kind of launch is the largest in turn."""
+    a ragged last chunk (300) and whole chunks (384), with the sizes of K2
+    and of the register-blocked cross kernels K12, K13 and K16 made up so
+    that each kind of launch is the largest in turn."""
     monkeypatch.setattr(cg, "_library", lambda: _FAKES[fake])
     diag = "sym" + ("_jerk" if jerk else "") + ("_x" if extended else "")
     cross = diag.replace("sym", "cross")
@@ -406,11 +413,11 @@ def test_sym_scratch_asks_each_kernel(monkeypatch, kernel, want):
 
 @pytest.mark.parametrize("kernel,want", [
     ("cross", 300 * 200), ("cross_x", 3 * 300 * 200 + 1),
-    ("cross_jerk", 5 * 300 * 200 + 2), ("cross_jerk_x", 5 * 300 * 200 + 2)])
+    ("cross_jerk", 5 * 300 * 200 + 2), ("cross_jerk_x", 7 * 300 * 200 + 3)])
 def test_cross_scratch_asks_each_kernel(monkeypatch, kernel, want):
-    """K12's scratch comes from its own export, K15's from the shared-tile
-    one, K13's and K16's from the jerk export; an unknown kernel is
-    refused."""
+    """K12's, K13's and K16's scratch each come from the kernel's own
+    export (their geometries differ), K15's from the shared-tile one; an
+    unknown kernel is refused."""
     monkeypatch.setattr(cg, "_library", lambda: _FAKES["cross"])
     assert cg.cross_scratch_floats(300, 200, kernel) == want
     with pytest.raises(ValueError, match="no cross kernel"):
@@ -418,8 +425,10 @@ def test_cross_scratch_asks_each_kernel(monkeypatch, kernel, want):
 
 
 def test_geometries_are_checked_before_any_launch():
-    """The ten compiled (R, S) of K2 and K12 encode as the library takes
-    them; None leaves the choice to the sizes, anything else is refused."""
+    """The ten compiled (R, S) of the register-blocked kernels K2, K12, K13
+    and K16 encode as the library takes them; None leaves the choice to the
+    sizes, anything else is refused; the cross geometry query names a
+    register-blocked kernel (K15 has none)."""
     assert len(cg.GEOMETRIES) == 10
     assert cg._geom(None) == 0
     assert [cg._geom(g) for g in cg.GEOMETRIES] == [
@@ -427,3 +436,28 @@ def test_geometries_are_checked_before_any_launch():
     for bad in ((3, 1), (2, 4), (16, 1)):
         with pytest.raises(ValueError, match="geometry must be one of"):
             cg._geom(bad)
+    with pytest.raises(ValueError, match="no register-blocked cross kernel"):
+        cg.cross_geometry(300, 200, "cross_x")
+
+
+@pytest.mark.parametrize("kernel", ["cross", "cross_jerk", "cross_jerk_x"])
+def test_cross_scratch_passes_each_geometry(monkeypatch, kernel):
+    """K12's, K13's and K16's scratch queries carry the geometry as the
+    library takes it (0 for the kernel's own), and refuse one not
+    compiled before the library is asked."""
+    asked = []
+
+    class _Lib:
+        def __getattr__(self, name):
+            return lambda nA, nB, geom: asked.append((name, geom)) or 1
+
+    monkeypatch.setattr(cg, "_library", lambda: _Lib())
+    for g in (None, *cg.GEOMETRIES):
+        cg.cross_scratch_floats(300, 200, kernel, g)
+    export = {"cross": "ocn_cross_accel_scratch",
+              "cross_jerk": "ocn_cross_jerk_scratch",
+              "cross_jerk_x": "ocn_cross_jerk_x_scratch"}[kernel]
+    assert asked == [(export, 0)] + [(export, r * 16 + s)
+                                     for r, s in cg.GEOMETRIES]
+    with pytest.raises(ValueError, match="geometry must be one of"):
+        cg.cross_scratch_floats(300, 200, kernel, (3, 3))

@@ -54,7 +54,11 @@ zeroed) and at a step onto non-zero incoming sums (sum - comp grows by the
 f64 step), at the same tolerances, and repeat bitwise; every mode of the
 sharded force on 4 shards of the card matches the unsharded ForceModel to
 2e-5 and repeats bitwise; the overlapped ring equals its serial schedule
-bitwise, and d = 1 is one launch.
+bitwise, and d = 1 is one launch. K13 and K16 run in each of their compiled
+tile geometries (csrc/jerk_rows.cuh) on ragged sets, where a NaN-filled
+scratch gives the same bits. At eps = 0 a pair 1e-20 apart (u below the
+least normal f32) adds nothing in every guarded kernel K1-K21, as in its
+f32 twin (ROADMAP C6).
 """
 import numpy as np
 import pytest
@@ -381,6 +385,14 @@ def test_geometry_follows_the_sizes(cuda):
     assert cg.sym_geometry(65536) == (8, 1)
     assert cg.cross_geometry(131072, 131072) == (8, 1)
     assert cg.cross_geometry(16384, 16384) == (8, 4)
+    # K13 and K16 (csrc/jerk_rows.cuh) by the same rule, at their chunk
+    # pairs at 1M and the ragged ones
+    for key in ("cross_jerk", "cross_jerk_x"):
+        assert cg.cross_geometry(98304, 98304, key) == (8, 1)
+        assert cg.cross_geometry(98304, 65536, key) == (8, 1)
+        assert cg.cross_geometry(73728, 73728, key) == (8, 1)
+        assert cg.cross_geometry(73728, 16384, key) == (8, 1)
+        assert cg.cross_geometry(1000, 300, key) == (1, 1)
 
 
 @pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
@@ -399,6 +411,34 @@ def test_cross_jerk_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
     ref = cg.cross_jerk_plain(*args, eps, 1.3, dtype=torch.float64)
     _check_jerk(out[:2], ref[:2])
     _check_jerk(out[2:], ref[2:])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("geometry", cg.GEOMETRIES)
+@pytest.mark.parametrize("nA,nB", [(1, 300), (1000, 3001), (2900, 700),
+                                   (1025, 16500)])
+def test_cross_jerk_kernel_every_geometry(cuda, nA, nB, geometry, eps):
+    """K13 in each compiled (R rows a thread, S column parts) on ragged sets
+    against its f64 twin, both sets' outputs (5e-6 of max|a|, 1e-5 of
+    max|j|; 2e-5 past 16,384 sources); a launch on a NaN-filled scratch
+    gives the same bits, so every slot the reduce reads was written."""
+    pos, mass, vel = _moving_cluster(nA + nB, nA + nB + 9, cuda)
+    args = (pos[:nA].contiguous(), vel[:nA].contiguous(),
+            pos[nA:].contiguous(), vel[nA:].contiguous(),
+            mass[:nA].contiguous(), mass[nA:].contiguous())
+    kw = dict(guarded=eps == 0.0, geometry=geometry)
+    out = cg.cross_jerk_kernel(*args, eps, 1.3, **kw)
+    nan = _nan_scratch(cg.cross_scratch_floats(nA, nB, "cross_jerk",
+                                               geometry), cuda)
+    again = cg.cross_jerk_kernel(*args, eps, 1.3, scratch=nan, **kw)
+    ref = cg.cross_jerk_plain(*args, eps, 1.3, dtype=torch.float64)
+    tol = (2e-5, 2e-5) if max(nA, nB) > 16384 else (5e-6, 1e-5)
+    for got, want in ((out[:2], ref[:2]), (out[2:], ref[2:])):
+        for g, w, t in zip(got, want, tol):
+            assert g.dtype == torch.float32
+            assert float((g.double() - w).abs().max()) <= t * float(
+                w.abs().max())
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
@@ -774,6 +814,29 @@ def test_cross_jerk_x_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
                                 guarded=guarded)
     _check_x(out[:2], ref[:2])
     _check_x(out[2:], ref[2:])
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("geometry", cg.GEOMETRIES)
+@pytest.mark.parametrize("nA,nB", [(1, 300), (1000, 3001), (2900, 700),
+                                   (1025, 16500)])
+def test_cross_jerk_x_kernel_every_geometry(cuda, nA, nB, geometry, eps):
+    """K16 in each compiled (R rows a thread, S column parts) on ragged sets
+    against the f64 evaluation of the same planes, both sets' outputs (5e-6
+    of max|a|, 1e-5 of max|j|; 2e-5 past 16,384 sources); a launch on a
+    NaN-filled scratch gives the same bits."""
+    A, B, gA, gB = _split_sets(nA, nA + nB, nA + nB + 11, cuda)
+    kw = dict(guarded=eps == 0.0, geometry=geometry)
+    out = cg.cross_jerk_x_kernel(*A, *B, gA, gB, eps, **kw)
+    nan = _nan_scratch(cg.cross_scratch_floats(nA, nB, "cross_jerk_x",
+                                               geometry), cuda)
+    again = cg.cross_jerk_x_kernel(*A, *B, gA, gB, eps, scratch=nan, **kw)
+    ref = cg.cross_jerk_x_plain(*A, *B, gA, gB, eps, dtype=torch.float64,
+                                guarded=eps == 0.0)
+    tol = (2e-5, 2e-5) if max(nA, nB) > 16384 else (5e-6, 1e-5)
+    _check_x(out[:2], ref[:2], tol)
+    _check_x(out[2:], ref[2:], tol)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
@@ -1420,3 +1483,135 @@ def test_ring_evaluations_are_race_free_and_launch_d_squared(cuda):
     ref = cg.rows_plain(pos, pos, mass, 1.0 / 256, dtype=torch.float64)
     assert float((one.double() - ref).abs().max()) <= 2e-5 * float(
         ref.abs().max())
+
+
+# ---- the zero guard at eps = 0 (one rule for every kernel) -----------------
+
+def _close_pair_set(device, n=64, sep=1e-20):
+    """n stars in f32, the last two ``sep`` apart on each axis (u = 3 sep^2,
+    below the least normal f32 at 1e-20), the rest a normal sample."""
+    rng = np.random.default_rng(61)
+    pos = rng.normal(size=(n, 3))
+    pos[-2] = 0.0
+    pos[-1] = sep
+    vel = rng.normal(size=(n, 3)) * 0.5
+    mass = rng.uniform(0.5, 1.5, n) / n
+    return tuple(torch.from_numpy(a).to(device=device, dtype=torch.float32)
+                 for a in (pos, vel, mass))
+
+
+def _guard_cases(device):
+    """(label, kernel outputs, f32 plain twin outputs) of every guarded
+    kernel K1-K21 at eps = 0 on ``_close_pair_set``, rows = sources (the
+    cross kernels take the first 40 stars against the rest)."""
+    pos, vel, mass = _close_pair_set(device)
+    z = torch.zeros_like(pos)
+    f32, e = torch.float32, 0.0
+    rows = dict(guarded=True)
+    A = (pos[:40].contiguous(), vel[:40].contiguous())
+    B = (pos[40:].contiguous(), vel[40:].contiguous())
+    mA, mB = mass[:40].contiguous(), mass[40:].contiguous()
+    zA, zB = torch.zeros_like(A[0]), torch.zeros_like(B[0])
+    hi_lo = (pos, z, vel, z)
+    cases = [
+        ("K1", cg.rows_kernel(pos, pos, mass, e, with_phi=True, **rows),
+         cg.rows_plain(pos, pos, mass, e, with_phi=True)),
+        ("K2", cg.sym_kernel(pos, mass, e, with_phi=True, **rows),
+         cg.sym_plain(pos, mass, e, with_phi=True)),
+        ("K3", cg.sym_jerk_kernel(pos, vel, mass, e, **rows),
+         cg.sym_jerk_plain(pos, vel, mass, e)),
+        ("K4", cg.rows_jerk_kernel(pos, vel, pos, vel, mass, e, **rows),
+         cg.rows_jerk_plain(pos, vel, pos, vel, mass, e)),
+        ("K5", cg.rows_jerk_t_kernel(pos, vel, pos, vel, mass, e, **rows),
+         cg.rows_jerk_t_plain(pos, vel, pos, vel, mass, e)),
+        ("K6", cg.sym_x_kernel(pos, z, mass, e, with_phi=True, **rows),
+         cg.sym_x_plain(pos, z, mass, e, with_phi=True)),
+        ("K7", cg.sym_jerk_x_kernel(*hi_lo, mass, e, **rows),
+         cg.sym_jerk_x_plain(*hi_lo, mass, e)),
+        ("K8", cg.rows_x_kernel(pos, z, pos, z, mass, e, with_phi=True,
+                                **rows),
+         cg.rows_x_plain(pos, z, pos, z, mass, e, with_phi=True)),
+        ("K9", cg.rows_jerk_x_kernel(*hi_lo, *hi_lo, mass, e, **rows),
+         cg.rows_jerk_x_plain(*hi_lo, *hi_lo, mass, e)),
+        ("K12", cg.cross_kernel(A[0], B[0], mA, mB, e, with_phi=True, **rows),
+         cg.cross_plain(A[0], B[0], mA, mB, e, with_phi=True)),
+        ("K13", cg.cross_jerk_kernel(*A, *B, mA, mB, e, **rows),
+         cg.cross_jerk_plain(*A, *B, mA, mB, e)),
+        ("K14", cg.rows_jerk_stream_kernel(pos, vel, pos, vel, mass, e,
+                                           **rows),
+         cg.rows_jerk_stream_plain(pos, vel, pos, vel, mass, e)),
+        ("K15", cg.cross_x_kernel(A[0], zA, B[0], zB, mA, mB, e,
+                                  with_phi=True, **rows),
+         cg.cross_x_plain(A[0], zA, B[0], zB, mA, mB, e, with_phi=True)),
+        ("K16", cg.cross_jerk_x_kernel(A[0], zA, A[1], zA, B[0], zB, B[1],
+                                       zB, mA, mB, e, **rows),
+         cg.cross_jerk_x_plain(A[0], zA, A[1], zA, B[0], zB, B[1], zB, mA,
+                               mB, e)),
+        ("K17", cg.rows_jerk_x_stream_kernel(*hi_lo, *hi_lo, mass, e,
+                                             **rows),
+         cg.rows_jerk_x_stream_plain(*hi_lo, *hi_lo, mass, e)),
+        ("K18", cg.rows_t_kernel(pos, pos, mass, e, with_phi=True, **rows),
+         cg.rows_plain(pos, pos, mass, e, with_phi=True)),
+        ("K18<comp>", cg.rows_stream_kernel(pos, pos, mass, e, with_phi=True,
+                                            **rows),
+         cg.rows_plain(pos, pos, mass, e, with_phi=True)),
+        ("K19", cg.rows_x_stream_kernel(pos, z, pos, z, mass, e,
+                                        with_phi=True, **rows),
+         cg.rows_x_stream_plain(pos, z, pos, z, mass, e, with_phi=True)),
+    ]
+    # the df32 planes as they stand (no centring, which would merge the
+    # pair): lo words zero, eps^2 = (0, 0)
+    df_pv = (pos, z, vel, z)
+    gz = torch.zeros_like(mass)
+    cases += [
+        ("K10", cuda_df.rows_df_kernel(pos, z, pos, z, mass, gz, 0.0, 0.0),
+         cuda_df.rows_df_plain(pos, z, pos, z, mass, gz, 0.0, 0.0)),
+        ("K11", cuda_df.rows_jerk_df_kernel(*df_pv, *df_pv, mass, gz, 0.0,
+                                            0.0),
+         cuda_df.rows_jerk_df_plain(*df_pv, *df_pv, mass, gz, 0.0, 0.0)),
+    ]
+    for key, ops in (("ring", (pos, pos, mass)),
+                     ("ring_phi", (pos, pos, mass)),
+                     ("ring_jerk", (pos, vel, pos, vel, mass))):
+        shapes = [(64, 3), (64,) if key == "ring_phi" else (64, 3)]
+        shapes = shapes[:1] if key == "ring" else shapes
+        got, want = ([torch.zeros(sh, dtype=f32, device=device)
+                      for sh in shapes] for _ in range(2))
+        comps = [[torch.zeros(sh, dtype=f32, device=device) for sh in shapes]
+                 for _ in range(2)]
+        _ring_step(key, ops, e, got, comps[0], True)
+        _ring_step(key, ops, e, want, comps[1], True, twin=True)
+        cases.append(({"ring": "K20", "ring_phi": "K20<phi>",
+                       "ring_jerk": "K21"}[key], tuple(got), tuple(want)))
+    return cases
+
+
+# the kernels whose outputs alternate accel, jerk
+_JERK_KERNELS = ("K3", "K4", "K5", "K7", "K9", "K11", "K13", "K14", "K16",
+                 "K17", "K21")
+
+
+def test_guarded_kernels_give_a_pair_closer_than_1e_19_nothing(cuda):
+    """C6: at eps = 0 a pair 1e-20 apart (u = 3e-40, below the least normal
+    f32) adds nothing in every guarded kernel K1-K21, as in its plain twin
+    (gravity._inv_r) and in the JAX package, whose f32 arithmetic flushes
+    that u to 0 (tests/test_torch_guard.py): the kernel's non-finite
+    entries are its twin's (none), and its finite ones agree at the
+    tolerances above (K10, K11: 1e-9 of max|a|, 1e-8 of max|j|)."""
+    for label, got, want in _guard_cases(cuda):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want), label
+        for k, (g, w) in enumerate(zip(got, want)):
+            g, w = g.double(), w.double()
+            assert bool(torch.isfinite(w).all()), (label, k)
+            assert torch.equal(torch.isfinite(g), torch.isfinite(w)), label
+            phi = w.dim() == 1
+            if phi:
+                torch.testing.assert_close(g, w, rtol=3e-5, atol=0.0)
+                continue
+            jerk = label in _JERK_KERNELS and k % 2 == 1
+            tol = ((1e-9, 1e-8) if label in ("K10", "K11")
+                   else (5e-6, 1e-5))[jerk]
+            assert float((g - w).abs().max()) <= tol * float(
+                w.abs().max()), (label, k)
