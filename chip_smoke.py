@@ -23,7 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and must be bitwise equal, and K5 must give a row the same bits alone,
    in a subset and among all rows; K5 is timed beside K4 at the same
    shapes. Then the extended (hi/lo) tier the same way: K6 sym_accel_x at
-   N = 131,072 (beside K2), K7 sym_jerk_x at 16,384 (beside K3), K8
+   N = 131,072 (beside K2, its tile geometry and its shared bytes a pair),
+   K7 sym_jerk_x at 16,384 (beside K3), K8
    rows_accel_x at 1,024², K9 rows_jerk_x on K5's row counts against
    32,768 sources (beside K5) and as a self-interaction at 4,096, eps > 0
    and eps = 0, each against the f64 evaluation of the same (hi, lo)
@@ -53,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    repeatable, timed at 1M and 2,097,152 beside K1 as a one-sided
    self-interaction at 1M. Then the extended tier past STREAM_N: K15
    cross_accel_x (with and without the raw potential) at a full chunk pair
-   (98,304²) and a ragged one (98,304 x 65,536), K16 cross_jerk_x at
+   (98,304²) and a ragged one (98,304 x 65,536) beside its tile geometry,
+   its shared bytes a pair and the first design's time, K16 cross_jerk_x at
    73,728² and 73,728 x 16,384 (as K13; K7 timed at 73,728), and K17 (K9
    compensated) on 1 to 4,096
    rows against 1,048,576 sources and on all 131,072 rows of a set of that
@@ -311,8 +313,8 @@ PEAK_BYTES = 3.35e12
 # the extended tier: the shared separation and Newton-refined inverse 27
 # (pair.cuh:hilo_sep_inv), so one-sided accel 36 and 37 with phi
 # (row_pair_x), accel+jerk 65 (row_jerk_pair_x); pair-symmetric accel 44
-# and 46 with phi (sym_accel_x.cu:sym_pair_x), accel+jerk 77
-# (sym_jerk_x.cu:sym_jerk_pair_x)
+# and 46 with phi (pair.cuh:sym_pair_x; counted in sym_rows.cuh:Ext),
+# accel+jerk 77 (sym_jerk_x.cu:sym_jerk_pair_x)
 # the df32 tier, counted in df.cuh's header from its functions (two_sum 6,
 # two_prod 3, df_add 11, df_mul 10, df_sqr 9, df_rsqrt 39 without its
 # seed): accel 233 (df_accel_pair), accel+jerk 481 (df_jerk_pair)
@@ -389,10 +391,13 @@ K16_PAIRS = ((73728, 73728), (73728, 16384))
 JERK_GEOMETRY_SETS = ((1000, 3001), (2900, 700))
 K3_CHUNK_N = 98304
 K7_CHUNK_N = 73728
-# the first design of K13 and K16 (one row a thread), timed on an NVIDIA
-# H100 80GB HBM3 at 700 W by sym_kernel_times.py --tree on the parent
-# checkout (PERF.md §6), printed beside this run's times
-FIRST_DESIGN_MS = {"cross_jerk": 25.45, "cross_jerk_x": 19.79}
+# the first designs of K13, K16, K6 and K15 (one row a thread), timed on an
+# NVIDIA H100 80GB HBM3 at 700 W by sym_kernel_times.py --tree on the
+# parent checkout (K13, K16) and by this script (K6 at 131,072, K15 at
+# 98,304²; PERF.md §6), printed beside this run's times
+FIRST_DESIGN_MS = {"cross_jerk": 25.45, "cross_jerk_x": 19.79,
+                   "sym_x": 18.08, "sym_x_phi": 18.02, "cross_x": 20.20,
+                   "cross_x_phi": 20.39}
 K17_ROWS = (1, 64, 1024, 4096)
 K17_CAP_N = 131072
 K17_CHECK_ROWS = 8192
@@ -914,10 +919,12 @@ def check_kernels_x(cg, device, main):
                     shape=[K8_N, K8_N],
                     bound=_bound(K8_N * K8_N, FLOPS_PER_PAIR[key],
                                  (64 + (4 if with_phi else 0)) * K8_N))
-    # K6 at c5x's N, beside K2; the f64 evaluation once per eps (with the
-    # potential: its accelerations are those of the form without)
+    # K6 at c5x's N, beside K2, its tile geometry (csrc/sym_rows.cuh) and
+    # its shared bytes a pair (64 / R); the f64 evaluation once per eps
+    # (with the potential: its accelerations are those of the form without)
     hi, lo, gm, _, _ = _planes(K6_N, 22, device)
     pos_c, mass_c = _cluster(K6_N, 22, device)
+    geo = cg.sym_geometry(K6_N, "sym_x")
     for eps in (1.0 / 512, 0.0):
         guarded = eps == 0.0
         ref = cg.sym_x_plain(hi, lo, gm, eps, with_phi=True, dtype=f64,
@@ -935,17 +942,20 @@ def check_kernels_x(cg, device, main):
             k2 = _median_ms(lambda: cg.sym_kernel(pos_c, mass_c, eps, **kw))
             pms = (_median_ms(lambda: cg.sym_x_plain(hi, lo, gm, eps, **kw),
                               reps=1) if eps > 0 else float("nan"))
+            key = "sym_x_phi" if with_phi else "sym_x"
+            bound = _bound(K6_N * (K6_N - 1) // 2, FLOPS_PER_PAIR[key],
+                           (40 + (4 if with_phi else 0)) * K6_N)
             print(f"sym_accel_x   ({K6_N})         {int(with_phi):<5}"
                   f"{eps:<11.6g}{err:<11.3e}{rel:<9.2e}{prel:<11.2e}"
-                  f"{ms:<10.4f}{pms:<10.4f}{k2:.4f} (K2)   "
-                  "bitwise-repeatable", flush=True)
+                  f"{ms:<10.4f}{pms:<10.4f}{k2:.4f} (K2)   bound "
+                  f"{bound[0]:.4f} ({bound[0] / ms:.1%}; first design "
+                  f"{FIRST_DESIGN_MS[key]} ms), R,S = {geo[0]},{geo[1]}, "
+                  f"{64 / geo[0]:g} B/pair shared   bitwise-repeatable",
+                  flush=True)
             if eps > 0:
-                key = "sym_x_phi" if with_phi else "sym_x"
                 main[key] = dict(
                     max_abs_err=err, ms=ms, plain_ms=pms, f32_ms=k2,
-                    shape=[K6_N],
-                    bound=_bound(K6_N * (K6_N - 1) // 2, FLOPS_PER_PAIR[key],
-                                 (40 + (4 if with_phi else 0)) * K6_N))
+                    shape=[K6_N], bound=bound, smem=64 / geo[0])
         del ref
         torch.cuda.empty_cache()
     # the f64 evaluation of K6's planes, timed once: the first data point
@@ -1540,9 +1550,10 @@ def check_kernels_big_x(cg, device, main):
     f64 = torch.float64
     eps = 1.0 / 256
     print("kernel        shape            phi  max|da| A  max|da| B  rel      "
-          "phi_rel    ms        plain_ms  bound_ms")
+          "phi_rel    ms        plain_ms  bound_ms  (R,S, shared B/pair)")
     hi, lo, gm, _, _ = _planes(sum(K15_PAIRS[0]), 47, device)
     for nA, nB in K15_PAIRS:
+        geo = cg.cross_geometry(nA, nB, "cross_x")
         A = (hi[:nA].contiguous(), lo[:nA].contiguous())
         B = (hi[nA:nA + nB].contiguous(), lo[nA:nA + nB].contiguous())
         args = (*A, *B, gm[:nA].contiguous(), gm[nA:nA + nB].contiguous())
@@ -1567,15 +1578,19 @@ def check_kernels_big_x(cg, device, main):
                                                     with_phi=with_phi))
             bound = _bound(nA * nB, FLOPS_PER_PAIR[key],
                            (44 if with_phi else 40) * (nA + nB))
+            first = ""
             if nA == nB:
                 main[key] = dict(max_abs_err=max(e[0] for e in errs), ms=ms,
-                                 plain_ms=pms, shape=[nA, nB], bound=bound)
+                                 plain_ms=pms, shape=[nA, nB], bound=bound,
+                                 smem=64 / geo[0])
+                first = f"; first design {FIRST_DESIGN_MS[key]} ms"
             print(f"cross_accel_x ({nA},{nB}){'':<{13 - len(str(nA)) - len(str(nB))}}"
                   f"{int(with_phi):<5}{errs[0][0]:<11.3e}{errs[1][0]:<11.3e}"
                   f"{max(e[1] for e in errs):<9.2e}"
                   f"{max(e[2] for e in errs):<11.2e}"
-                  f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f}   "
-                  "bitwise-repeatable", flush=True)
+                  f"{ms:<10.4f}{pms:<10.1f}{bound[0]:.4f} "
+                  f"({bound[0] / ms:.1%}{first})   ({geo[0]},{geo[1]}, "
+                  f"{64 / geo[0]:g})   bitwise-repeatable", flush=True)
             del out
             torch.cuda.empty_cache()
         del ref

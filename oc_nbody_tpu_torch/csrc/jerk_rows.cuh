@@ -40,6 +40,8 @@ namespace rbj {
 using rb::kCols;
 using rb::kThreads;
 using rb::kWarps;
+using rb::load3;
+using rb::load4;
 
 // Pair-symmetric f32 accel + jerk pair (pair.cuh:sym_jerk_pair, the same
 // function) spelled for the issue rate as sym_rows.cuh:sym_pair_rb is:
@@ -77,15 +79,6 @@ __device__ __forceinline__ void sym_jerk_pair_rb(float4 s, float4 sv,
   ca.w = fmaf(-wi, bx, ca.w);
   cj.x = fmaf(-wi, by, cj.x);
   cj.y = fmaf(-wi, bz, cj.y);
-}
-
-__device__ __forceinline__ float3 load3(const float* __restrict__ p, int i) {
-  return make_float3(p[3 * i], p[3 * i + 1], p[3 * i + 2]);
-}
-
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, int i,
-                                        float w) {
-  return make_float4(p[3 * i], p[3 * i + 1], p[3 * i + 2], w);
 }
 
 // The f32 tier (K13): a set is positions, velocities and masses (G m

@@ -36,9 +36,9 @@
 
 namespace ocn {
 
-// Tile edge of the pair-symmetric kernels K3, K6, K7 and of the cross
-// kernel K15: one block of kSymTile threads per tile pair (K2 and K12 tile
-// by their own geometry, sym_rows.cuh; K13 and K16 by jerk_rows.cuh's).
+// Tile edge of the pair-symmetric jerk kernels K3 and K7: one block of
+// kSymTile threads per tile pair (K2, K6, K12 and K15 tile by their own
+// geometry, sym_rows.cuh; K13 and K16 by jerk_rows.cuh's).
 constexpr int kSymTile = 128;
 
 // The least normal f32, 2^-126.
@@ -64,7 +64,7 @@ __device__ __forceinline__ float inv_r(float u) {
 // that rescale a denormal one. GUARDED (eps == 0) is inv_r's guard: 0 for u
 // below the least normal float. With eps > 0, u >= eps^2 is normal (for
 // eps above ~1.1e-19), so inv_r_ftz and inv_r give the same bits wherever
-// either is used (K2, K12, K13 and K16 take this one).
+// either is used (K2, K6, K12, K13, K15 and K16 take this one).
 template <bool GUARDED>
 __device__ __forceinline__ float inv_r_ftz(float u) {
   float r;
@@ -153,7 +153,8 @@ __device__ __forceinline__ void sym_jerk_pair(float4 s, float4 sv, float3 xi,
 // Newton-refined inv. With GUARDED and u below 2^-126 (a coincident pair at
 // eps == 0, or a u that rounds below zero), inv_r gives 0 and the Newton
 // step leaves 0 * (1.5 - 0) = 0, so the pair adds nothing. FTZ takes the
-// seed from inv_r_ftz: the same bits, three instructions fewer (K16).
+// seed from inv_r_ftz: the same bits, three instructions fewer (K6, K15,
+// K16).
 template <bool GUARDED, bool FTZ = false>
 __device__ __forceinline__ float hilo_sep_inv(float4 sh, float4 sl, float3 xi,
                                               float3 li, float eps2,
@@ -181,13 +182,14 @@ __device__ __forceinline__ float3 hilo_dv(float4 vh, float4 vl, float3 vi,
 // One-sided extended pair (pallas_gravity.py:_accel_kernel_x and
 // _accel_phi_kernel_x): the action of the source (sh, sl) on the row at
 // (xi, li). ph accumulates +G m_j inv; the caller stores -ph, which keeps
-// the softened self term (the raw potential of this tier).
-template <bool WITH_PHI, bool GUARDED>
+// the softened self term (the raw potential of this tier). FTZ as in
+// hilo_sep_inv.
+template <bool WITH_PHI, bool GUARDED, bool FTZ = false>
 __device__ __forceinline__ void row_pair_x(float4 sh, float4 sl, float3 xi,
                                            float3 li, float eps2, float& ax,
                                            float& ay, float& az, float& ph) {
   float3 s;
-  const float inv = hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
+  const float inv = hilo_sep_inv<GUARDED, FTZ>(sh, sl, xi, li, eps2, s);
   const float gminv = sh.w * inv;
   const float w = gminv * (inv * inv);
   ax += w * s.x;
@@ -223,13 +225,14 @@ __device__ __forceinline__ void row_jerk_pair_x(float4 sh, float4 sl,
 // Pair-symmetric extended pair (K6, K15): the action of the source (sh, sl)
 // on the row at (xi, li) into (ax, ay, az, ph), and the row's reaction on
 // the source, -G m_i s inv^3 (and -G m_i inv for the potential), into col.
+// Its rsqrt seed is inv_r_ftz's (hilo_sep_inv's FTZ).
 template <bool WITH_PHI, bool GUARDED>
 __device__ __forceinline__ void sym_pair_x(float4 sh, float4 sl, float3 xi,
                                            float3 li, float gmi, float eps2,
                                            float& ax, float& ay, float& az,
                                            float& ph, float4& col) {
   float3 s;
-  const float inv = hilo_sep_inv<GUARDED>(sh, sl, xi, li, eps2, s);
+  const float inv = hilo_sep_inv<GUARDED, true>(sh, sl, xi, li, eps2, s);
   const float inv2 = inv * inv;
   const float gjinv = sh.w * inv;
   const float giinv = gmi * inv;
@@ -316,37 +319,14 @@ __device__ __forceinline__ void tile_pair(long long b, int nt, int& I,
   J = i + static_cast<int>(b - triangle_start(i, nt));
 }
 
-// Second pass of the tile-pair kernels (K3, K13, K15, K16): row i of n sums
-// its np tile partials scratch[i / T][P][i % T], P = 0 .. np-1, in that
-// order (T = kSymTile; the jerk form takes T, the row tile of K13's and
-// K16's geometry), one thread a row; no atomics, so the sum is bitwise
-// the same from launch to launch. The float4 form carries (a, -phi) or (a,
-// j.x); the jerk form adds a float2 plane (j.y, j.z) at the same slots.
-template <bool WITH_PHI>
-__global__ void tile_reduce(const float4* __restrict__ scratch, int n,
-                            int np, float* __restrict__ acc,
-                            float* __restrict__ phi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float4* p =
-      scratch + static_cast<size_t>(i / kSymTile) * np * kSymTile +
-      (i % kSymTile);
-  float4 s = p[0];
-  for (int P = 1; P < np; ++P) {
-    const float4 v = p[static_cast<size_t>(P) * kSymTile];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  acc[3 * i] = s.x;
-  acc[3 * i + 1] = s.y;
-  acc[3 * i + 2] = s.z;
-  if (WITH_PHI) phi[i] = s.w;
-}
-
-// (A template, like tile_reduce, so that every source including this header
-// may define it: Plane2 is float2.)
+// Second pass of the accel + jerk tile-pair kernels (K3, K13, K16): row i
+// of n, in tile X = i / tile, sums its np tile partials sc[X][P][i % tile],
+// P = 0 .. np-1, in that order (tile = kSymTile for K3, the row tile of
+// K13's and K16's geometry), one thread a row; no
+// atomics, so the sum is bitwise the same from launch to launch. A slot is
+// a float4 (a, j.x) and a float2 (j.y, j.z) at the same index of two
+// planes. (A template, so that every source including this header may
+// define it: Plane2 is float2.)
 template <typename Plane2>
 __global__ void tile_reduce_jerk(const float4* __restrict__ sc4,
                                  const Plane2* __restrict__ sc2, int n,
@@ -377,7 +357,8 @@ __global__ void tile_reduce_jerk(const float4* __restrict__ sc4,
   jerk[3 * i + 2] = s2.y;
 }
 
-// Threads per block of tile_reduce and tile_reduce_jerk.
+// Threads per block of the second passes (tile_reduce_jerk,
+// sym_rows.cuh:partials_reduce).
 constexpr int kReduceThreads = 256;
 
 }  // namespace ocn

@@ -10,166 +10,57 @@
 //
 // Positions arrive as (hi, lo) f32 planes of the f64 coordinates, centred
 // once and split in f64 by the caller; gm is (G m in f64) rounded to f32.
-// The separation and inverse distance are pair.cuh:hilo_sep_inv.
+// The pair is pair.cuh:sym_pair_x (the separation and Newton-refined
+// inverse of hilo_sep_inv), its rsqrt seed taken by inv_r_ftz.
 //
 // Bound on the card: 44 f32 flops (46 with the potential; an FMA counts 2)
-// and one rsqrtf per unique pair, plus four 16-byte shared-memory accesses
-// per pair (two source reads, the reaction's read and write). Device memory
-// is touched only by the partials below, so the kernel is bound by the FMA
-// pipe and shared-memory bandwidth together.
+// and one rsqrt per unique pair. Device memory is touched only by the
+// partials. The first design (one row a thread) spent 64 shared bytes a
+// pair (the source's hi and lo planes, the reaction's read and write) and
+// ran at the shared-memory rate; this one holds R rows a thread in
+// registers (csrc/sym_rows.cuh, the Ext tier), 64 / R bytes a pair, so
+// from R = 4 on the issue rate of the pair's 32 FP32 instructions and one
+// MUFU bounds it.
 //
-// The design is K2's (sym_accel.cu) with two float4 per source: one block
-// of T threads per tile pair (I, J), I <= J; thread r owns row I*T + r in
-// registers; off the diagonal it sweeps tile J on a rotating diagonal,
-// column (r + k) mod T at step k, each warp keeping its own reaction
-// accumulators in shared memory; a diagonal tile adds to rows only, every
-// pair in both directions, so the softened self term -G m/eps stays in the
-// potential (the raw potential of this tier; the caller adds self_phi).
-// The block writes its row partial to scratch[I][J] and, off the diagonal,
-// the sum of its warps' reaction partials in warp order to scratch[J][I];
-// sym_reduce_x sums scratch[X][P][r] over P in order. No float atomics:
-// two launches give the same bits. Scratch is nt x nt x T float4 (16 N nt
-// bytes: 2.1 GB at N = 131,072 with T = 128), every slot read is written
-// once per call. N need not be a multiple of T.
+// Design: K2's (csrc/sym_accel.cu) with the extended tier's rows and
+// sources. Tiles of TE = 128 R rows; one block per tile pair (I, J), I <=
+// J, and column part s < S. Off the diagonal the sweep is pair-symmetric;
+// a diagonal tile adds to rows only, every pair in both directions
+// (row_pair_x), so the softened self term -G m/eps stays in the potential
+// (the raw potential of this tier; the caller adds self_phi). Then
+// rb::partials_reduce sums each row's slots in slot order. No float
+// atomics; the geometry (R, S) comes from N alone, K2's rule
+// (rb::sym_geometry), so two launches on the same N are bitwise equal.
+// Scratch is K2's layout, nt x nt S x TE float4 (16 N nt S bytes): 0.27 GB
+// at N = 131,072 (R = 8, S = 1), where the first design needed 2.1 GB.
+// Every slot a row reads is written once per call. N need not be a
+// multiple of TE.
+// Registers (ptxas -v, sm_90a): R = 8 128, R = 4 74-80, R = 2 48-56, R = 1
+// 32-34, no spills in any geometry; 12,288 bytes of shared memory a block.
 
-#include "pair.cuh"
+#include "sym_rows.cuh"
 
-namespace {
+namespace rb = ocn::rb;
 
-constexpr int T = ocn::kSymTile;
-constexpr int kWarps = T / 32;
-static_assert((T & (T - 1)) == 0, "the rotating diagonal needs T = 2^k");
+// K6's geometry at N = n, encoded R * 16 + S (csrc/sym_rows.cuh).
+extern "C" int ocn_sym_x_geometry(int n) { return rb::sym_geometry(n); }
 
-template <bool WITH_PHI, bool GUARDED>
-__global__ void __launch_bounds__(T)
-    sym_tiles_x(const float* __restrict__ hi, const float* __restrict__ lo,
-                const float* __restrict__ gm, int n, int nt, float eps2,
-                float4* __restrict__ scratch) {
-  __shared__ float4 shi[T];
-  __shared__ float4 slo[T];
-  __shared__ float4 col[kWarps][T];
-  int I, J;
-  ocn::tile_pair(blockIdx.x, nt, I, J);
-  const int r = threadIdx.x;
-  const int i = I * T + r;
-  const bool row_ok = i < n;
-  float3 xi = make_float3(0.f, 0.f, 0.f), li = make_float3(0.f, 0.f, 0.f);
-  float gmi = 0.f;
-  if (row_ok) {
-    xi = make_float3(hi[3 * i], hi[3 * i + 1], hi[3 * i + 2]);
-    li = make_float3(lo[3 * i], lo[3 * i + 1], lo[3 * i + 2]);
-    gmi = gm[i];
-  }
-  const int j = J * T + r;
-  if (j < n) {
-    shi[r] = make_float4(hi[3 * j], hi[3 * j + 1], hi[3 * j + 2], gm[j]);
-    slo[r] = make_float4(lo[3 * j], lo[3 * j + 1], lo[3 * j + 2], 0.f);
-  } else {
-    shi[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-    slo[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) col[w][r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
-
-  const int ncol = min(T, n - J * T);  // live columns of tile J
-  float ax = 0.f, ay = 0.f, az = 0.f, ph = 0.f;
-  if (I == J) {
-    if (row_ok)
-      for (int k = 0; k < ncol; ++k)
-        ocn::row_pair_x<WITH_PHI, GUARDED>(shi[k], slo[k], xi, li, eps2, ax,
-                                           ay, az, ph);
-  } else {
-    // tile I < J <= nt-1 is never the ragged last tile: every row is live
-    float4* mine = col[r >> 5];
-#pragma unroll 4
-    for (int k = 0; k < T; ++k) {
-      const int c = (r + k) & (T - 1);
-      if (c < ncol) {
-        float4 a = mine[c];
-        ocn::sym_pair_x<WITH_PHI, GUARDED>(shi[c], slo[c], xi, li, gmi, eps2,
-                                           ax, ay, az, ph, a);
-        mine[c] = a;
-      }
-      __syncwarp();
-    }
-  }
-  if (row_ok)
-    scratch[(static_cast<size_t>(I) * nt + J) * T + r] =
-        make_float4(ax, ay, az, -ph);
-  __syncthreads();
-  if (I != J && r < ncol) {
-    float4 s = col[0][r];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      s.x += col[w][r].x;
-      s.y += col[w][r].y;
-      s.z += col[w][r].z;
-      s.w += col[w][r].w;
-    }
-    scratch[(static_cast<size_t>(J) * nt + I) * T + r] = s;
-  }
+// Floats of scratch K6 needs at N = n in geometry geom (0: its own); -1 for
+// a geometry not compiled.
+extern "C" long long ocn_sym_x_scratch(int n, int geom) {
+  return rb::sym_scratch_floats(n, geom);
 }
 
-template <bool WITH_PHI>
-__global__ void sym_reduce_x(const float4* __restrict__ scratch, int n,
-                             int nt, float* __restrict__ acc,
-                             float* __restrict__ phi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float4* p = scratch + static_cast<size_t>(i / T) * nt * T + (i % T);
-  float4 s = p[0];
-  for (int P = 1; P < nt; ++P) {
-    const float4 v = p[static_cast<size_t>(P) * T];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  acc[3 * i] = s.x;
-  acc[3 * i + 1] = s.y;
-  acc[3 * i + 2] = s.z;
-  if (WITH_PHI) phi[i] = s.w;
-}
-
-template <bool WITH_PHI, bool GUARDED>
-void launch(const float* hi, const float* lo, const float* gm, int n,
-            float eps2, float4* scratch, float* acc, float* phi,
-            cudaStream_t stream) {
-  const int nt = (n + T - 1) / T;
-  const long long pairs = static_cast<long long>(nt) * (nt + 1) / 2;
-  sym_tiles_x<WITH_PHI, GUARDED>
-      <<<static_cast<unsigned>(pairs), T, 0, stream>>>(hi, lo, gm, n, nt,
-                                                       eps2, scratch);
-  constexpr int kReduce = 256;
-  sym_reduce_x<WITH_PHI><<<(n + kReduce - 1) / kReduce, kReduce, 0, stream>>>(
-      scratch, n, nt, acc, phi);
-}
-
-}  // namespace
-
-// hi, lo (n, 3), gm (n,) and acc (n, 3) are contiguous f32 on the device;
-// phi (n,) may be null, and then no potential is computed. scratch holds
-// nt * nt * T float4 with nt = ceil(n / T) and T = ocn_sym_tile(). Returns
-// cudaGetLastError() after both launches.
+// K6 in geometry geom (0: ocn_sym_x_geometry(n), the one every caller of
+// the port takes). hi, lo (n, 3), gm (n,) and acc (n, 3) are contiguous f32
+// on the device; phi (n,) may be null, and then no potential is computed;
+// scratch holds ocn_sym_x_scratch(n, geom) floats. Returns
+// cudaGetLastError() after both launches, cudaErrorInvalidValue for a
+// geometry not compiled.
 extern "C" int ocn_sym_accel_x(const float* hi, const float* lo,
                                const float* gm, int n, float eps2,
-                               int guarded, void* scratch, float* acc,
-                               float* phi, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float4* sc = static_cast<float4*>(scratch);
-  if (n > 0) {
-    if (phi != nullptr) {
-      if (guarded)
-        launch<true, true>(hi, lo, gm, n, eps2, sc, acc, phi, s);
-      else
-        launch<true, false>(hi, lo, gm, n, eps2, sc, acc, phi, s);
-    } else {
-      if (guarded)
-        launch<false, true>(hi, lo, gm, n, eps2, sc, acc, phi, s);
-      else
-        launch<false, false>(hi, lo, gm, n, eps2, sc, acc, phi, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+                               int guarded, int geom, void* scratch,
+                               float* acc, float* phi, void* stream) {
+  return rb::sym_accel<rb::Ext>({hi, lo, gm, n}, eps2, guarded, geom,
+                                scratch, acc, phi, stream);
 }

@@ -49,7 +49,9 @@ in ``ops/cuda_df.py``, the sharded ring's steps K20 and K21
 and the extended (hi/lo) precision tier, on pre-split f32 planes:
 
   * K6 ``csrc/sym_accel_x.cu`` — pair-symmetric self-interaction, optional
-    raw potential, bitwise deterministic. Replaces ``_make_sym_kernel`` with
+    raw potential, bitwise deterministic; K2's register-blocked rows and
+    tile geometry with the hi/lo rows (``csrc/sym_rows.cuh``, the ``Ext``
+    tier; ``sym_geometry(n, "sym_x")``). Replaces ``_make_sym_kernel`` with
     ``_pair_accel_x`` / ``_pair_phi_x`` (oc_nbody_tpu/ops/pallas_pair.py:256,
     :174, :182).
   * K7 ``csrc/sym_jerk_x.cu`` — pair-symmetric self-interaction accel +
@@ -63,8 +65,10 @@ and the extended (hi/lo) precision tier, on pre-split f32 planes:
     depend on the other rows of the launch. Replaces
     ``_accel_jerk_kernel_x`` (oc_nbody_tpu/ops/pallas_gravity.py:1208).
   * K15 ``csrc/cross_accel_x.cu`` — two disjoint sets, each pair once, A's
-    action and B's reaction, optional raw potential, bitwise deterministic.
-    Replaces ``_make_cross_kernel`` with ``_pair_accel_x`` / ``_pair_phi_x``
+    action and B's reaction, optional raw potential, bitwise deterministic;
+    K12's register-blocked plan with the hi/lo rows (``cross_geometry(nA,
+    nB, "cross_x")``). Replaces ``_make_cross_kernel`` with
+    ``_pair_accel_x`` / ``_pair_phi_x``
     (oc_nbody_tpu/ops/pallas_pair.py:296).
   * K16 ``csrc/cross_jerk_x.cu`` — the same for accel + jerk, on K13's
     register-blocked plan (``csrc/jerk_rows.cuh``). Replaces
@@ -291,10 +295,8 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.ocn_rows_accel.argtypes = [p, i, p, p, i, f, f, i, p, p, p]
         lib.ocn_rows_accel.restype = i
-        lib.ocn_sym_accel.argtypes = [p, p, i, f, f, i, p, p, p, p]
+        lib.ocn_sym_accel.argtypes = [p, p, i, f, f, i, i, p, p, p, p]
         lib.ocn_sym_accel.restype = i
-        lib.ocn_sym_accel_at.argtypes = [p, p, i, f, f, i, i, p, p, p, p]
-        lib.ocn_sym_accel_at.restype = i
         lib.ocn_sym_geometry.argtypes = [i]
         lib.ocn_sym_geometry.restype = i
         lib.ocn_sym_scratch.argtypes = [i, i]
@@ -310,8 +312,12 @@ def _library():
         lib.ocn_rows_jerk_t_scratch.restype = ctypes.c_longlong
         lib.ocn_rows_accel_x.argtypes = [p, p, i, p, p, p, i, f, i, p, p, p]
         lib.ocn_rows_accel_x.restype = i
-        lib.ocn_sym_accel_x.argtypes = [p, p, p, i, f, i, p, p, p, p]
+        lib.ocn_sym_accel_x.argtypes = [p, p, p, i, f, i, i, p, p, p, p]
         lib.ocn_sym_accel_x.restype = i
+        lib.ocn_sym_x_geometry.argtypes = [i]
+        lib.ocn_sym_x_geometry.restype = i
+        lib.ocn_sym_x_scratch.argtypes = [i, i]
+        lib.ocn_sym_x_scratch.restype = ctypes.c_longlong
         lib.ocn_sym_jerk_x.argtypes = [p, p, p, p, p, i, f, i, p, p, p, p]
         lib.ocn_sym_jerk_x.restype = i
         lib.ocn_rows_jerk_x.argtypes = [p, p, p, p, i, p, p, p, p, p, i, f,
@@ -331,18 +337,13 @@ def _library():
         lib.ocn_rows_jerk_df_scratch.restype = ctypes.c_longlong
         lib.ocn_df_selftest.argtypes = [p, p, p, p, i, p, p]
         lib.ocn_df_selftest.restype = i
-        lib.ocn_cross_accel.argtypes = [p, p, i, p, p, i, f, f, i, p, p, p,
-                                        p, p, p]
+        lib.ocn_cross_accel.argtypes = [p, p, i, p, p, i, f, f, i, i, p, p,
+                                        p, p, p, p]
         lib.ocn_cross_accel.restype = i
-        lib.ocn_cross_accel_at.argtypes = [p, p, i, p, p, i, f, f, i, i, p,
-                                           p, p, p, p, p]
-        lib.ocn_cross_accel_at.restype = i
         lib.ocn_cross_geometry.argtypes = [i, i]
         lib.ocn_cross_geometry.restype = i
         lib.ocn_cross_accel_scratch.argtypes = [i, i, i]
         lib.ocn_cross_accel_scratch.restype = ctypes.c_longlong
-        lib.ocn_cross_scratch.argtypes = [i, i]
-        lib.ocn_cross_scratch.restype = ctypes.c_longlong
         lib.ocn_cross_jerk.argtypes = [p, p, p, i, p, p, p, i, f, f, i, i,
                                        p, p, p, p, p, p]
         lib.ocn_cross_jerk.restype = i
@@ -350,9 +351,13 @@ def _library():
         lib.ocn_cross_jerk_geometry.restype = i
         lib.ocn_cross_jerk_scratch.argtypes = [i, i, i]
         lib.ocn_cross_jerk_scratch.restype = ctypes.c_longlong
-        lib.ocn_cross_accel_x.argtypes = [p, p, p, i, p, p, p, i, f, i, p, p,
-                                          p, p, p, p]
+        lib.ocn_cross_accel_x.argtypes = [p, p, p, i, p, p, p, i, f, i, i, p,
+                                          p, p, p, p, p]
         lib.ocn_cross_accel_x.restype = i
+        lib.ocn_cross_x_geometry.argtypes = [i, i]
+        lib.ocn_cross_x_geometry.restype = i
+        lib.ocn_cross_x_scratch.argtypes = [i, i, i]
+        lib.ocn_cross_x_scratch.restype = ctypes.c_longlong
         lib.ocn_cross_jerk_x.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i,
                                          f, i, i, p, p, p, p, p, p]
         lib.ocn_cross_jerk_x.restype = i
@@ -624,14 +629,15 @@ def _scratch(floats: int, device, scratch=None):
     return scratch
 
 
-# The tile geometries of the register-blocked kernels K2, K12
+# The tile geometries of the register-blocked kernels K2, K6, K12, K15
 # (csrc/sym_rows.cuh), K13 and K16 (csrc/jerk_rows.cuh): (R, S), R rows a
 # thread and S parts of a tile pair's columns. The kernels pick one from the
 # sizes alone (``sym_geometry``, ``cross_geometry``); the ``geometry``
-# argument of ``sym_kernel``, ``cross_kernel``, ``cross_jerk_kernel`` and
-# ``cross_jerk_x_kernel`` names another, for the tests and the geometry
-# sweep of sym_kernel_times.py. All four compile every one of them without
-# spilling (ptxas -v).
+# argument of ``sym_kernel``, ``sym_x_kernel``, ``cross_kernel``,
+# ``cross_x_kernel``, ``cross_jerk_kernel`` and ``cross_jerk_x_kernel``
+# names another, for the tests and the geometry sweep of
+# sym_kernel_times.py. All six compile every one of them without spilling
+# (ptxas -v).
 GEOMETRIES = tuple((r, s) for r in (1, 2, 4, 8) for s in (1, 2, 4, 8)
                    if s <= r)
 
@@ -646,15 +652,22 @@ def _geom(geometry) -> int:
     return geometry[0] * 16 + geometry[1]
 
 
-def sym_geometry(n: int) -> tuple[int, int]:
-    """K2's (R, S) at N = n."""
-    return divmod(_library().ocn_sym_geometry(n), 16)
+def sym_geometry(n: int, kernel: str = "sym") -> tuple[int, int]:
+    """The (R, S) of the register-blocked self-interaction ``kernel`` (by
+    its launch key: "sym" K2, "sym_x" K6) at N = n."""
+    export = {"sym": "ocn_sym_geometry",
+              "sym_x": "ocn_sym_x_geometry"}.get(kernel)
+    if export is None:
+        raise ValueError(f"no register-blocked pair-symmetric kernel "
+                         f"{kernel!r}")
+    return divmod(getattr(_library(), export)(n), 16)
 
 
 def cross_geometry(nA: int, nB: int, kernel: str = "cross") -> tuple[int, int]:
     """The (R, S) of the cross ``kernel`` (by its launch key: "cross" K12,
-    "cross_jerk" K13, "cross_jerk_x" K16) on nA x nB."""
+    "cross_x" K15, "cross_jerk" K13, "cross_jerk_x" K16) on nA x nB."""
     export = {"cross": "ocn_cross_geometry",
+              "cross_x": "ocn_cross_x_geometry",
               "cross_jerk": "ocn_cross_jerk_geometry",
               "cross_jerk_x": "ocn_cross_jerk_x_geometry"}.get(kernel)
     if export is None:
@@ -665,17 +678,18 @@ def cross_geometry(nA: int, nB: int, kernel: str = "cross") -> tuple[int, int]:
 def sym_scratch_floats(n: int, kernel: str = "sym", geometry=None) -> int:
     """Floats of scratch the pair-symmetric ``kernel`` (by its launch key:
     "sym" K2, "sym_jerk" K3, "sym_x" K6, "sym_jerk_x" K7) needs at N = n.
-    K2's comes from the library (in ``geometry``, default its own); the
-    others tile by ``ocn_sym_tile()``: nt x nt x T slots of four floats
-    (six for the jerk forms)."""
+    K2's and K6's come from the kernel's own export (in ``geometry``,
+    default its own); K3 and K7 tile by ``ocn_sym_tile()``: nt x nt x T
+    slots of six floats."""
     lib = _library()
-    if kernel == "sym":
-        return lib.ocn_sym_scratch(n, _geom(geometry))
-    if kernel not in ("sym_jerk", "sym_x", "sym_jerk_x"):
+    sized = {"sym": lib.ocn_sym_scratch, "sym_x": lib.ocn_sym_x_scratch}
+    if kernel in sized:
+        return sized[kernel](n, _geom(geometry))
+    if kernel not in ("sym_jerk", "sym_jerk_x"):
         raise ValueError(f"no pair-symmetric kernel {kernel!r}")
     t = lib.ocn_sym_tile()
     nt = -(-n // t)
-    return nt * nt * t * (6 if kernel in ("sym_jerk", "sym_jerk_x") else 4)
+    return nt * nt * t * 6
 
 
 def rows_kernel(rows, src, mass, eps, G=1.0, with_phi=False, guarded=True):
@@ -755,12 +769,11 @@ def sym_kernel(pos_c, mass_c, eps, G=1.0, with_phi=False, guarded=True,
     acc = torch.empty((n, 3), dtype=torch.float32, device=pos_c.device)
     phi = (torch.empty((n,), dtype=torch.float32, device=pos_c.device)
            if with_phi else None)
-    head = (pos_c.data_ptr(), mass_c.data_ptr(), n, _f32(G),
-            _f32(_f32(eps) ** 2), int(guarded))
-    tail = (scratch.data_ptr(), acc.data_ptr(),
-            phi.data_ptr() if with_phi else None, _stream(pos_c))
-    code = (lib.ocn_sym_accel(*head, *tail) if geometry is None
-            else lib.ocn_sym_accel_at(*head, _geom(geometry), *tail))
+    code = lib.ocn_sym_accel(
+        pos_c.data_ptr(), mass_c.data_ptr(), n, _f32(G),
+        _f32(_f32(eps) ** 2), int(guarded), _geom(geometry),
+        scratch.data_ptr(), acc.data_ptr(),
+        phi.data_ptr() if with_phi else None, _stream(pos_c))
     LAUNCHES["sym"] += 1
     _check_launch(lib, code, "sym_accel")
     return (acc, phi) if with_phi else acc
@@ -855,18 +868,17 @@ def sym_jerk_kernel(pos_c, vel_c, mass_c, eps, G=1.0, guarded=True,
 def cross_scratch_floats(nA: int, nB: int, kernel: str = "cross",
                          geometry=None) -> int:
     """Floats of scratch the cross ``kernel`` (by its launch key: "cross"
-    K12, "cross_jerk" K13 and "cross_jerk_x" K16, each in ``geometry``,
-    default its own; "cross_x" K15) needs on nA x nB, as the library
+    K12, "cross_x" K15, "cross_jerk" K13 and "cross_jerk_x" K16, each in
+    ``geometry``, default its own) needs on nA x nB, as the library
     says."""
     lib = _library()
     sized = {"cross": lib.ocn_cross_accel_scratch,
+             "cross_x": lib.ocn_cross_x_scratch,
              "cross_jerk": lib.ocn_cross_jerk_scratch,
              "cross_jerk_x": lib.ocn_cross_jerk_x_scratch}
-    if kernel in sized:
-        return sized[kernel](nA, nB, _geom(geometry))
-    if kernel == "cross_x":
-        return lib.ocn_cross_scratch(nA, nB)
-    raise ValueError(f"no cross kernel {kernel!r}")
+    if kernel not in sized:
+        raise ValueError(f"no cross kernel {kernel!r}")
+    return sized[kernel](nA, nB, _geom(geometry))
 
 
 def cross_kernel(posA, posB, massA, massB, eps, G=1.0, with_phi=False,
@@ -891,13 +903,12 @@ def cross_kernel(posA, posB, massA, massB, eps, G=1.0, with_phi=False,
     phiA, phiB = ((torch.empty((nA,), dtype=torch.float32, device=dev),
                    torch.empty((nB,), dtype=torch.float32, device=dev))
                   if with_phi else (None, None))
-    head = (posA.data_ptr(), massA.data_ptr(), nA, posB.data_ptr(),
-            massB.data_ptr(), nB, _f32(G), _f32(_f32(eps) ** 2), int(guarded))
-    tail = (scratch.data_ptr(), accA.data_ptr(),
-            phiA.data_ptr() if with_phi else None, accB.data_ptr(),
-            phiB.data_ptr() if with_phi else None, _stream(posA))
-    code = (lib.ocn_cross_accel(*head, *tail) if geometry is None
-            else lib.ocn_cross_accel_at(*head, _geom(geometry), *tail))
+    code = lib.ocn_cross_accel(
+        posA.data_ptr(), massA.data_ptr(), nA, posB.data_ptr(),
+        massB.data_ptr(), nB, _f32(G), _f32(_f32(eps) ** 2), int(guarded),
+        _geom(geometry), scratch.data_ptr(), accA.data_ptr(),
+        phiA.data_ptr() if with_phi else None, accB.data_ptr(),
+        phiB.data_ptr() if with_phi else None, _stream(posA))
     LAUNCHES["cross"] += 1
     _check_launch(lib, code, "cross_accel")
     return (accA, phiA, accB, phiB) if with_phi else (accA, accB)
@@ -988,22 +999,26 @@ def rows_x_stream_kernel(rhi, rlo, shi, slo, gm, eps, with_phi=False,
 
 
 def sym_x_kernel(hi, lo, gm, eps, with_phi=False, guarded=True,
-                 scratch=None):
+                 scratch=None, geometry=None):
     """Launch K6 (both passes) on (hi, lo) f32 CUDA planes; the same
     contract as ``sym_x_plain``. ``scratch``, if given, is a float32 buffer
-    of at least ``sym_scratch_floats(n, "sym_x")`` elements."""
+    of at least ``sym_scratch_floats(n, "sym_x", geometry)`` elements.
+    ``geometry`` (one of ``GEOMETRIES``) overrides ``sym_geometry(n,
+    "sym_x")``; every caller in the port leaves it None."""
     n = hi.shape[0]
     _check_planes(n, pos_hi=hi, pos_lo=lo)
     _check_f32("gm", gm, (n,))
     lib = _library()
-    scratch = _scratch(sym_scratch_floats(n, "sym_x"), hi.device, scratch)
+    scratch = _scratch(sym_scratch_floats(n, "sym_x", geometry), hi.device,
+                       scratch)
     acc = torch.empty((n, 3), dtype=torch.float32, device=hi.device)
     phi = (torch.empty((n,), dtype=torch.float32, device=hi.device)
            if with_phi else None)
     code = lib.ocn_sym_accel_x(
         hi.data_ptr(), lo.data_ptr(), gm.data_ptr(), n,
-        _f32(_f32(eps) ** 2), int(guarded), scratch.data_ptr(),
-        acc.data_ptr(), phi.data_ptr() if with_phi else None, _stream(hi))
+        _f32(_f32(eps) ** 2), int(guarded), _geom(geometry),
+        scratch.data_ptr(), acc.data_ptr(),
+        phi.data_ptr() if with_phi else None, _stream(hi))
     LAUNCHES["sym_x"] += 1
     _check_launch(lib, code, "sym_accel_x")
     return (acc, phi) if with_phi else acc
@@ -1074,11 +1089,13 @@ def sym_jerk_x_kernel(hi, lo, vhi, vlo, gm, eps, guarded=True,
 
 
 def cross_x_kernel(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
-                   guarded=True, scratch=None):
+                   guarded=True, scratch=None, geometry=None):
     """Launch K15 (the tile pass and a reduce per set) on (hi, lo) f32 CUDA
     planes split under one centring; the same contract as
     ``cross_x_plain``. ``scratch``, if given, is a float32 buffer of at
-    least ``cross_scratch_floats(nA, nB, "cross_x")`` elements."""
+    least ``cross_scratch_floats(nA, nB, "cross_x", geometry)`` elements.
+    ``geometry`` (one of ``GEOMETRIES``) overrides ``cross_geometry(nA, nB,
+    "cross_x")``; every caller in the port leaves it None."""
     nA, nB = hiA.shape[0], hiB.shape[0]
     _check_planes(nA, hiA=hiA, loA=loA)
     _check_planes(nB, hiB=hiB, loB=loB)
@@ -1086,7 +1103,8 @@ def cross_x_kernel(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
     _check_f32("gmB", gmB, (nB,))
     lib = _library()
     dev = hiA.device
-    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_x"), dev, scratch)
+    scratch = _scratch(cross_scratch_floats(nA, nB, "cross_x", geometry), dev,
+                       scratch)
     accA = torch.empty((nA, 3), dtype=torch.float32, device=dev)
     accB = torch.empty((nB, 3), dtype=torch.float32, device=dev)
     phiA, phiB = ((torch.empty((nA,), dtype=torch.float32, device=dev),
@@ -1095,7 +1113,7 @@ def cross_x_kernel(hiA, loA, hiB, loB, gmA, gmB, eps, with_phi=False,
     code = lib.ocn_cross_accel_x(
         hiA.data_ptr(), loA.data_ptr(), gmA.data_ptr(), nA, hiB.data_ptr(),
         loB.data_ptr(), gmB.data_ptr(), nB, _f32(_f32(eps) ** 2),
-        int(guarded), scratch.data_ptr(), accA.data_ptr(),
+        int(guarded), _geom(geometry), scratch.data_ptr(), accA.data_ptr(),
         phiA.data_ptr() if with_phi else None, accB.data_ptr(),
         phiB.data_ptr() if with_phi else None, _stream(hiA))
     LAUNCHES["cross_x"] += 1
@@ -1244,8 +1262,8 @@ def chunk_scratch_floats(n, chunk, jerk=False, extended=False):
     K7 by ``jerk`` and ``extended``) runs on full chunks and on the ragged
     last one, the cross kernel (K12, K13, K15 or K16) on full chunk pairs
     and on a full chunk against the ragged last one; the two tile their
-    sets differently, and K2's and K12's geometries depend on the sizes, so
-    each shape is asked."""
+    sets differently, and the register-blocked kernels' geometries depend on
+    the sizes, so each shape is asked."""
     diag = "sym" + ("_jerk" if jerk else "") + ("_x" if extended else "")
     cross = diag.replace("sym", "cross")
     width, last = min(chunk, n), n % chunk or min(chunk, n)

@@ -1,8 +1,11 @@
 """Times of the register-blocked pair-symmetric kernels on the card, at the
 sizes the main path gives them, one JSON line each: K2 (sym_accel), K12
-(cross_accel), K13 (cross_jerk) and K16 (cross_jerk_x), and beside them K3
-(sym_jerk) and K7 (sym_jerk_x), the diagonal chunks of the same chunked
-routes.
+(cross_accel), K6 (sym_accel_x), K15 (cross_accel_x), K13 (cross_jerk) and
+K16 (cross_jerk_x), and beside them K3 (sym_jerk) and K7 (sym_jerk_x), the
+diagonal chunks of the jerk routes. Each line carries a digest of the
+launch's output bits (the first 16 hex digits of a SHA-256 over its
+tensors), so that a call that times two checkouts shows which kernels
+give the same bits in both.
 
     python3 sym_kernel_times.py                  # this checkout's kernels
     python3 sym_kernel_times.py --tree DIR       # the package under DIR
@@ -10,14 +13,17 @@ routes.
 
 ``--tree`` imports ``oc_nbody_tpu_torch`` from another checkout (an older
 commit unpacked with ``git archive``), so that two versions are timed on one
-card in one call: run old, new, new, old. ``--sweep`` times K2, K12, K13
-and K16 in each compiled geometry (R rows a thread, S column parts;
-``cuda_gravity.GEOMETRIES``), where the checkout's wrapper takes one. K2
-runs at N = 8,192 (c2,
+card in one call: run old, new, new, old. ``--sweep`` times K2, K12, K6,
+K15, K13 and K16 in each compiled geometry (R rows a thread, S column
+parts; ``cuda_gravity.GEOMETRIES``), where the checkout's wrapper takes
+one. K2 runs at N = 8,192 (c2,
 ``SYM_MIN``), 32,768 (a halfring shard), 65,536 (the north star), 131,072
 (c5, c6's diagonal chunk) and 262,144 (``STREAM_N``); K12 at c6's chunk
 pair 131,072^2, its ragged pair 131,072 x 82,496, and 32,768^2 and
-16,384^2; K13 at c3's jerk chunk pair at 1M, 98,304^2, and its ragged pair
+16,384^2; K6 at 8,192 (``SYM_MIN``), 65,536 (c6x's ragged last chunk),
+98,304 (``CHUNK_SYMX``), 131,072 (c5x) and 262,144; K15 at c6x's chunk
+pair 98,304^2 and its ragged pair 98,304 x 65,536; K13 at c3's jerk chunk
+pair at 1M, 98,304^2, and its ragged pair
 98,304 x 65,536; K16 at c3x's, 73,728^2 and 73,728 x 16,384; K3 at 98,304
 and K7 at 73,728 (``CHUNK_SYMJ``, ``CHUNK_SYMXJ``). Inputs are Plummer
 spheres made from a seed, eps = 1/512 unguarded, as chip_smoke.py times
@@ -26,6 +32,7 @@ warm-up launches, so that the first size is not timed at an idle clock.
 Needs a card; exits 1 without one.
 """
 import argparse
+import hashlib
 import inspect
 import json
 import statistics
@@ -36,6 +43,8 @@ from pathlib import Path
 
 SYM_NS = (8192, 32768, 65536, 131072, 262144)
 CROSS = ((131072, 131072), (131072, 82496), (32768, 32768), (16384, 16384))
+SYM_X_NS = (8192, 65536, 98304, 131072, 262144)
+CROSS_X = ((98304, 98304), (98304, 65536))
 CROSS_JERK = ((98304, 98304), (98304, 65536))
 CROSS_JERK_X = ((73728, 73728), (73728, 16384))
 SYM_JERK_N = 98304
@@ -59,6 +68,14 @@ def _median_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _digest(out):
+    """The first 16 hex digits of a SHA-256 over the output tensors' bits."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def _card():
@@ -88,6 +105,7 @@ def main():
     dev = torch.device("cuda")
     card = _card()
     wrapper = {"sym": cg.sym_kernel, "cross": cg.cross_kernel,
+               "sym_x": cg.sym_x_kernel, "cross_x": cg.cross_x_kernel,
                "cross_jerk": cg.cross_jerk_kernel,
                "cross_jerk_x": cg.cross_jerk_x_kernel}
 
@@ -107,9 +125,10 @@ def main():
         for g in geoms(key):
             kw = {} if g is None else dict(geometry=g)
             for phi in with_phi:
+                digest = _digest(launch(phi, kw))
                 ms = _median_ms(lambda: launch(phi, kw))
                 emit(kernel=key + ("_phi" if phi else ""), shape=shape,
-                     geometry=list(g) if g else None, ms=ms)
+                     geometry=list(g) if g else None, ms=ms, digest=digest)
             torch.cuda.empty_cache()
 
     for n in SYM_NS:
@@ -129,6 +148,26 @@ def main():
         time_each("cross", [nA, nB], lambda phi, kw: cg.cross_kernel(
             pA, pB, mA, mB, EPS, with_phi=phi, guarded=False, **kw),
             (False, True))
+    for n in SYM_X_NS:
+        st = state(n, 22)
+        hi, lo, gm = prepare_x(st.pos, st.mass, 1.0)
+        del st
+        time_each("sym_x", [n], lambda phi, kw: cg.sym_x_kernel(
+            hi, lo, gm, EPS, with_phi=phi, guarded=False, **kw),
+            (False, True))
+        del hi, lo, gm
+    for nA, nB in CROSS_X:
+        st = state(nA + nB, 47)
+        planes = prepare_x(st.pos, st.mass, 1.0)
+        del st
+        args_ = (*(t[a:b].contiguous() for a, b in ((0, nA), (nA, nA + nB))
+                   for t in planes[:2]),
+                 *(planes[2][a:b].contiguous()
+                   for a, b in ((0, nA), (nA, nA + nB))))
+        del planes
+        time_each("cross_x", [nA, nB], lambda phi, kw: cg.cross_x_kernel(
+            *args_, EPS, with_phi=phi, guarded=False, **kw), (False, True))
+        del args_
     st = state(sum(CROSS_JERK[0]), 42)
     pos, mass, vel = prepare_f32(st.pos, st.mass, vel=st.vel)
     del st

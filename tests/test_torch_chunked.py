@@ -329,9 +329,10 @@ def test_capped_tiers_are_refused_before_any_stepper(monkeypatch, capsys):
 
 class _FakeLibrary:
     """The kernel library's scratch-size exports with made-up geometries
-    (``sym`` for K2, ``cross`` for K12, and K13's and K16's sizes made from
-    ``cross`` too, each its own), so that the sizing of the chunked
-    evaluation's one scratch buffer is checked without a card."""
+    (``sym`` for K2, ``cross`` for K12, K6's size made from ``sym`` and
+    K15's, K13's and K16's from ``cross``, each its own), so that the
+    sizing of the chunked evaluation's one scratch buffer is checked
+    without a card."""
 
     def __init__(self, sym, cross):
         self.sym, self.cross = sym, cross
@@ -340,6 +341,10 @@ class _FakeLibrary:
         assert geom == 0
         return self.sym(n)
 
+    def ocn_sym_x_scratch(self, n, geom):
+        assert geom == 0
+        return 11 * self.sym(n) + 4
+
     def ocn_sym_tile(self):
         return 128
 
@@ -347,8 +352,9 @@ class _FakeLibrary:
         assert geom == 0
         return self.cross(nA, nB)
 
-    def ocn_cross_scratch(self, nA, nB):
-        return 3 * nA * nB + 1
+    def ocn_cross_x_scratch(self, nA, nB, geom):
+        assert geom == 0
+        return 3 * self.cross(nA, nB) + 1
 
     def ocn_cross_jerk_scratch(self, nA, nB, geom):
         assert geom == 0
@@ -381,9 +387,9 @@ def test_chunk_scratch_covers_every_launch(monkeypatch, fake, extended, jerk,
     its launches needs, as each kernel's own size function says: every
     diagonal chunk (K2, K3, K6 or K7) and every chunk pair (K12, K13, K15 or
     K16) of ``_chunked_sum``'s order at chunk 128, for one chunk (n = 100),
-    a ragged last chunk (300) and whole chunks (384), with the sizes of K2
-    and of the register-blocked cross kernels K12, K13 and K16 made up so
-    that each kind of launch is the largest in turn."""
+    a ragged last chunk (300) and whole chunks (384), with the sizes of the
+    register-blocked kernels K2, K6, K12, K13, K15 and K16 made up so that
+    each kind of launch is the largest in turn."""
     monkeypatch.setattr(cg, "_library", lambda: _FAKES[fake])
     diag = "sym" + ("_jerk" if jerk else "") + ("_x" if extended else "")
     cross = diag.replace("sym", "cross")
@@ -399,11 +405,11 @@ def test_chunk_scratch_covers_every_launch(monkeypatch, fake, extended, jerk,
 
 @pytest.mark.parametrize("kernel,want", [
     ("sym", 7 * 300), ("sym_jerk", 3 * 3 * 128 * 6),
-    ("sym_x", 3 * 3 * 128 * 4), ("sym_jerk_x", 3 * 3 * 128 * 6)])
+    ("sym_x", 11 * 7 * 300 + 4), ("sym_jerk_x", 3 * 3 * 128 * 6)])
 def test_sym_scratch_asks_each_kernel(monkeypatch, kernel, want):
-    """K2's scratch comes from its own export; K3, K6 and K7 keep the shared
-    128-tile layout (nt x nt x 128 slots of 4 or 6 floats); an unknown
-    kernel is refused."""
+    """K2's and K6's scratch each come from the kernel's own export; K3 and
+    K7 keep the shared 128-tile layout (nt x nt x 128 slots of 6 floats);
+    an unknown kernel is refused."""
     monkeypatch.setattr(cg, "_library", lambda: _FakeLibrary(
         lambda n: 7 * n, lambda nA, nB: 0))
     assert cg.sym_scratch_floats(300, kernel) == want
@@ -415,20 +421,20 @@ def test_sym_scratch_asks_each_kernel(monkeypatch, kernel, want):
     ("cross", 300 * 200), ("cross_x", 3 * 300 * 200 + 1),
     ("cross_jerk", 5 * 300 * 200 + 2), ("cross_jerk_x", 7 * 300 * 200 + 3)])
 def test_cross_scratch_asks_each_kernel(monkeypatch, kernel, want):
-    """K12's, K13's and K16's scratch each come from the kernel's own
-    export (their geometries differ), K15's from the shared-tile one; an
-    unknown kernel is refused."""
+    """K12's, K15's, K13's and K16's scratch each come from the kernel's own
+    export (their geometries differ); an unknown kernel is refused."""
     monkeypatch.setattr(cg, "_library", lambda: _FAKES["cross"])
     assert cg.cross_scratch_floats(300, 200, kernel) == want
     with pytest.raises(ValueError, match="no cross kernel"):
         cg.cross_scratch_floats(300, 200, "sym")
 
 
-def test_geometries_are_checked_before_any_launch():
-    """The ten compiled (R, S) of the register-blocked kernels K2, K12, K13
-    and K16 encode as the library takes them; None leaves the choice to the
-    sizes, anything else is refused; the cross geometry query names a
-    register-blocked kernel (K15 has none)."""
+def test_geometries_are_checked_before_any_launch(monkeypatch):
+    """The ten compiled (R, S) of the register-blocked kernels K2, K6, K12,
+    K15, K13 and K16 encode as the library takes them; None leaves the
+    choice to the sizes, anything else is refused; the geometry queries
+    name a register-blocked kernel (K15 and K6 have one now, K3 and K7
+    none) and ask that kernel's own export."""
     assert len(cg.GEOMETRIES) == 10
     assert cg._geom(None) == 0
     assert [cg._geom(g) for g in cg.GEOMETRIES] == [
@@ -436,14 +442,32 @@ def test_geometries_are_checked_before_any_launch():
     for bad in ((3, 1), (2, 4), (16, 1)):
         with pytest.raises(ValueError, match="geometry must be one of"):
             cg._geom(bad)
+    asked = []
+
+    class _Lib:
+        def __getattr__(self, name):
+            return lambda *sizes: asked.append((name, sizes)) or 0x82
+
+    monkeypatch.setattr(cg, "_library", lambda: _Lib())
+    assert cg.cross_geometry(300, 200, "cross_x") == (8, 2)
+    assert cg.sym_geometry(300, "sym_x") == (8, 2)
+    assert cg.sym_geometry(300) == (8, 2)
+    assert asked == [("ocn_cross_x_geometry", (300, 200)),
+                     ("ocn_sym_x_geometry", (300,)),
+                     ("ocn_sym_geometry", (300,))]
     with pytest.raises(ValueError, match="no register-blocked cross kernel"):
-        cg.cross_geometry(300, 200, "cross_x")
+        cg.cross_geometry(300, 200, "sym")
+    for kernel in ("sym_jerk", "sym_jerk_x"):
+        with pytest.raises(ValueError,
+                           match="no register-blocked pair-symmetric kernel"):
+            cg.sym_geometry(300, kernel)
 
 
-@pytest.mark.parametrize("kernel", ["cross", "cross_jerk", "cross_jerk_x"])
+@pytest.mark.parametrize("kernel", ["cross", "cross_x", "cross_jerk",
+                                    "cross_jerk_x"])
 def test_cross_scratch_passes_each_geometry(monkeypatch, kernel):
-    """K12's, K13's and K16's scratch queries carry the geometry as the
-    library takes it (0 for the kernel's own), and refuse one not
+    """K12's, K15's, K13's and K16's scratch queries carry the geometry as
+    the library takes it (0 for the kernel's own), and refuse one not
     compiled before the library is asked."""
     asked = []
 
@@ -455,9 +479,31 @@ def test_cross_scratch_passes_each_geometry(monkeypatch, kernel):
     for g in (None, *cg.GEOMETRIES):
         cg.cross_scratch_floats(300, 200, kernel, g)
     export = {"cross": "ocn_cross_accel_scratch",
+              "cross_x": "ocn_cross_x_scratch",
               "cross_jerk": "ocn_cross_jerk_scratch",
               "cross_jerk_x": "ocn_cross_jerk_x_scratch"}[kernel]
     assert asked == [(export, 0)] + [(export, r * 16 + s)
                                      for r, s in cg.GEOMETRIES]
     with pytest.raises(ValueError, match="geometry must be one of"):
         cg.cross_scratch_floats(300, 200, kernel, (3, 3))
+
+
+@pytest.mark.parametrize("kernel", ["sym", "sym_x"])
+def test_sym_scratch_passes_each_geometry(monkeypatch, kernel):
+    """K2's and K6's scratch queries carry the geometry as the library
+    takes it (0 for the kernel's own), and refuse one not compiled before
+    the library is asked."""
+    asked = []
+
+    class _Lib:
+        def __getattr__(self, name):
+            return lambda n, geom: asked.append((name, n, geom)) or 1
+
+    monkeypatch.setattr(cg, "_library", lambda: _Lib())
+    for g in (None, *cg.GEOMETRIES):
+        cg.sym_scratch_floats(300, kernel, g)
+    export = {"sym": "ocn_sym_scratch", "sym_x": "ocn_sym_x_scratch"}[kernel]
+    assert asked == [(export, 300, 0)] + [(export, 300, r * 16 + s)
+                                          for r, s in cg.GEOMETRIES]
+    with pytest.raises(ValueError, match="geometry must be one of"):
+        cg.sym_scratch_floats(300, kernel, (3, 3))

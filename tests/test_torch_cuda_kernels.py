@@ -27,8 +27,8 @@ repeat bitwise, and on the close-pair case stay inside 1e-9 / 1e-8 of the
 f64 oracle; the device's two_sum and two_prod are exact and its df_rsqrt is
 inside 1e-13. The ragged sizes 1,000 and 10,650 (the binaries config's N)
 run through K6, K7, K9, K10 and K11; K2 runs at 8,192 and 10,650 too, and
-K2 and K12 in each of their tile geometries (csrc/sym_rows.cuh) on ragged
-sizes, where a NaN-filled scratch gives the same bits. K12 (cross_accel,
+K2, K12, K6 and K15 in each of their tile geometries (csrc/sym_rows.cuh)
+on ragged sizes, where a NaN-filled scratch gives the same bits. K12 (cross_accel,
 with and without the potential) and K13 (cross_jerk), the disjoint-set
 kernels of the
 chunked self-interaction, are held to their f64 twins on ragged set pairs
@@ -378,13 +378,24 @@ def test_cross_kernel_every_geometry(cuda, nA, nB, geometry, with_phi, eps):
 
 def test_geometry_follows_the_sizes(cuda):
     """K2 and K12 pick the most rows a thread that still fills the card
-    (csrc/sym_rows.cuh: 1,024 blocks), from the sizes alone."""
+    (csrc/sym_rows.cuh: 1,024 blocks), from the sizes alone; K6 and K15 by
+    the same rule, K13 and K16 too."""
     assert cg.sym_geometry(1000) == (1, 1)
     assert cg.sym_geometry(8192) == (2, 2)
     assert cg.sym_geometry(32768) == (8, 2)
     assert cg.sym_geometry(65536) == (8, 1)
     assert cg.cross_geometry(131072, 131072) == (8, 1)
     assert cg.cross_geometry(16384, 16384) == (8, 4)
+    # K6 and K15 (the Ext tier of csrc/sym_rows.cuh) at c5x's N, the
+    # extended route's chunk and its ragged pair at 1M, and small sizes
+    for n in (1000, 8192, 32768, 65536, 98304, 131072):
+        assert cg.sym_geometry(n, "sym_x") == cg.sym_geometry(n)
+    assert cg.sym_geometry(131072, "sym_x") == (8, 1)
+    assert cg.sym_geometry(98304, "sym_x") == (8, 1)
+    assert cg.cross_geometry(98304, 98304, "cross_x") == (8, 1)
+    assert cg.cross_geometry(98304, 65536, "cross_x") == (8, 1)
+    assert cg.cross_geometry(16384, 16384, "cross_x") == (8, 4)
+    assert cg.cross_geometry(1000, 300, "cross_x") == (1, 1)
     # K13 and K16 (csrc/jerk_rows.cuh) by the same rule, at their chunk
     # pairs at 1M and the ragged ones
     for key in ("cross_jerk", "cross_jerk_x"):
@@ -628,6 +639,27 @@ def test_sym_x_kernel_matches_plain_and_repeats_bitwise(cuda, n, with_phi,
 
 
 @pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("geometry", cg.GEOMETRIES)
+@pytest.mark.parametrize("n", [1000, 3001])
+def test_sym_x_kernel_every_geometry(cuda, n, geometry, with_phi, eps):
+    """K6 in each compiled (R rows a thread, S column parts) on ragged N
+    against the f64 evaluation of its planes, with and without the raw
+    potential; a launch on a NaN-filled scratch gives the same bits, so
+    every slot the reduce reads was written."""
+    hi, lo, gm = _planes(n, n + 7, cuda, vel=False)
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0, geometry=geometry)
+    out = cg.sym_x_kernel(hi, lo, gm, eps, **kw)
+    nan = _nan_scratch(cg.sym_scratch_floats(n, "sym_x", geometry), cuda)
+    again = cg.sym_x_kernel(hi, lo, gm, eps, scratch=nan, **kw)
+    ref = cg.sym_x_plain(hi, lo, gm, eps, with_phi=with_phi,
+                         dtype=torch.float64, guarded=eps == 0.0)
+    _check_x(out, ref, phi=with_phi)
+    pairs = zip(out, again) if with_phi else [(out, again)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
 @pytest.mark.parametrize("n", [1, 127, 128, 129, 300, 1000, 8191])
 def test_sym_jerk_x_kernel_matches_plain_and_repeats_bitwise(cuda, n, eps):
     hi, lo, gm, vhi, vlo = _planes(n, n, cuda)
@@ -797,6 +829,30 @@ def test_cross_x_kernel_matches_plain_and_repeats_bitwise(cuda, nA, nB,
     _check_x(out[half:], ref[half:], phi=with_phi)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     assert all(torch.equal(a, b) for a, b in zip(out, reused))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("geometry", cg.GEOMETRIES)
+@pytest.mark.parametrize("nA,nB", [(1, 300), (1000, 3001), (2900, 700)])
+def test_cross_x_kernel_every_geometry(cuda, nA, nB, geometry, with_phi,
+                                       eps):
+    """K15 in each compiled (R rows a thread, S column parts) on ragged sets
+    against the f64 evaluation of the same planes, both sets' outputs, with
+    and without the raw potential; a launch on a NaN-filled scratch gives
+    the same bits, so every slot the reduce reads was written."""
+    A, B, gA, gB = _split_sets(nA, nA + nB, nA + nB + 13, cuda, vel=False)
+    kw = dict(with_phi=with_phi, guarded=eps == 0.0, geometry=geometry)
+    out = cg.cross_x_kernel(*A, *B, gA, gB, eps, **kw)
+    nan = _nan_scratch(cg.cross_scratch_floats(nA, nB, "cross_x", geometry),
+                       cuda)
+    again = cg.cross_x_kernel(*A, *B, gA, gB, eps, scratch=nan, **kw)
+    ref = cg.cross_x_plain(*A, *B, gA, gB, eps, with_phi=with_phi,
+                           dtype=torch.float64, guarded=eps == 0.0)
+    half = len(out) // 2
+    _check_x(out[:half], ref[:half], phi=with_phi)
+    _check_x(out[half:], ref[half:], phi=with_phi)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.parametrize("eps", [0.0, 1.0 / 64])
