@@ -1,0 +1,8 @@
+"""``kernels.pair_roofline_pct`` in the block-step cells, which report their
+own end-to-end metrics (``sim_myr_per_s.block``): the same reader."""
+from bench_torch.harness import reader
+
+LAYER = "force model and kernels"
+MOVES = "sim_myr_per_s.block"
+UNIT = "%"
+read = reader("kernels.pair_roofline_pct").read
