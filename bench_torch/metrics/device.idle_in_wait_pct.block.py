@@ -1,0 +1,8 @@
+"""``device.idle_in_wait_pct`` in the block-step cells, which report their own
+end-to-end metrics (``sim_myr_per_s.block``): the same reader."""
+from bench_torch.harness import reader
+
+LAYER = "device"
+MOVES = "sim_myr_per_s.block"
+UNIT = "%"
+read = reader("device.idle_in_wait_pct").read

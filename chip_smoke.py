@@ -2143,7 +2143,6 @@ def _check_run(k, res):
     """A path's result: finite state, no NaN diagnostic, the drift inside
     its bound; prints its line."""
     import numpy as np
-    from oc_nbody_tpu_torch.utils.profiling import interactions_per_sec
     n = res.state.n
     for name in ("pos", "vel"):
         t = getattr(res.state, name)
@@ -2155,11 +2154,9 @@ def _check_run(k, res):
     col, bound = DRIFT_BOUND[k]
     drift = float(np.abs(res.diagnostics[col]).max())
     advance_s = res.phase_s["advance"]
-    rate = interactions_per_sec(n, res.n_steps, advance_s)
     print(f"{k}: N={n} steps={res.n_steps} t={res.state.time:.6g} "
           f"max|{col}|={drift:.3e} (bound {bound:g})  "
           f"{advance_s / res.n_steps * 1e3:.4f} ms/step  "
-          f"{rate:.4e} N^2-equivalent interactions/s  "
           f"run {res.wall_time_s:.1f} s", flush=True)
     if not drift <= bound:
         raise AssertionError(f"{k}: max|{col}| = {drift:.3e} > {bound:g}")
@@ -2463,14 +2460,16 @@ def measure_steps(device, n_steps=200):
     card. Times n_steps steps on the host clock; for
     Hermite also without the per-step read of the shared dt (the same device
     work through ``Hermite4.propose`` at the carried dt, one sync at the
-    end), and for block steps without the per-micro-step read of (t_next,
-    n_active) (``BlockHermite.step_known`` replaying the schedule that a
-    first pass read), in turns. The device's busy time per step comes from
+    end), in turns. The device's busy time per step comes from
     torch.profiler over 100 steps; its busy share is that over the
-    unprofiled step time (the profiler slows the host)."""
+    unprofiled step time (the profiler slows the host). The host's time
+    blocked on the step's read (Hermite's dt, block steps' (t_next,
+    n_active)) is the program's ``integrator.wait`` spans in those
+    profiled steps."""
     import torch
     from oc_nbody_tpu_torch.integrators.hermite import HermiteCarry
     from oc_nbody_tpu_torch.scene import build_scene, make_stepper
+    from oc_nbody_tpu_torch.utils import profiling
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {}
@@ -2486,18 +2485,7 @@ def measure_steps(device, n_steps=200):
         stepper, kind = make_stepper(cfg, scene.force)
         carry = stepper.advance(stepper.init(scene.state), n_warm)
 
-        schedule = []
-        if kind == "block":     # the (t_next, n_active) each step reads
-            c = carry
-            for _ in range(n_steps):
-                nxt = stepper.step(c)
-                schedule.append((stepper._t_end_int(nxt, nxt.state.time),
-                                 nxt.n_active_sum - c.n_active_sum))
-                c = nxt
-
         def no_read(c, i):
-            if kind == "block":
-                return stepper.step_known(c, *schedule[i])
             x1, v1, a1, j1, _ = stepper.propose(c, c.dt)
             return HermiteCarry(
                 state=c.state.replace(pos=x1, vel=v1,
@@ -2516,7 +2504,7 @@ def measure_steps(device, n_steps=200):
             torch.cuda.synchronize()
             return (time.perf_counter() - t) / n_steps * 1e3
 
-        if kind in ("hermite", "block"):  # in turns: read, no, no, read
+        if kind == "hermite":  # in turns: read, no, no, read
             read = [timed(read_step)]
             free = [timed(no_read), timed(no_read)]
             read.append(timed(read_step))
@@ -2525,10 +2513,16 @@ def measure_steps(device, n_steps=200):
         ms = statistics.mean(read)
         c = carry
         torch.cuda.synchronize()
+        t_prof = profiling.clock_ns()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n_prof):
                 c = stepper.step(c)
             torch.cuda.synchronize()
+        spans = [r for r in profiling.spans() if r.start_ns >= t_prof]
+        waited = sum(r.end_ns - r.start_ns for r in spans
+                     if r.name == "integrator.wait")
+        active = (getattr(c, "n_active_sum", 0)
+                  - getattr(carry, "n_active_sum", 0)) / n_prof
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total
@@ -2540,11 +2534,14 @@ def measure_steps(device, n_steps=200):
                 f"({', '.join(f'{x:.4f}' for x in read)})")
         if free:
             ms_free = statistics.mean(free)
-            what = "(t_next, n_active)" if kind == "block" else "dt"
-            line += (f" with the per-step {what} read, {ms_free:.4f} ms/step "
+            line += (f" with the per-step dt read, {ms_free:.4f} ms/step "
                      f"without it ({', '.join(f'{x:.4f}' for x in free)}): "
                      f"the read costs {ms - ms_free:.4f} ms/step")
             out[name + "_read_ms"] = ms - ms_free
+        if kind in ("hermite", "block"):
+            line += (f"; the host blocked on the read "
+                     f"{waited / 1e3 / n_prof:.1f} us/step (integrator.wait "
+                     f"spans, {n_prof} profiled steps)")
         print(line)
         print(f"{name} device busy {busy_ms:.4f} ms/step (profiler, {n_prof} "
               f"steps) = {busy_ms / ms:.1%} of the step, idle "
@@ -2555,8 +2552,8 @@ def measure_steps(device, n_steps=200):
                           f" us/step" for e in top), flush=True)
         out[name + "_busy"] = busy_ms / ms
         if kind == "block":
-            print(f"{name}: {statistics.mean(n for _, n in schedule):.1f} "
-                  f"active rows per micro-step over the {n_steps} timed")
+            print(f"{name}: {active:.1f} active rows per micro-step over "
+                  f"the {n_prof} profiled")
         del scene, stepper, carry, c
         torch.cuda.empty_cache()
     return out

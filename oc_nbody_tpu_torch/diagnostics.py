@@ -4,8 +4,12 @@ velocity dispersion, relaxation time and the CH85 core.
 
 Counterpart of ``oc_nbody_tpu/diagnostics.py``: the same formulas, loops
 and column names, accumulated in f64. Every function returns device
-tensors and never waits for the device; run.py copies a finished row
-to the host once.
+tensors; run.py copies a finished row to the host once. Three steps of a
+row wait for the device all the same (found under
+``torch.cuda.set_sync_debug_mode``): the mass fractions and the CH85
+sweep's infinity copied to the card from host memory, and the tidal
+tensor's ``eigvalsh``. Each is a ``diagnostics.wait`` span with its
+``site``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from oc_nbody_tpu_torch.forces import ForceModel
 from oc_nbody_tpu_torch.ops import gravity
 from oc_nbody_tpu_torch.ops.gravity import rounded
 from oc_nbody_tpu_torch.state import ParticleState
+from oc_nbody_tpu_torch.utils.profiling import span
 
 _F64 = torch.float64
 
@@ -120,7 +125,9 @@ def lagrangian_radii(state: ParticleState,
     r = torch.linalg.norm(pos - center, dim=1)
     order = torch.argsort(r, stable=True)
     csum = torch.cumsum(m[order], dim=0)
-    targets = torch.tensor(fractions, dtype=_F64, device=r.device) * csum[-1]
+    with span("diagnostics.wait", site="lagrangian_radii.fractions"):
+        fr = torch.tensor(fractions, dtype=_F64, device=r.device)
+    targets = fr * csum[-1]
     idx = torch.clamp(torch.searchsorted(csum, targets), 0, r.shape[0] - 1)
     return torch.where(csum[-1] > 0, r[order][idx], math.nan)
 
@@ -151,7 +158,8 @@ def local_density(pos, mass, center, k: int = 6, max_probes: int = 65536,
                           device=pos.device), ps
     f32 = torch.float32
     rmin2 = rounded(max(rounded(r_min, f32) ** 2, 1e-30), f32)
-    inf = torch.tensor(math.inf, dtype=torch.float32, device=pos.device)
+    with span("diagnostics.wait", site="local_density.inf"):
+        inf = torch.tensor(math.inf, dtype=torch.float32, device=pos.device)
     rhos = []
     for i0 in range(0, probes.shape[0], chunk):
         p = probes[i0:i0 + chunk]
@@ -280,7 +288,8 @@ def bound_mass_tidal(state: ParticleState, force: ForceModel,
     r2 = torch.sum(center ** 2)
     omega2 = torch.sum(torch.linalg.cross(center, center_vel) ** 2) \
         / torch.clamp(r2 * r2, min=1e-300)
-    lam = force.external.tidal_coefficient_at(center, omega2)
+    with span("diagnostics.wait", site="bound_mass_tidal.eigvalsh"):
+        lam = force.external.tidal_coefficient_at(center, omega2)
     m_b = torch.sum(m)
     for _ in range(n_iter):
         m_b = torch.sum(m * (d < tidal_radius(m_b, lam, force.G)))
@@ -296,53 +305,59 @@ def compute_all(state: ParticleState, force: ForceModel,
     host float. One pairwise-potential pass (in f64 under ``f64_pairwise``),
     shared by the energies and the bound-mass energy cut. ``core=True`` adds
     the CH85 columns (r_core, rho_core): a second bounded O(min(N, 65536)²)
-    distance sweep."""
-    force = force.at_time(state.time)
-    phi_pair, phi_ext = pair_and_external_phi(state, force, f64_pairwise)
-    e = energies(state, force, precomputed_phi=(phi_pair, phi_ext))
-    center = density_center(state)
-    L = angular_momentum(state)
-    if force.external is not None:
-        m_b, n_b, r_t, mask = bound_mass_tidal(state, force, center=center)
-    else:
-        m_b, n_b, mask = bound_mass_energy(state, force, phi_pair=phi_pair)
-        r_t = torch.tensor(math.inf, dtype=_F64, device=state.device)
-    rl = lagrangian_radii(state, fractions, center=center, mask=mask)
-    out = dict(e)
-    out.update({
-        "time": state.time,
-        "Lx": L[0], "Ly": L[1], "Lz": L[2],
-        "L_norm": torch.linalg.norm(L),
-        "M_bound": m_b,
-        "N_bound": n_b,
-        "r_tidal": r_t,
-        "cx": center[0], "cy": center[1], "cz": center[2],
-    })
-    for f, r in zip(fractions, rl):
-        out[f"r_lagr_{int(round(f * 100))}"] = r
+    distance sweep. The row is the span ``diagnostics.row``; the pair pass
+    and the CH85 sweep are its parts ``diagnostics.pair_phi`` and
+    ``diagnostics.core``, with their device time."""
+    with span("diagnostics.row"):
+        force = force.at_time(state.time)
+        with span("diagnostics.pair_phi", device=state.pos.device):
+            phi_pair, phi_ext = pair_and_external_phi(state, force,
+                                                      f64_pairwise)
+        e = energies(state, force, precomputed_phi=(phi_pair, phi_ext))
+        center = density_center(state)
+        L = angular_momentum(state)
+        if force.external is not None:
+            m_b, n_b, r_t, mask = bound_mass_tidal(state, force, center=center)
+        else:
+            m_b, n_b, mask = bound_mass_energy(state, force, phi_pair=phi_pair)
+            r_t = torch.tensor(math.inf, dtype=_F64, device=state.device)
+        rl = lagrangian_radii(state, fractions, center=center, mask=mask)
+        out = dict(e)
+        out.update({
+            "time": state.time,
+            "Lx": L[0], "Ly": L[1], "Lz": L[2],
+            "L_norm": torch.linalg.norm(L),
+            "M_bound": m_b,
+            "N_bound": n_b,
+            "r_tidal": r_t,
+            "cx": center[0], "cy": center[1], "cz": center[2],
+        })
+        for f, r in zip(fractions, rl):
+            out[f"r_lagr_{int(round(f * 100))}"] = r
 
-    # bound-internal virial ratio: KE about the bound COM velocity over |W|
-    # with W = half the bound-mass-weighted pairwise potential (the unbound
-    # tail contributes to phi but sits far away). Q ~ 0.5 in equilibrium.
-    m64, vel64 = _f64(state.mass), _f64(state.vel)
-    wb = m64 * mask
-    wb_sum = torch.sum(wb)
-    wsum = torch.clamp(wb_sum, min=1e-300)
-    vb = torch.sum(vel64 * wb[:, None], dim=0) / wsum
-    ke_b = 0.5 * torch.sum(wb * torch.sum((vel64 - vb) ** 2, dim=1))
-    w_b = 0.5 * torch.sum(wb * _f64(phi_pair))
-    alive = wb_sum > 0
-    out["Q_virial"] = torch.where(
-        alive, ke_b / torch.clamp(torch.abs(w_b), min=1e-300), math.nan)
-    # sigma_1d = sqrt(2 KE_b / (3 M_b)), from the same sums
-    out["sigma_1d"] = torch.where(
-        alive, torch.sqrt(2.0 * ke_b / (3.0 * wsum)), math.nan)
-    fr = tuple(fractions)
-    r_half = (rl[fr.index(0.5)] if 0.5 in fr else
-              lagrangian_radii(state, (0.5,), center=center, mask=mask)[0])
-    out["t_rh"] = half_mass_relaxation_time(n_b, m_b, r_half, force.G)
-    if core:
-        # resolution floor 2·eps: sub-softening densities are unresolved
-        out["r_core"], out["rho_core"] = core_radius_density(
-            state, center=center, mask=mask, r_min=2.0 * force.eps)
-    return out
+        # bound-internal virial ratio: KE about the bound COM velocity over |W|
+        # with W = half the bound-mass-weighted pairwise potential (the unbound
+        # tail contributes to phi but sits far away). Q ~ 0.5 in equilibrium.
+        m64, vel64 = _f64(state.mass), _f64(state.vel)
+        wb = m64 * mask
+        wb_sum = torch.sum(wb)
+        wsum = torch.clamp(wb_sum, min=1e-300)
+        vb = torch.sum(vel64 * wb[:, None], dim=0) / wsum
+        ke_b = 0.5 * torch.sum(wb * torch.sum((vel64 - vb) ** 2, dim=1))
+        w_b = 0.5 * torch.sum(wb * _f64(phi_pair))
+        alive = wb_sum > 0
+        out["Q_virial"] = torch.where(
+            alive, ke_b / torch.clamp(torch.abs(w_b), min=1e-300), math.nan)
+        # sigma_1d = sqrt(2 KE_b / (3 M_b)), from the same sums
+        out["sigma_1d"] = torch.where(
+            alive, torch.sqrt(2.0 * ke_b / (3.0 * wsum)), math.nan)
+        fr = tuple(fractions)
+        r_half = (rl[fr.index(0.5)] if 0.5 in fr else
+                  lagrangian_radii(state, (0.5,), center=center, mask=mask)[0])
+        out["t_rh"] = half_mass_relaxation_time(n_b, m_b, r_half, force.G)
+        if core:
+            # resolution floor 2·eps: sub-softening densities are unresolved
+            with span("diagnostics.core", device=state.pos.device):
+                out["r_core"], out["rho_core"] = core_radius_density(
+                    state, center=center, mask=mask, r_min=2.0 * force.eps)
+        return out

@@ -60,11 +60,19 @@ import torch
 
 from oc_nbody_tpu_torch.forces import ForceModel
 from oc_nbody_tpu_torch.state import ParticleState
+from oc_nbody_tpu_torch.utils.profiling import span
 
 _TINY = torch.finfo(torch.float64).tiny
 # what checkpoint_aux writes and restore requires
 _AUX_KEYS = ("acc", "jerk", "a_ext", "j_ext", "t_i", "dt_i", "t_origin",
              "n_steps", "n_active_sum", "dt_max", "n_levels")
+
+
+def _read(sched) -> list:
+    """The micro-step's one read: (t_next, n_active[, n_active_cluster])
+    to the host."""
+    with span("integrator.wait", site="block.schedule"):
+        return sched.tolist()
 
 
 def _norm(x):
@@ -366,58 +374,60 @@ class BlockHermite:
         object.__setattr__(new, "_graph_cache", self._graph_cache)
         return new
 
-    def _micro_step(self, carry: BlockCarry, t_end_int=None, known=None):
+    def _micro_step(self, carry: BlockCarry, t_end_int=None):
         """One micro-step, or None when ``t_end_int`` is given and the next
-        t_next lies past it. ``known`` = (t_next, n_active) skips the read
-        (the same device work; to measure the read's cost)."""
-        s = carry.state
-        if self._use_graphs(carry):
-            g = self._graphs(carry)
-            g.load(carry)
-            g.pre.replay()
-            sched, _, _, idx, xp, _, sources, psrc = g.pre_out
-            t_next, n_active, *n_cl = known or sched.tolist()  # the one read
+        t_next lies past it."""
+        with span("integrator.step"):
+            s = carry.state
+            if self._use_graphs(carry):
+                g = self._graphs(carry)
+                g.load(carry)
+                g.pre.replay()
+                sched, _, _, idx, xp, _, sources, psrc = g.pre_out
+                t_next, n_active, *n_cl = _read(sched)
+                if t_end_int is not None and t_next > t_end_int:
+                    return None
+                n_cl = n_cl[0] if n_cl else None
+                force = self.force.at_time(carry.t_origin
+                                           + t_next * self.dt_min)
+                self._pair(force, sources, idx, n_active, out=g.pair,
+                           psrc=psrc, n_cluster=n_cl)
+                if self.pec2:
+                    g.mid.replay()
+                    self._pair(force, g.mid_out[2], idx, n_active, out=g.pair,
+                               psrc=g.mid_out[3], n_cluster=n_cl)
+                g.post.replay()
+                f, i = g.f64.clone(), g.i64.clone()
+                pos, vel, acc, jerk, a_ext, j_ext = f.unbind(0)
+                t_i, dt_i = i.unbind(0)
+                g.last = self._carry(carry, t_next, n_active, pos, vel, acc,
+                                     jerk, a_ext, j_ext, t_i, dt_i)
+                return g.last
+            sched, t_dev, active, idx, xp, vp, sources, psrc = self._pre(
+                self.force, carry.t_i, carry.dt_i, s.pos, s.vel, carry.acc,
+                carry.jerk, s.mass)
+            t_next, n_active, *n_cl = _read(sched)
             if t_end_int is not None and t_next > t_end_int:
                 return None
             n_cl = n_cl[0] if n_cl else None
+            # every evaluation of this micro-step happens at physical t_next
             force = self.force.at_time(carry.t_origin + t_next * self.dt_min)
-            self._pair(force, sources, idx, n_active, out=g.pair, psrc=psrc,
-                       n_cluster=n_cl)
-            if self.pec2:
-                g.mid.replay()
-                self._pair(force, g.mid_out[2], idx, n_active, out=g.pair,
-                           psrc=g.mid_out[3], n_cluster=n_cl)
-            g.post.replay()
-            f, i = g.f64.clone(), g.i64.clone()
-            pos, vel, acc, jerk, a_ext, j_ext = f.unbind(0)
-            t_i, dt_i = i.unbind(0)
-            g.last = self._carry(carry, t_next, n_active, pos, vel, acc, jerk,
-                                 a_ext, j_ext, t_i, dt_i)
-            return g.last
-        sched, t_dev, active, idx, xp, vp, sources, psrc = self._pre(
-            self.force, carry.t_i, carry.dt_i, s.pos, s.vel, carry.acc,
-            carry.jerk, s.mass)
-        t_next, n_active, *n_cl = known or sched.tolist()  # the one read
-        if t_end_int is not None and t_next > t_end_int:
-            return None
-        n_cl = n_cl[0] if n_cl else None
-        # every evaluation of this micro-step happens at physical t_next
-        force = self.force.at_time(carry.t_origin + t_next * self.dt_min)
-        pair = self._pair(force, sources, idx, n_active, psrc=psrc,
-                          n_cluster=n_cl)
-        xe, ve = xp, vp
-        if self.pec2:
-            # re-evaluate at the corrected active rows (inactive sources
-            # keep their prediction, as pass 1 saw them), correct once more
-            xe, ve, sources, psrc = self._recorrect(
-                force, active, xp, vp, pair, s.pos, s.vel, carry.acc,
-                carry.jerk, carry.dt_i, s.mass)
             pair = self._pair(force, sources, idx, n_active, psrc=psrc,
                               n_cluster=n_cl)
-        out = self._finish(force, t_dev, active, xe, ve, pair, s.pos, s.vel,
-                           carry.acc, carry.jerk, carry.a_ext, carry.j_ext,
-                           carry.t_i, carry.dt_i)
-        return self._carry(carry, t_next, n_active, *out)
+            xe, ve = xp, vp
+            if self.pec2:
+                # re-evaluate at the corrected active rows (inactive
+                # sources keep their prediction, as pass 1 saw them),
+                # correct once more
+                xe, ve, sources, psrc = self._recorrect(
+                    force, active, xp, vp, pair, s.pos, s.vel, carry.acc,
+                    carry.jerk, carry.dt_i, s.mass)
+                pair = self._pair(force, sources, idx, n_active, psrc=psrc,
+                                  n_cluster=n_cl)
+            out = self._finish(force, t_dev, active, xe, ve, pair, s.pos,
+                               s.vel, carry.acc, carry.jerk, carry.a_ext,
+                               carry.j_ext, carry.t_i, carry.dt_i)
+            return self._carry(carry, t_next, n_active, *out)
 
     def _carry(self, carry, t_next, n_active, pos, vel, acc, jerk, a_ext,
                j_ext, t_i, dt_i) -> BlockCarry:
@@ -430,15 +440,6 @@ class BlockHermite:
 
     def step(self, carry: BlockCarry) -> BlockCarry:
         return self._micro_step(carry)
-
-    def step_known(self, carry: BlockCarry, t_next: int, n_active: int,
-                   n_cluster=None) -> BlockCarry:
-        """``step`` with (t_next, n_active) known on the host already (and
-        under pruning the active cluster count): the same device work
-        without the read (to measure the read's cost)."""
-        known = ((t_next, n_active) if n_cluster is None
-                 else (t_next, n_active, n_cluster))
-        return self._micro_step(carry, known=known)
 
     # ---- driving ------------------------------------------------------
     def _t_end_int(self, carry: BlockCarry, t_end) -> int:

@@ -30,6 +30,7 @@ import torch
 
 from oc_nbody_tpu_torch.forces import ForceModel
 from oc_nbody_tpu_torch.state import ParticleState
+from oc_nbody_tpu_torch.utils.profiling import span
 
 _TINY = torch.finfo(torch.float64).tiny
 # the quantization rung selector is log(x)/log(2), as jnp.log2 computes it:
@@ -172,7 +173,8 @@ class Hermite4:
 
     def _step_with_dt(self, carry: HermiteCarry, dt: float) -> HermiteCarry:
         x1, v1, a1, j1, crit = self.propose(carry, dt)
-        dt_new = float(crit)  # the step's one device read
+        with span("integrator.wait", site="hermite.dt"):
+            dt_new = float(crit)  # the step's one device read
         if math.isnan(dt_new):
             raise FloatingPointError(
                 f"Hermite timestep criterion is NaN at t={carry.state.time:.6g}"
@@ -191,12 +193,13 @@ class Hermite4:
     def _exec_step(self, carry: HermiteCarry, dt_cap: float) -> HermiteCarry:
         """One step under an upper dt bound (the advance_to landing clip);
         with ``symmetrized`` a trial step at the carried dt first."""
-        dt = min(carry.dt, dt_cap)
-        if not self.symmetrized:
-            return self._step_with_dt(carry, dt)
-        trial = self._step_with_dt(carry, dt)
-        dt_s = min(self._shape_dt(0.5 * (carry.dt + trial.dt)), dt_cap)
-        return self._step_with_dt(carry, dt_s)
+        with span("integrator.step"):
+            dt = min(carry.dt, dt_cap)
+            if not self.symmetrized:
+                return self._step_with_dt(carry, dt)
+            trial = self._step_with_dt(carry, dt)
+            dt_s = min(self._shape_dt(0.5 * (carry.dt + trial.dt)), dt_cap)
+            return self._step_with_dt(carry, dt_s)
 
     def step(self, carry: HermiteCarry) -> HermiteCarry:
         return self._exec_step(carry, math.inf)

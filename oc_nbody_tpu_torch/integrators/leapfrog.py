@@ -19,6 +19,7 @@ import torch
 
 from oc_nbody_tpu_torch.forces import ForceModel
 from oc_nbody_tpu_torch.state import ParticleState
+from oc_nbody_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,15 +48,16 @@ class LeapfrogKDK:
         return KDKCarry(state=state, acc=acc.to(state.pos.dtype), n_steps=0)
 
     def step(self, carry: KDKCarry) -> KDKCarry:
-        s, acc, dt = carry.state, carry.acc, self.dt
-        v_half = s.vel + (0.5 * dt) * acc
-        pos_new = s.pos + dt * v_half
-        # the closing force eval is at the step's END time (a no-op binding
-        # for the static fields ported so far)
-        acc_new = self.force.at_time(s.time + dt).accel(
-            pos_new, s.mass).to(s.pos.dtype)
-        vel_new = v_half + (0.5 * dt) * acc_new
-        state_new = s.replace(pos=pos_new, vel=vel_new, time=s.time + dt)
+        with span("integrator.step"):
+            s, acc, dt = carry.state, carry.acc, self.dt
+            v_half = s.vel + (0.5 * dt) * acc
+            pos_new = s.pos + dt * v_half
+            # the closing force eval is at the step's END time (a no-op
+            # binding for the static fields ported so far)
+            acc_new = self.force.at_time(s.time + dt).accel(
+                pos_new, s.mass).to(s.pos.dtype)
+            vel_new = v_half + (0.5 * dt) * acc_new
+            state_new = s.replace(pos=pos_new, vel=vel_new, time=s.time + dt)
         return KDKCarry(state=state_new, acc=acc_new,
                         n_steps=carry.n_steps + 1)
 

@@ -67,6 +67,7 @@ import torch
 
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
 from oc_nbody_tpu_torch.ops import gravity
+from oc_nbody_tpu_torch.utils.profiling import span
 
 _F32 = torch.float32
 # kind -> (planes per source in a slab slot: positions, [velocities], G m)
@@ -318,7 +319,9 @@ def _circulate(ring: _Ring, sweep, d: int, serial: bool) -> None:
                 sweep(s, k % 2, k == 0)
             if k < d - 1:
                 for s in range(d):
-                    slabs[(s + 1) % d][1 - k % 2].copy_(slabs[s][k % 2])
+                    src = slabs[s][k % 2]
+                    with span("parallel.exchange", moves=src):
+                        slabs[(s + 1) % d][1 - k % 2].copy_(src)
         return
     devices = [slab.device for slab in slabs]
     cur = [torch.cuda.current_stream(dev) for dev in devices]
@@ -346,8 +349,9 @@ def _circulate(ring: _Ring, sweep, d: int, serial: bool) -> None:
                         for ev in (sent[(s - 1) % d][k - 1],
                                    swept[right][k - 1], sent[right][k - 1]):
                             stream.wait_event(ev)
-                    slabs[right][1 - slot].copy_(slabs[s][slot],
-                                                 non_blocking=True)
+                    src = slabs[s][slot]
+                    with span("parallel.exchange", moves=src):
+                        slabs[right][1 - slot].copy_(src, non_blocking=True)
                     sent[s][k] = _record(stream)
         if serial:
             for dev in set(devices):

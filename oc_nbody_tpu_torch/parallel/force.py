@@ -52,6 +52,7 @@ from oc_nbody_tpu_torch.models.potentials import Potential
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
 from oc_nbody_tpu_torch.ops import cuda_ring, gravity
 from oc_nbody_tpu_torch.parallel.mesh import Mesh
+from oc_nbody_tpu_torch.utils.profiling import span
 
 MODES = ("allgather", "ring", "rdma", "halfring")
 
@@ -135,20 +136,24 @@ class ShardedForce:
         """One padded global array cut into the mesh's d equal row shards,
         each on its device."""
         size = a.shape[0] // self.mesh.n_devices
-        return [a[s * size:(s + 1) * size].to(dev).contiguous()
-                for s, dev in enumerate(self.mesh.devices)]
+        with span("parallel.exchange", moves=a):
+            return [a[s * size:(s + 1) * size].to(dev).contiguous()
+                    for s, dev in enumerate(self.mesh.devices)]
 
     @staticmethod
     def _gather(outs, n, device, dtype):
         """The shards' outputs concatenated on ``device``, unpadded."""
-        return torch.cat([o.to(device) for o in outs])[:n].to(dtype)
+        with span("parallel.exchange", moves=outs):
+            moved = [o.to(device) for o in outs]
+        return torch.cat(moved)[:n].to(dtype)
 
     # ---- the four modes; each returns, per shard, a tuple of outputs --------
     def _allgather(self, want, planes, shards):
         full = {}
         for dev in self.mesh.devices:
             if dev not in full:
-                full[dev] = tuple(p.to(dev) for p in planes)
+                with span("parallel.exchange", moves=planes):
+                    full[dev] = tuple(p.to(dev) for p in planes)
         return [self._rows(want, shards[s], full[dev], dev)
                 for s, dev in enumerate(self.mesh.devices)]
 
@@ -182,8 +187,9 @@ class ShardedForce:
                 acc[s] = tuple(p[0] for p in pairs)
                 comp[s] = tuple(p[1] for p in pairs)
             if hop < d - 1:   # shard s now holds what shard s - 1 held
-                circ = [tuple(x.to(devs[s]) for x in circ[(s - 1) % d])
-                        for s in range(d)]
+                with span("parallel.exchange", moves=circ):
+                    circ = [tuple(x.to(devs[s]) for x in circ[(s - 1) % d])
+                            for s in range(d)]
         return acc
 
     def _rdma(self, want, shards):
@@ -265,7 +271,8 @@ class ShardedForce:
             comp[s] = tuple(p[1] for p in pairs)
 
         def visit(s, k):
-            return tuple(x.to(devs[s]) for x in shards[k])
+            with span("parallel.exchange", moves=shards[k]):
+                return tuple(x.to(devs[s]) for x in shards[k])
 
         for t in range(1, (d - 1) // 2 + 1):
             for s in range(d):
@@ -298,7 +305,8 @@ class ShardedForce:
             recv = None
             for j in range(d):
                 if s in react[j]:
-                    r = tuple(x.to(devs[s]) for x in react[j][s])
+                    with span("parallel.exchange", moves=react[j][s]):
+                        r = tuple(x.to(devs[s]) for x in react[j][s])
                     recv = r if recv is None else tuple(
                         a + b for a, b in zip(recv, r))
             out.append(tuple(_two_sum(a, c, x)[0]

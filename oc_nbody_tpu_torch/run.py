@@ -57,7 +57,7 @@ from oc_nbody_tpu_torch import escape
 from oc_nbody_tpu_torch.config import SimConfig
 from oc_nbody_tpu_torch.scene import (build_scene, make_stepper,
                                       resolve_device, resolve_mesh)
-from oc_nbody_tpu_torch.utils.profiling import Stopwatch
+from oc_nbody_tpu_torch.utils.profiling import Stopwatch, span
 
 
 @dataclasses.dataclass
@@ -75,8 +75,12 @@ class RunResult:
 def _to_host(row: dict) -> dict:
     """One device-to-host copy for a whole diagnostics row."""
     keys = [k for k, v in row.items() if isinstance(v, torch.Tensor)]
-    vals = (torch.stack([row[k].to(torch.float64).reshape(())
-                         for k in keys]).cpu().tolist() if keys else [])
+    vals = []
+    if keys:
+        flat = torch.stack([row[k].to(torch.float64).reshape(())
+                            for k in keys])
+        with span("diagnostics.wait", site="run.row"):
+            vals = flat.cpu().tolist()
     host = dict(zip(keys, vals))
     return {k: host[k] if k in host else float(v) for k, v in row.items()}
 
