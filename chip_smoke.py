@@ -22,7 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2, K3 and K5 are launched twice
    and must be bitwise equal, and K5 must give a row the same bits alone,
    in a subset and among all rows; K5 is timed beside K4 at the same
-   shapes. Then the extended (hi/lo) tier the same way: K6 sym_accel_x at
+   shapes. K22 knn_density (the diagnostics row's CH85 sweep) against its
+   plain twin on the same card tensors at 32,768, 65,536 and 131,072
+   strided by 2 (Plummer spheres, centred, strided and cast as
+   local_density does): rk2 bitwise, mnb within 1e-6 relative, two
+   launches bitwise, timed beside its issue-rate bound (its twin at 65,536
+   only). Then the extended (hi/lo) tier the same way: K6 sym_accel_x at
    N = 131,072 (beside K2, its tile geometry and its shared bytes a pair),
    K7 sym_jerk_x at 16,384 (beside K3), K8
    rows_accel_x at 1,024², K9 rows_jerk_x on K5's row counts against
@@ -434,6 +439,8 @@ PATHS_BIG = {
 EXTENDED_KERNELS = ("sym_x", "sym_jerk_x", "rows_x", "rows_jerk_x",
                     "cross_x", "cross_jerk_x", "rows_jerk_x_stream",
                     "rows_x_stream")
+# the diagnostics row's CH85 sweep (K22), which runs at every tier
+TIERLESS_KERNELS = ("knn_density",)
 # the self-interaction kernels, which a path pruned from t = 0 never runs
 SELF_KERNELS = ("sym", "cross", "sym_jerk", "cross_jerk", "sym_x", "cross_x",
                 "sym_jerk_x", "cross_jerk_x")
@@ -883,6 +890,70 @@ def _same_bits(a, b):
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# K22 (csrc/knn_density.cu) is bound by its issue rate, not by a pipe's
+# flops: ~10 instructions a pair (three subtractions, three
+# multiplications, two additions, the compare and its branch) at 132 SMs x
+# 128 lanes x 1.98 GHz
+KNN_INSTR_PER_PAIR = 10
+PEAK_ISSUE = 132 * 128 * 1.98e9
+
+
+def check_knn(cg, device):
+    """K22 against its plain twin on the same card tensors, at the CH85
+    sweep's shapes on the main paths: c4's 32,768 stars, the north star's
+    65,536 and c5's 131,072 strided by 2 to 65,536 probes and sources, each
+    a Plummer sphere centred on its density centre and strided and cast as
+    diagnostics.local_density does. rk2 bitwise, mnb within 1e-6 relative,
+    two launches bitwise; returns the north star's dict(max_abs_err (of
+    mnb), ms, plain_ms, shape, bound)."""
+    import torch
+    from oc_nbody_tpu_torch import diagnostics as tdiag
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    from oc_nbody_tpu_torch.ops import cuda_knn
+    print("knn_density (K22): n, probes = sources, mnb max rel, ms, "
+          "plain_ms, bound_ms")
+    main = None
+    for n in (32768, 65536, 131072):
+        st = plummer(n, torch.Generator().manual_seed(n + 22), device=device)
+        c = st.pos - tdiag.density_center(st)
+        s = -(-n // 65536)
+        probes = c[::s].float().contiguous()
+        src = probes
+        msrc = (st.mass[::s].float() * float(s)).contiguous()
+        rk2, mnb = cuda_knn.knn_density_kernel(probes, src, msrc, 6)
+        again = cuda_knn.knn_density_kernel(probes, src, msrc, 6)
+        if not (torch.equal(rk2, again[0]) and torch.equal(mnb, again[1])):
+            raise AssertionError(f"knn_density n={n}: two launches differ "
+                                 "bitwise")
+        want_rk2, want_mnb = cuda_knn.knn_density_plain(probes, src, msrc, 6)
+        if not torch.equal(rk2, want_rk2):
+            raise AssertionError(
+                f"knn_density n={n}: rk2 differs from the twin's on "
+                f"{int((rk2 != want_rk2).sum())} probes")
+        err = float((mnb.double() - want_mnb.double()).abs().max())
+        rel = float(((mnb.double() - want_mnb.double()).abs()
+                     / want_mnb.double().abs()).max())
+        if not rel <= 1e-6:
+            raise AssertionError(f"knn_density n={n}: mnb relative error "
+                                 f"{rel:.3e} > 1e-6")
+        ms = _median_ms(lambda: cuda_knn.knn_density_kernel(probes, src,
+                                                            msrc, 6))
+        pms = (_median_ms(lambda: cuda_knn.knn_density_plain(
+            probes, src, msrc, 6), reps=3) if n == 65536 else None)
+        np_ = probes.shape[0]
+        bound = (np_ * np_ * KNN_INSTR_PER_PAIR / PEAK_ISSUE * 1e3,
+                 "operations")
+        print(f"knn_density {n:<7}{np_:<7}{rel:<11.3e}{ms:<10.4f}"
+              f"{'' if pms is None else f'{pms:.4f}':<10}{bound[0]:.4f}",
+              flush=True)
+        if n == 65536:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                        shape=[np_, np_], bound=bound)
+        del st, c, probes, src, msrc, rk2, mnb, again, want_rk2, want_mnb
+        torch.cuda.empty_cache()
+    return main
 
 
 def check_kernels_x(cg, device, main):
@@ -2290,7 +2361,7 @@ def _check_extended_launches(cg, k, res, launches):
     are f64 sums (``output.diag_f64``), and under Hermite at least once per
     step (past STREAM_N ``_check_big_launches`` counts them)."""
     stray = {key: n for key, n in launches.items()
-             if n and key not in EXTENDED_KERNELS}
+             if n and key not in EXTENDED_KERNELS + TIERLESS_KERNELS}
     if stray:
         raise AssertionError(f"{k}: other tiers' kernels launched on an "
                              f"extended path: {stray}")
@@ -2316,7 +2387,7 @@ def _check_df_launches(k, res, launches):
     kernel): K10 once per KDK step and once at init, K11 at least once per
     Hermite step; the block path's count is ``_check_block_launches``'s."""
     stray = {key: n for key, n in launches.items()
-             if n and not key.endswith("_df")}
+             if n and not key.endswith("_df") and key not in TIERLESS_KERNELS}
     if stray:
         raise AssertionError(f"{k}: other tiers' kernels launched on a df32 "
                              f"path: {stray}")
@@ -3250,7 +3321,8 @@ def run_sharded_paths(cg, device):
     and where more cards are visible c5 (rdma) on a mesh of up to MESH_D
     cards; every sharded force evaluation is d^2 launches of its kernel
     (K18 per hop under ring, K20 / K21 under rdma) and every f32
-    diagnostics row d^2 of K20<phi>, and no other kernel runs. Returns
+    diagnostics row d^2 of K20<phi> and, with the CH85 columns, one K22,
+    and no other kernel runs. Returns
     ({name: RunResult}, {name: launches})."""
     import torch
     from oc_nbody_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -3269,6 +3341,8 @@ def run_sharded_paths(cg, device):
         want = {PATHS_MESH[k][2]: d2 * (res.n_steps + 1)}
         if not _load(k).output.diag_f64:
             want["ring_phi"] = d2 * rows
+        if _load(k).output.core_diag:   # K22 on the gathered state
+            want["knn_density"] = rows
         got = {n: c for n, c in launches[k].items() if c}
         if got != want:
             raise AssertionError(f"{k}: launches {got}, expected {want} "
@@ -3341,6 +3415,7 @@ def main():
         return 0
     from oc_nbody_tpu_torch.ops import cuda_df
     main_shapes = check_kernels(cg, device)
+    main_shapes["knn_density"] = check_knn(cg, device)
     check_kernels_x(cg, device, main_shapes)
     check_kernels_df(cg, cuda_df, device, main_shapes)
     check_kernels_big(cg, device, main_shapes)
@@ -3512,7 +3587,10 @@ def main():
              "oc_nbody_tpu_torch/csrc/ring_accel.cu",
              "oc_nbody_tpu/ops/pallas_ring.py:169", None),
             ("ring_jerk", "ring_jerk", "oc_nbody_tpu_torch/csrc/ring_jerk.cu",
-             "oc_nbody_tpu/ops/pallas_ring.py:202", None)):
+             "oc_nbody_tpu/ops/pallas_ring.py:202", None),
+            ("knn_density", "knn_density",
+             "oc_nbody_tpu_torch/csrc/knn_density.cu",
+             "none: oc_nbody_tpu/diagnostics.py:148 is plain jnp", None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

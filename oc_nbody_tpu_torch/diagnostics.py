@@ -4,12 +4,12 @@ velocity dispersion, relaxation time and the CH85 core.
 
 Counterpart of ``oc_nbody_tpu/diagnostics.py``: the same formulas, loops
 and column names, accumulated in f64. Every function returns device
-tensors; run.py copies a finished row to the host once. Three steps of a
-row wait for the device all the same (found under
-``torch.cuda.set_sync_debug_mode``): the mass fractions and the CH85
-sweep's infinity copied to the card from host memory, and the tidal
-tensor's ``eigvalsh``. Each is a ``diagnostics.wait`` span with its
-``site``.
+tensors; run.py copies a finished row to the host once. Two steps of a
+row wait for the card all the same (found under
+``torch.cuda.set_sync_debug_mode``): the mass fractions copied to the card
+from host memory, and the tidal tensor's ``eigvalsh``. Each is a
+``diagnostics.wait`` span with its ``site``, as is the infinity the CH85
+sweep's plain twin makes (the CPU path; K22 needs none).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import math
 import torch
 
 from oc_nbody_tpu_torch.forces import ForceModel
-from oc_nbody_tpu_torch.ops import gravity
+from oc_nbody_tpu_torch.ops import cuda_knn, gravity
 from oc_nbody_tpu_torch.ops.gravity import rounded
 from oc_nbody_tpu_torch.state import ParticleState
 from oc_nbody_tpu_torch.utils.profiling import span
@@ -141,10 +141,11 @@ def local_density(pos, mass, center, k: int = 6, max_probes: int = 65536,
     ``max_probes`` / ``max_sources`` (sampled source masses scaled by the
     stride). Distances are f32 on coordinates centred on ``center``.
 
-    The kth distance comes from k threshold passes, with the JAX package's
-    tie semantics: exact-duplicate f32 distances collapse to one rank and
-    all tied masses count. Returns (rho, probe_stride); rho (f64) is
-    aligned with pos[::probe_stride]."""
+    The sweep is ``cuda_knn.knn_density``: K22 on the card, on the CPU the
+    plain twin's k threshold passes over chunks of ``chunk`` probes; both
+    keep the JAX package's tie semantics: exact-duplicate f32 distances
+    collapse to one rank and all tied masses count. Returns (rho,
+    probe_stride); rho (f64) is aligned with pos[::probe_stride]."""
     if k < 2:
         raise ValueError("CH85 local density needs k >= 2")
     n = pos.shape[0]
@@ -158,24 +159,10 @@ def local_density(pos, mass, center, k: int = 6, max_probes: int = 65536,
                           device=pos.device), ps
     f32 = torch.float32
     rmin2 = rounded(max(rounded(r_min, f32) ** 2, 1e-30), f32)
-    with span("diagnostics.wait", site="local_density.inf"):
-        inf = torch.tensor(math.inf, dtype=torch.float32, device=pos.device)
-    rhos = []
-    for i0 in range(0, probes.shape[0], chunk):
-        p = probes[i0:i0 + chunk]
-        d2 = torch.sum((p[:, None, :] - src[None, :, :]) ** 2, dim=-1)
-        d2 = torch.where(d2 <= 0.0, inf, d2)  # self pairs
-        thr = torch.min(d2, dim=1).values     # rank-1 distance²
-        thr_prev = thr
-        for _ in range(k - 1):
-            thr_prev = thr
-            thr = torch.min(torch.where(d2 <= thr[:, None], inf, d2),
-                            dim=1).values     # next rank
-        mnb = torch.sum(torch.where(d2 <= thr_prev[:, None], msrc[None, :],
-                                    0.0), dim=1)
-        rk2 = _f64(torch.clamp(thr, min=rmin2))
-        rhos.append(_f64(mnb) / ((4.0 * math.pi / 3.0) * rk2 ** 1.5))
-    return torch.cat(rhos), ps
+    thr, mnb = cuda_knn.knn_density(probes.contiguous(), src.contiguous(),
+                                    msrc.contiguous(), k, chunk)
+    rk2 = _f64(torch.clamp(thr, min=rmin2))
+    return _f64(mnb) / ((4.0 * math.pi / 3.0) * rk2 ** 1.5), ps
 
 
 def core_radius_density(state: ParticleState, center=None, k: int = 6,

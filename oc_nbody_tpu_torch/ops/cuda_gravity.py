@@ -3,7 +3,11 @@
 tier (K1-K5, K12-K14, K18) and the extended tier (K6-K9, K15-K17, K19) and builds the
 one library all kernels live in; the two-float tier's K10 and K11 are wrapped
 in ``ops/cuda_df.py``, the sharded ring's steps K20 and K21
-(``csrc/ring_accel.cu``, ``csrc/ring_jerk.cu``) in ``ops/cuda_ring.py``.
+(``csrc/ring_accel.cu``, ``csrc/ring_jerk.cu``) in ``ops/cuda_ring.py``, and
+the diagnostics row's CH85 k-th-nearest-neighbour sweep K22
+(``csrc/knn_density.cu``) in ``ops/cuda_knn.py``, which replaces no TPU
+kernel (the JAX package's ``local_density``, oc_nbody_tpu/diagnostics.py:148,
+is plain jnp).
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
     potential. Replaces the Pallas row-grid kernels ``_accel_kernel`` and
@@ -202,7 +206,7 @@ _KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
             "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df",
             "cross", "cross_jerk", "rows_jerk_stream", "cross_x",
             "cross_jerk_x", "rows_jerk_x_stream", "rows_t", "rows_stream",
-            "rows_x_stream", "ring", "ring_phi", "ring_jerk")
+            "rows_x_stream", "ring", "ring_phi", "ring_jerk", "knn_density")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
@@ -217,7 +221,7 @@ _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_df.cu", "df_selftest.cu", "cross_accel.cu",
             "cross_jerk.cu", "cross_accel_x.cu", "cross_jerk_x.cu",
             "rows_accel_t.cu", "rows_accel_xs.cu", "ring_accel.cu",
-            "ring_jerk.cu")
+            "ring_jerk.cu", "knn_density.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -385,6 +389,8 @@ def _library():
         lib.ocn_ring_jerk.restype = i
         lib.ocn_ring_jerk_scratch.argtypes = [i, i]
         lib.ocn_ring_jerk_scratch.restype = ctypes.c_longlong
+        lib.ocn_knn_density.argtypes = [p, i, p, i, i, p, p, p]
+        lib.ocn_knn_density.restype = i
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]

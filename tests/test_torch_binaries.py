@@ -232,8 +232,10 @@ def test_binaries_8k_runs_through_the_cli_on_cpu(capsys):
     assert abs(float(line.split("dE/E=")[1].split()[0])) < 1e-4
     ran = {k: cg.PLAIN_CALLS[k] - before[k] for k in before
            if cg.PLAIN_CALLS[k] != before[k]}
-    # 125 stars: K9's twin at init and twice per micro-step, K8's per row
-    assert ran == {"rows_jerk_x": 2 * steps + 1, "rows_x": 2}
+    # 125 stars: K9's twin at init and twice per micro-step, K8's and
+    # K22's (CH85) per row
+    assert ran == {"rows_jerk_x": 2 * steps + 1, "rows_x": 2,
+                   "knn_density": 2}
 
 
 def test_block_extended_pec2_keeps_embedded_pairs():

@@ -324,8 +324,9 @@ def test_c4_extended_past_the_row_cap_runs_to_its_end(monkeypatch, capsys):
     ran = {k: cg.PLAIN_CALLS[k] - plain[k] for k in plain
            if cg.PLAIN_CALLS[k] != plain[k]}
     assert set(ran) == {"sym_jerk_x", "sym_x", "rows_jerk_x",
-                        "rows_jerk_x_stream"}
+                        "rows_jerk_x_stream", "knn_density"}
     assert ran["sym_jerk_x"] == 1 and ran["sym_x"] == 3    # init; 3 rows
+    assert ran["knn_density"] == 3                        # CH85 per row
     assert ran["rows_jerk_x_stream"] >= 2
     assert ran["rows_jerk_x_stream"] + ran["rows_jerk_x"] == steps
     assert tmain.main(["info", C4, *argv]) == 0

@@ -58,13 +58,23 @@ bitwise, and d = 1 is one launch. K13 and K16 run in each of their compiled
 tile geometries (csrc/jerk_rows.cuh) on ragged sets, where a NaN-filled
 scratch gives the same bits. At eps = 0 a pair 1e-20 apart (u below the
 least normal f32) adds nothing in every guarded kernel K1-K21, as in its
-f32 twin (ROADMAP C6).
+f32 twin (ROADMAP C6). K22 (knn_density), the CH85 k-th-nearest-neighbour
+sweep of the diagnostics row, is held to its plain twin run on the same
+card tensors: on integer lattices (exact d², masses in eighths: ties,
+coincident stars, fewer than k distinct distances, ragged source tiles)
+its rk2 and mnb, and local_density's rho with and without the r_min floor,
+are bitwise the twin's; on Plummer spheres of 1,000, 10,650, 32,768,
+65,536 and 131,072 stars (strided by 2) rk2 is bitwise, mnb, r_core and
+rho_core within 1e-6; two launches are bitwise equal, and a row launches
+K22 once and never the twin.
 """
 import numpy as np
 import pytest
 import torch
 
-from oc_nbody_tpu_torch.ops import cuda_df, cuda_ring
+from oc_nbody_tpu_torch import diagnostics as tdiag
+from oc_nbody_tpu_torch.models.plummer import plummer
+from oc_nbody_tpu_torch.ops import cuda_df, cuda_knn, cuda_ring
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
 from oc_nbody_tpu_torch.ops import df32, gravity
 from oc_nbody_tpu_torch.ops.gravity import prepare_f32
@@ -261,6 +271,7 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda, monkeypatch):
                                    1.0 / 64)            # K20<phi>
     cuda_ring.accel_jerk_ring([pos[:64]], [vel[:64]], [mass[:64]],
                               1.0 / 64)                 # K21
+    cuda_knn.knn_density(pos[:1000], pos[:1000], mass[:1000], 6)   # K22
     torch.cuda.synchronize()
     assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
     assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}
@@ -1671,3 +1682,100 @@ def test_guarded_kernels_give_a_pair_closer_than_1e_19_nothing(cuda):
                    else (5e-6, 1e-5))[jerk]
             assert float((g - w).abs().max()) <= tol * float(
                 w.abs().max()), (label, k)
+
+
+# --------------------------------------------------------------------------
+# K22: the CH85 k-th-nearest-neighbour sweep (ops/cuda_knn.py)
+# --------------------------------------------------------------------------
+
+# integer lattices (pos, mass) made from a seed: every d² exact in f32 in
+# any order, masses multiples of 1/8 (exact sums)
+_KNN_LATTICES = {
+    "ties": dict(n=300, side=3),           # a ragged last tile
+    "ties_20k": dict(n=20000, side=10),    # 157 tiles, the last ragged
+    "line": dict(pos=[[i, 0, 0] for i in range(7)] + [[3, 0, 0]]),
+    # one distinct positive distance
+    "two_points": dict(pos=[[0, 0, 0]] * 1500 + [[1, 0, 0]] * 1500),
+}
+
+
+def _knn_lattice(case, device):
+    spec = _KNN_LATTICES[case]
+    rng = np.random.default_rng(11)
+    if "pos" in spec:
+        pos = np.asarray(spec["pos"], dtype=np.float64)
+    else:
+        side = spec["side"]
+        pos = rng.integers(-side, side + 1, size=(spec["n"], 3)).astype(
+            np.float64)
+    mass = rng.integers(1, 9, size=pos.shape[0]) / 8.0
+    return (torch.from_numpy(pos).to(device),
+            torch.from_numpy(mass).to(device))
+
+
+def _knn_inputs(pos, mass, center, cap=65536):
+    """The sweep's inputs as diagnostics.local_density strides, centres
+    and casts them."""
+    s = -(-pos.shape[0] // cap)
+    c = pos - center
+    return (c[::s].float().contiguous(), c[::s].float().contiguous(),
+            (mass[::s].float() * float(s)).contiguous())
+
+
+def _twin_on_the_card(monkeypatch):
+    """Route the dispatcher's CUDA tensors to the plain twin."""
+    monkeypatch.setattr(cuda_knn, "knn_density_kernel",
+                        lambda p, s, m, k: cuda_knn.knn_density_plain(
+                            p, s, m, k))
+
+
+@pytest.mark.parametrize("r_min", [0.0, 2.5])
+@pytest.mark.parametrize("case", sorted(_KNN_LATTICES))
+def test_knn_kernel_keeps_the_twin_ties_bitwise(cuda, monkeypatch, case,
+                                                r_min):
+    pos, mass = _knn_lattice(case, cuda)
+    center = torch.zeros(3, dtype=torch.float64, device=cuda)
+    probes, src, msrc = _knn_inputs(pos, mass, center)
+    rk2, mnb = cuda_knn.knn_density_kernel(probes, src, msrc, 6)
+    want_rk2, want_mnb = cuda_knn.knn_density_plain(probes, src, msrc, 6)
+    assert torch.equal(rk2, want_rk2) and torch.equal(mnb, want_mnb)
+    if case in ("line", "two_points"):
+        assert bool(torch.isinf(rk2).any())   # fewer than k distinct
+    rho, _ = tdiag.local_density(pos, mass, center, r_min=r_min)
+    _twin_on_the_card(monkeypatch)
+    want_rho, _ = tdiag.local_density(pos, mass, center, r_min=r_min)
+    assert torch.equal(rho, want_rho)
+
+
+@pytest.mark.parametrize("n", [1000, 10650, 32768, 65536, 131072])
+def test_knn_kernel_matches_the_twin_on_plummer(cuda, monkeypatch, n):
+    st = plummer(n, torch.Generator().manual_seed(n), device=cuda)
+    center = tdiag.density_center(st)
+    probes, src, msrc = _knn_inputs(st.pos, st.mass, center)
+    rk2, mnb = cuda_knn.knn_density_kernel(probes, src, msrc, 6)
+    again = cuda_knn.knn_density_kernel(probes, src, msrc, 6)
+    assert torch.equal(rk2, again[0]) and torch.equal(mnb, again[1])
+    want_rk2, want_mnb = cuda_knn.knn_density_plain(probes, src, msrc, 6)
+    assert torch.equal(rk2, want_rk2)
+    torch.testing.assert_close(mnb, want_mnb, rtol=1e-6, atol=0.0)
+    got = tdiag.core_radius_density(st, center=center, r_min=2.0 / 512)
+    _twin_on_the_card(monkeypatch)
+    want = tdiag.core_radius_density(st, center=center, r_min=2.0 / 512)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+
+
+def test_a_row_launches_k22_once_and_never_the_twin(cuda):
+    import os
+    from oc_nbody_tpu_torch.config import apply_overrides, load_config
+    from oc_nbody_tpu_torch.scene import build_scene
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "c1_plummer_1k.toml")
+    cfg = apply_overrides(load_config(path), ["ic.n=2048"])
+    scene = build_scene(cfg, cuda)
+    launches = cg.LAUNCHES["knn_density"]
+    plain = cg.PLAIN_CALLS["knn_density"]
+    row = tdiag.compute_all(scene.state, scene.force, core=True)
+    assert bool(torch.isfinite(row["r_core"]))
+    assert cg.LAUNCHES["knn_density"] == launches + 1
+    assert cg.PLAIN_CALLS["knn_density"] == plain

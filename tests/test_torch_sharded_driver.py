@@ -203,7 +203,7 @@ def test_run_c5_on_an_api_mesh(diag_f64):
         assert len(d["time"]) == 3
         assert np.abs(d["dE_over_E_int"]).max() < 1e-6
         if mode == "rdma":
-            want = {"ring": D * D * 17}
+            want = {"ring": D * D * 17, "knn_density": 3}   # CH85 per row
             if not diag_f64:
                 want["ring_phi"] = D * D * 3
             assert ran == want

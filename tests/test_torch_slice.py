@@ -385,10 +385,12 @@ def test_cli_runs_c5x_and_the_extended_overrides_on_cpu(capsys):
         assert len(lines) == 1 and f"steps={steps}" in lines[0]
         assert abs(float(lines[0].split("dE/E=")[1].split()[0])) < 1e-6
         ran = {k for k in before if cg.PLAIN_CALLS[k] != before[k]}
-        # c5x's rows are f64 sums outside the twins; c1x's go through K8's
-        assert ran == {"rows_x"}
+        # c5x's rows are f64 sums outside the twins; c1x's go through K8's;
+        # each row's CH85 through K22's
+        assert ran == {"rows_x", "knn_density"}
         assert cg.PLAIN_CALLS["rows_x"] - before["rows_x"] == \
             steps + 1 + (0 if argv[1] == C5X else 2)
+        assert cg.PLAIN_CALLS["knn_density"] - before["knn_density"] == 2
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
