@@ -12,11 +12,14 @@ in the same bits, which the harness checks apart):
               the carry's force was evaluated at the predicted positions of
               each star's last step, so the reading holds the predictor's
               gap beside the kernels' rounding.
-  jerk_err    the same for the pair jerk (block steps).
+  jerk_err    the same for the pair jerk (block steps and shared-dt
+              Hermite, whose carry's force and jerk, likewise, are those
+              of the last step's prediction).
   energy_err  the row's internal energy against the reference's, over it.
   com_err     the centre of mass against the reference orbit of a point
               under the field from the set-up's centre, over the distance
-              that orbit moved.
+              that orbit moved. Without a field the centre barely moves:
+              over the reference's largest Lagrangian radius instead.
   bound_mass_err  the row's M_bound and N_bound (the iterative tidal cut)
               against the reference's: the larger relative difference.
   tidal_r_err the row's r_tidal against the reference's, relative.
@@ -43,7 +46,7 @@ import math
 
 import torch
 
-from bench_torch import units
+from bench_torch import kinds, units
 from bench_torch.reference import direct, orbit, row as row_ref
 from bench_torch.reference.milky_way import MilkyWay
 
@@ -55,7 +58,7 @@ class Answers:
     """What the timed path produced at a segment's end, or what the control
     or the reference puts in its place."""
     acc: torch.Tensor             # (N, 3) pair acceleration, float64
-    jerk: torch.Tensor | None     # (N, 3) pair jerk (block steps)
+    jerk: torch.Tensor | None     # (N, 3) pair jerk (``Kind.jerk``)
     e_int: float                  # internal energy
     com: torch.Tensor             # (3,) centre of mass
     structure: dict               # the row's structure columns, as
@@ -92,12 +95,7 @@ def program_answers(kind: str, phys: Physics, end, row: dict) -> Answers:
     """The timed path's answers: its carry's pair force (and jerk) and its
     row's internal energy, at the end state ``end`` (a carry)."""
     s = end.state
-    if kind == "block":
-        acc, jerk = end.acc - end.a_ext, end.jerk - end.j_ext
-    else:
-        ext = (phys.field.accel(s.pos.to(F64)) if phys.field is not None
-               else 0.0)
-        acc, jerk = end.acc.to(F64) - ext, None
+    acc, jerk = kinds.of(kind).pair_force(end, phys.field)
     com, _ = direct.centre_of_mass(s.pos, s.vel, s.mass)
     structure = {"M_bound": float(row["M_bound"]),
                  "N_bound": int(row["N_bound"]),
@@ -116,7 +114,7 @@ def reference_answers(kind: str, phys: Physics, start, end, t: float,
     """(answers, pair potential): the reference's at ``end`` (a state),
     computed in ``dtype``; the orbit starts from ``start``'s centre and
     runs for ``t``."""
-    vel = end.vel if kind == "block" else None
+    vel = end.vel if kinds.of(kind).jerk else None
     acc, phi, jerk = direct.pair_sums(end.pos, end.mass, phys.eps, phys.G,
                                       vel=vel, dtype=dtype,
                                       sum_dtype=sum_dtype)
@@ -124,7 +122,7 @@ def reference_answers(kind: str, phys: Physics, start, end, t: float,
     structure = row_ref.structure(end.pos, end.vel, end.mass, phys.field,
                                   phys.G, phys.eps, phys.fractions,
                                   core=phys.core, dtype=dtype,
-                                  sum_dtype=sum_dtype)
+                                  sum_dtype=sum_dtype, phi_pair=phi)
     return Answers(acc=acc, jerk=jerk, e_int=e["E_int"],
                    com=_orbit_com(phys, start, t, dtype),
                    structure=structure), phi
@@ -152,16 +150,20 @@ def drift(phys: Physics, start, end, phi_end) -> float:
     return abs(e[1]["E_tot"] - e[0]["E_tot"]) / abs(e[0]["E_int"])
 
 
-def numbers(got: Answers, ref: Answers, com0) -> dict:
-    """The compared numbers of ``got`` against ``ref`` (drift apart)."""
+def numbers(got: Answers, ref: Answers, com0, field: bool = True) -> dict:
+    """The compared numbers of ``got`` against ``ref`` (drift apart);
+    ``field``: the cluster orbits in an external field."""
     out = {"accel_err": _rel_max(got.acc, ref.acc)}
     if got.jerk is not None and ref.jerk is not None:
         out["jerk_err"] = _rel_max(got.jerk, ref.jerk)
     out["energy_err"] = abs(got.e_int - ref.e_int) / abs(ref.e_int)
-    moved = float(torch.linalg.vector_norm(ref.com.cpu() - com0.cpu()))
-    out["com_err"] = float(torch.linalg.vector_norm(
-        got.com.cpu() - ref.com.cpu())) / moved
     g, r = got.structure, ref.structure
+    if field:
+        scale = float(torch.linalg.vector_norm(ref.com.cpu() - com0.cpu()))
+    else:
+        scale = max(r["r_lagr"])
+    out["com_err"] = float(torch.linalg.vector_norm(
+        got.com.cpu() - ref.com.cpu())) / scale
     out["bound_mass_err"] = max(_rel(g["M_bound"], r["M_bound"]),
                                 _rel(g["N_bound"], r["N_bound"]))
     out["tidal_r_err"] = _rel(g["r_tidal"], r["r_tidal"])
@@ -201,7 +203,7 @@ def readings(kind: str, phys: Physics, start, end, row: dict, t: float,
     else:
         got = program_answers(kind, phys, end, row)
     com0, _ = direct.centre_of_mass(start.pos, start.vel, start.mass)
-    out = numbers(got, ref, com0)
+    out = numbers(got, ref, com0, field=phys.field is not None)
     if not control:     # the program's states, whoever gives the answers
         out["drift"] = drift(phys, start, end.state, phi)
     return out

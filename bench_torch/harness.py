@@ -3,9 +3,16 @@
 A cell is a configuration (``configs/<config>.toml``, a copy of the repo's
 TOML with its source) under a traffic: a fixed stretch of simulated time,
 ``segment`` in the cell's file ``workloads/<cell>.toml``, replayed again
-and again. Set-up builds the scene from the seed (``scene.build_scene``),
-makes the stepper (``scene.make_stepper``) and runs ``stepper.init``; that
-carry is every segment's start. A segment is what ``run.run`` does per
+and again. That file also states the cell's limits (``[limits]``) and its
+small stand-in for the CPU tests (``[stand_in]``: stars, segment and,
+where the stand-in needs its own, a drift limit). What differs between
+the stepper kinds (``kdk``, ``hermite``, ``block``) is looked up by the
+kind that the configuration's ``integrator.kind`` names (``kinds.py``),
+never by a cell's name: a new cell is its files and its entries alone.
+
+Set-up builds the scene from the seed (``scene.build_scene``), makes the
+stepper (``scene.make_stepper``) and runs ``stepper.init``; that carry is
+every segment's start. A segment is what ``run.run`` does per
 diagnostics interval: ``stepper.advance_to`` to the segment's end, one
 ``diagnostics.compute_all`` row and its one host copy. Every run and every
 commit thus does the same work, whatever its speed.
@@ -26,7 +33,8 @@ Then, with the program's state freed, the last segment's end is held to
 the float64 reference (``check.py``). A plain twin on the card
 (``cuda_gravity.PLAIN_CALLS`` moving in the window), a segment that ends
 in other bits than the first, or a saved carry changed in place make the
-run incorrect too.
+run incorrect too. A run that finds JAX or the JAX package loaded in its
+process gives no result (``JaxLoaded``).
 """
 from __future__ import annotations
 
@@ -43,14 +51,27 @@ from pathlib import Path
 
 import torch
 
-from bench_torch import check, timeline, trace as trace_mod, units
+from bench_torch import check, kinds, timeline, trace as trace_mod, units
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 _META = ("source", "reduced", "assumed")
-# the warm-up: KDK steps, or block steps' first dt_max blocks
+# the warm-up: a few steps, or the first dt_max blocks of block steps
 WARM_STEPS = 3
 WARM_BLOCKS = 1
+# top-level names of JAX and of the JAX package, none of which a run loads
+JAX_MODULES = ("jax", "jaxlib", "flax", "oc_nbody_tpu")
+
+
+class JaxLoaded(RuntimeError):
+    """The run's process holds JAX or the JAX package: no result."""
+
+
+def jax_loaded() -> list:
+    """The loaded modules whose top-level name is one of ``JAX_MODULES``,
+    compared whole (``oc_nbody_tpu_torch`` is not ``oc_nbody_tpu``)."""
+    return sorted(m for m in list(sys.modules)
+                  if m.split(".")[0] in JAX_MODULES)
 
 
 @dataclasses.dataclass
@@ -63,33 +84,52 @@ class Cell:
     sim: dict                 # the configuration, as its file states it
     end_to_end: dict          # end-to-end metrics it reports: name -> unit
     per_layer: list           # names of the per-layer metrics it reports
+    stand_in: dict | None = None  # the CPU tests' stand-in: n, segment
+                                  # and, where it states one, drift
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 
 
-def load_cell(name: str, bench: dict) -> Cell:
+def load_cell(name: str, bench: dict, root: Path = ROOT) -> Cell:
     """The cell ``name`` of ``bench``, its workload file and its
-    configuration."""
+    configuration (the file its entry in ``bench`` names), both read under
+    ``root``, the checkout that holds ``bench``."""
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise ValueError(f"no workload {name!r} in BENCHMARK.json")
-    with open(HERE / "workloads" / f"{name}.toml", "rb") as f:
+    with open(root / HERE.name / "workloads" / f"{name}.toml", "rb") as f:
         spec = tomllib.load(f)
     if spec["config"] != entry["config"]:
         raise ValueError(f"{name}: BENCHMARK.json and the workload file "
                          "name different configurations")
-    with open(HERE / "configs" / f"{entry['config']}.toml", "rb") as f:
+    conf = next((c for c in bench["configs"] if c["name"] == entry["config"]),
+                None)
+    if conf is None:
+        raise ValueError(f"{name}: no configuration {entry['config']!r} in "
+                         "BENCHMARK.json")
+    with open(root / conf["file"], "rb") as f:
         sim = tomllib.load(f)
+    kind = sim["integrator"]["kind"]
+    if (not kinds.of(kind).field
+            and sim.get("potential", {}).get("kind", "none") != "none"):
+        raise ValueError(f"{name}: {kind} under an external field cannot be "
+                         "checked: its carry's jerk holds the field's, and "
+                         "the reference has no field jerk")
     reports = {m["name"]: m["unit"] for m in bench["end_to_end"]
                if name in m.get("workloads", [name])}
     per_layer = [m["name"] for m in bench["per_layer"]
                  if name in m.get("workloads", [name])
                  and m["moves"] in reports]
+    stand_in = spec.get("stand_in")
+    if stand_in is not None:
+        stand_in = dict(stand_in, n=int(stand_in["n"]),
+                        segment=float(stand_in["segment"]))
     return Cell(name=name, config=entry["config"], chips=int(entry["chips"]),
                 segment=float(spec["segment"]), limits=dict(spec["limits"]),
-                sim=sim, end_to_end=reports, per_layer=per_layer)
+                sim=sim, end_to_end=reports, per_layer=per_layer,
+                stand_in=stand_in)
 
 
 def sim_config(cell: Cell, seed: int, n: int | None = None):
@@ -136,10 +176,10 @@ class _Marks:
         return [(b - a) * 1e3 for a, b in zip(m, m[1:])]
 
 
-def _hook_steps(stepper, mark) -> None:
-    """Call ``mark`` after every step ``advance_to`` takes: its per-step
-    method (a block micro-step or a KDK step) wrapped on this instance."""
-    name = "_micro_step" if hasattr(stepper, "_micro_step") else "step"
+def _hook_steps(stepper, kind: str, mark) -> None:
+    """Call ``mark`` after every step ``advance_to`` takes: the kind's
+    per-step method (``Kind.step_method``) wrapped on this instance."""
+    name = kinds.of(kind).step_method
     inner = getattr(stepper, name)
 
     def counted(*args, **kw):
@@ -153,10 +193,13 @@ def _hook_steps(stepper, mark) -> None:
 
 def _carry_tensors(carry, kind: str) -> list:
     s = carry.state
-    out = [s.pos, s.vel, carry.acc]
-    if kind == "block":
-        out += [carry.jerk, carry.a_ext, carry.j_ext, carry.t_i, carry.dt_i]
-    return out
+    return [s.pos, s.vel, carry.acc] + [
+        getattr(carry, a) for a in kinds.of(kind).carry_tensors]
+
+
+def _carry_host(carry, kind: str) -> tuple:
+    return (carry.state.time, carry.n_steps) + tuple(
+        getattr(carry, a) for a in kinds.of(kind).carry_host)
 
 
 def _bits(t):
@@ -203,6 +246,7 @@ class TracedRun:
     untraced_s: float       # the fenced, untraced segment's host seconds
     trace: object           # trace.Trace, or None
     busy_s: list | None     # per card, inside the traced window
+    evaluations: int = 1    # force evaluations a step (``Kind.evaluations``)
 
 
 def run(cell: Cell, seed: int, seconds: float, traced: bool,
@@ -233,15 +277,16 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     t_init = time.perf_counter()
     t0 = scene.state.time
     t_end = t0 + cell.segment
-    if kind == "block":
+    saved = [x.clone() for x in _carry_tensors(carry0, kind)]
+    if kinds.of(kind).warm_blocks:
         grid = cell.segment / float(cfg.integrator.dt_max)
         if abs(grid - round(grid)) > 1e-9:
             raise ValueError(f"{cell.name}: a segment of block steps must "
                              "be a whole number of dt_max")
-        t_warm = t0 + WARM_BLOCKS * float(cfg.integrator.dt_max)
+        warm = stepper.advance_to(
+            carry0, t0 + WARM_BLOCKS * float(cfg.integrator.dt_max))
     else:
-        t_warm = t0 + WARM_STEPS * float(cfg.integrator.dt)
-    saved = [x.clone() for x in _carry_tensors(carry0, kind)]
+        warm = stepper.advance(carry0, WARM_STEPS)
     o = cfg.output
 
     def row_of(c):
@@ -249,12 +294,11 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
             c.state, scene.force, o.fractions, f64_pairwise=o.diag_f64,
             core=o.core_diag))
 
-    warm = stepper.advance_to(carry0, t_warm)
     row_of(warm)
     _same_bits(_carry_tensors(warm, kind), _carry_tensors(warm, kind))
     del warm
     marks = _Marks(cuda)
-    _hook_steps(stepper, marks)
+    _hook_steps(stepper, kind, marks)
     plain0 = sum(cuda_gravity.PLAIN_CALLS.values())
     _sync(devices)
     setup_s = time.perf_counter() - t_start
@@ -273,7 +317,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
             c = stepper.advance_to(carry0, t_end)
         with span("restore"):
             tensors = _carry_tensors(c, kind)
-            ends = (c.state.time, c.n_steps, getattr(c, "n_active_sum", 0))
+            ends = _carry_host(c, kind)
             if first is None:
                 first = (tensors, ends)
             else:
@@ -326,6 +370,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     active = getattr(last, "n_active_sum", 0) - getattr(carry0,
                                                         "n_active_sum", 0)
     sim_t = last.state.time - t0
+    evaluations = kinds.of(kind).evaluations(cfg.integrator)
     differ = sum(1 for x, h in zip(same, same_host)
                  if not (bool(x) and h))
     changed = int(not bool(_same_bits(saved, _carry_tensors(carry0, kind))))
@@ -339,10 +384,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
                                scene_build_s=scene_build_s,
                                row_ms=row_ms[0],
                                untraced_s=seg_ends[0] - w0, trace=tr,
-                               busy_s=busy)
+                               busy_s=busy, evaluations=evaluations)
     out(f"cell {cell.name}: N = {scene.state.n}, {kind}, seed {seed}, "
         f"segment {cell.segment:g} ({sim_t * time_myr:.6g} Myr, {steps} "
-        f"steps" + (f", {active} active rows" if kind == "block" else "")
+        f"steps" + (f", {active} active rows" if active else "")
         + f"), {segs} segments in {window_s:.3f} s, every segment in the "
         f"same bits: {'yes' if differ == 0 else 'NO'}, saved carry "
         f"unchanged: {'yes' if not changed else 'NO'}")
@@ -426,6 +471,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
         result["breakdown"] = trace_mod.breakdown(traced_run.trace)
     result["compared"] = {name: {"value": v, "limit": lim}
                           for name, v, lim in compared}
+    found = jax_loaded()
+    if found:
+        raise JaxLoaded("JAX or the JAX package is loaded in the run's "
+                        "process, so it gives no result: " + ", ".join(found))
     for name, v, lim in compared:
         print(f"{name} {v:.6g} limit {lim:.6g}", file=sys.stderr)
     return result

@@ -3,7 +3,7 @@ card could take for the pair work of the traced steps (``roofline.py``,
 from the shapes and the step count alone, whatever kernel does the work)
 over the time in which the cards ran operations launched in ``step``
 spans, summed over the cards. Rows are excluded."""
-from bench_torch import roofline, timeline
+from bench_torch import kinds, timeline
 
 LAYER = "force model and kernels"
 MOVES = "sim_myr_per_s"
@@ -17,6 +17,6 @@ def read(run):
                for d in range(run.trace.devices))
     if busy <= 0:
         return None
-    least, _ = roofline.least_seconds(run.kind, run.n, run.steps,
-                                      run.n_active_sum)
+    least, _ = kinds.least_seconds(run.kind, run.n, run.steps,
+                                   run.n_active_sum, run.evaluations)
     return 100.0 * least / busy

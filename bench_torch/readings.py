@@ -2,8 +2,8 @@
 segment of the cell through the timed path, then the compared numbers of
 the program (the lower readings) and of the control, the reference in
 bfloat16 put in the program's place (the upper readings). With
-``--fault-seeds``, those seeds then run with the stepper's fault of
-``faults.py`` planted (the upper readings of ``drift``, which the control,
+``--fault-seeds``, those seeds then run with the stepper kind's fault
+(``Kind.fault``, ``faults.py``) planted (the upper readings of ``drift``, which the control,
 giving answers and no trajectory, has none of).
 
     python3 bench_torch/readings.py --workload <cell> --seeds 11 12 ... \
@@ -60,7 +60,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
-    from bench_torch import faults, harness
+    from bench_torch import harness, kinds
     cell = harness.load_cell(args.workload, harness.load_benchmark(ROOT))
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"{cell.name} needs {cell.chips} CUDA card(s)", file=sys.stderr)
@@ -73,7 +73,7 @@ def main(argv=None) -> int:
         print(json.dumps(r), flush=True)
     if args.fault_seeds:
         kind = cell.sim["integrator"]["kind"]
-        faults.plant(kind)
+        kinds.of(kind).fault(setattr)
         for seed in args.fault_seeds:
             r = segment_readings(cell, seed, control=False)
             r["seed"], r["fault"] = seed, kind

@@ -12,6 +12,9 @@ The definitions the row states:
             Omega^2 = |c x v|^2 / |c|^4 (v: the mean velocity of all stars).
   M_bound   from the total mass, 20 times: the mass within the tidal radius
             r_t = (G M_bound / lambda)^(1/3); N_bound counts those stars.
+            Without an external field, no tidal radius: from all stars, 8
+            times, a star is bound where 0.5 |v - v_b|^2 + phi_pair < 0, v_b
+            the mean velocity of the stars bound so far.
   r_lagr_f  the smallest radius about the centre at which the cumulative
             mass of the bound stars, taken by radius, reaches f of theirs.
   CH85      on every ``ps``-th star (probes) against every ``ss``-th
@@ -41,10 +44,11 @@ MAX_SAMPLE = 65536
 
 def structure(pos, vel, mass, field, G: float, eps: float, fractions,
               core: bool = True, dtype=F64, sum_dtype=None,
-              block: int = 512) -> dict:
+              block: int = 512, phi_pair=None) -> dict:
     """{'M_bound', 'N_bound', 'r_tidal', 'r_lagr': [...], 'r_core',
     'rho_core'} as host floats of the state (pos, vel, mass) under the
-    external ``field`` (None: no tidal cut, every star bound)."""
+    external ``field`` (None: the energy cut on ``phi_pair``, each star's
+    pair potential, and no tidal radius)."""
     sum_dtype = sum_dtype or dtype
     origin = pos.to(F64).mean(dim=0)
     v_origin = vel.to(F64).mean(dim=0)
@@ -60,8 +64,8 @@ def structure(pos, vel, mass, field, G: float, eps: float, fractions,
     d = torch.linalg.vector_norm(x - c, dim=1)
     out = {}
     if field is None:
-        bound = torch.ones_like(d, dtype=torch.bool)
-        out["M_bound"] = float(m_tot)
+        m_b, bound = _energy_cut(v, m, phi_pair.to(dtype), total)
+        out["M_bound"] = float(m_b)
         out["r_tidal"] = math.inf
     else:
         centre = origin + c.to(F64)
@@ -96,6 +100,18 @@ def _centre(x, m, total, m_tot, n_iter: int = 24, shrink: float = 0.9,
         c = (total(x * w[:, None]) / w_sum).to(x.dtype)
         r = r * shrink
     return c
+
+
+def _energy_cut(v, m, phi, total, n_iter: int = 8):
+    """(M_bound, bound): the iterated energy cut in the frame of the bound
+    stars' mean velocity."""
+    bound = torch.ones_like(m, dtype=torch.bool)
+    for _ in range(n_iter):
+        w = m * bound
+        v_b = (total(v * w[:, None]) / total(w)).to(v.dtype)
+        ke = 0.5 * torch.sum((v - v_b) ** 2, dim=1)
+        bound = ke + phi < 0
+    return total(m * bound), bound
 
 
 def _tidal_coefficient(field, centre, v_mean) -> float:

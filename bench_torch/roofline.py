@@ -6,20 +6,22 @@ clock per SM x 132 SMs x 1.98 GHz = 4.2e12/s) and HBM3 (3.35 TB/s).
 Flops per pair are counted from the port's pair functions, an FMA as 2 and
 the rsqrt apart (one per pair), taking the least formulation the port has
 for the work: the pair-symmetric accel (``csrc/sym_rows.cuh:sym_pair_rb``,
-25 flops per unordered pair) for a whole self-interaction, and the
-one-sided accel + jerk (``csrc/pair.cuh:row_jerk_pair``, 41 per ordered
-pair) for the active rows of a block micro-step. The other entries are the
-port's other formulations, kept for the readers that later cells and
-per-kernel rooflines add (they may add files, not edit this one): one-sided
-accel 18 (19 with the potential), pair-symmetric accel + jerk 53, and at
-the extended tier one-sided accel 36, pair-symmetric accel 44, one-sided
-accel + jerk 65, pair-symmetric accel + jerk 77.
+25 flops per unordered pair) for a whole self-interaction, the
+pair-symmetric accel + jerk (53) for each force evaluation of a shared-dt
+Hermite step, and the one-sided accel + jerk (``csrc/pair.cuh:
+row_jerk_pair``, 41 per ordered pair) for the active rows of a block
+micro-step. The other entries are the port's other formulations, kept for
+the readers that later cells and per-kernel rooflines add (they may add
+files, not edit this one): one-sided accel 18 (19 with the potential), and
+at the extended tier one-sided accel 36, pair-symmetric accel 44,
+one-sided accel + jerk 65, pair-symmetric accel + jerk 77.
 
 Bytes count each input read once and each output written once: a
 self-interaction reads positions and masses (16 B a particle, f32) and
-writes the accel (12 B); a rows sweep with jerk reads the sources'
-positions, velocities and masses (28 B each) and the rows' positions and
-velocities, and writes their accel and jerk (48 B a row).
+writes the accel (12 B); with the jerk it reads the velocities too and
+writes accel and jerk (28 + 24 B a particle); a rows sweep with jerk reads
+the sources' positions, velocities and masses (28 B each) and the rows'
+positions and velocities, and writes their accel and jerk (48 B a row).
 """
 from __future__ import annotations
 
@@ -50,6 +52,13 @@ def self_interaction(n: int, evaluations: int):
             28 * n * evaluations)
 
 
+def self_interaction_jerk(n: int, evaluations: int):
+    """Work of ``evaluations`` whole f32 self-interactions (accel + jerk)
+    of n particles: (pairs, flops per pair, bytes)."""
+    return (n * (n - 1) // 2 * evaluations, FLOPS_PER_PAIR["sym_jerk"],
+            52 * n * evaluations)
+
+
 def active_rows(n: int, micro_steps: int, n_active_sum: int):
     """Work of ``micro_steps`` block micro-steps that evaluated
     ``n_active_sum`` active rows in all, each against n sources (accel +
@@ -57,12 +66,3 @@ def active_rows(n: int, micro_steps: int, n_active_sum: int):
     return (n_active_sum * n, FLOPS_PER_PAIR["rows_jerk"],
             28 * n * micro_steps + 48 * n_active_sum)
 
-
-def least_seconds(kind: str, n: int, steps: int, n_active_sum: int = 0):
-    """The least time of the pair work of ``steps`` steps of an integrator
-    ``kind`` ('kdk' or 'block') at n particles; (seconds, bound by)."""
-    if kind == "kdk":
-        return bound(*self_interaction(n, steps))
-    if kind == "block":
-        return bound(*active_rows(n, steps, n_active_sum))
-    raise ValueError(f"no pair work counted for integrator {kind!r}")

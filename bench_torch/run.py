@@ -7,7 +7,8 @@ from the root of a checkout. Prints the run's lines and, last, one JSON
 object (correct, attempted, failed, metrics, device[, breakdown], compared);
 the numbers compared and their limits are also the last lines on standard
 error. Exits 2, printing no result, without as many CUDA cards as the cell
-asks for. The kernels' build (``build/oc_nbody_tpu_torch/``) and any
+asks for, and 3 where JAX or the JAX package is loaded in the process
+once the run is over, naming on standard error what it found. The kernels' build (``build/oc_nbody_tpu_torch/``) and any
 kernel cache stay in fixed directories inside the checkout.
 """
 import time
@@ -45,8 +46,12 @@ def main(argv=None) -> int:
               "no result (the benchmark does not run on the CPU)",
               file=sys.stderr)
         return 2
-    result = harness.run(cell, args.seed, args.seconds, bool(args.trace),
-                         T_START)
+    try:
+        result = harness.run(cell, args.seed, args.seconds, bool(args.trace),
+                             T_START)
+    except harness.JaxLoaded as e:
+        print(e, file=sys.stderr)
+        return 3
     print(json.dumps(result), flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """The harness's own arithmetic against hand counts."""
 import pytest
 
-from bench_torch import roofline, timeline
+from bench_torch import kinds, roofline, timeline
 
 
 def test_self_interaction_counts_each_pair_once():
@@ -9,6 +9,16 @@ def test_self_interaction_counts_each_pair_once():
     assert pairs == 6 * 3                 # 4 stars: 6 unordered pairs
     assert flops == 25
     assert nbytes == 28 * 4 * 3           # 16 B read + 12 B written a star
+
+
+def test_self_interaction_jerk_counts_each_pair_once():
+    pairs, flops, nbytes = roofline.self_interaction_jerk(4, 3)
+    assert pairs == 6 * 3
+    assert flops == 53
+    assert nbytes == 52 * 4 * 3           # 28 B read + 24 B written a star
+    # a Hermite step with two evaluations (pec2) counts both
+    assert kinds.least_seconds("hermite", 4, 3, evaluations=2) == \
+        roofline.bound(*roofline.self_interaction_jerk(4, 6))
 
 
 def test_active_rows_counts():
@@ -20,7 +30,7 @@ def test_active_rows_counts():
 
 def test_bound_takes_the_larger_limit():
     # 65,536 stars: 2,147,450,880 pairs x 25 flops over 66.9 TFLOP/s
-    t, by = roofline.least_seconds("kdk", 65536, 1)
+    t, by = kinds.least_seconds("kdk", 65536, 1)
     assert by == "operations"
     assert t == pytest.approx(65536 * 65535 / 2 * 25 / 66.9e12, rel=1e-12)
     # one pair and many bytes: bound by the bytes
@@ -33,7 +43,7 @@ def test_bound_takes_the_larger_limit():
 
 def test_least_seconds_refuses_unknown_kind():
     with pytest.raises(ValueError):
-        roofline.least_seconds("hermite", 10, 1)
+        kinds.least_seconds("yoshida4", 10, 1)
 
 
 @pytest.mark.parametrize("q,want", [(50, 3.0), (95, 4.8), (100, 5.0),

@@ -2,6 +2,8 @@
 rely on, and the yardstick's independence from the program."""
 import json
 import re
+import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -37,6 +39,10 @@ def test_every_cell_has_its_files_and_limits():
     for w in BENCH["workloads"]:
         cell = harness.load_cell(w["name"], BENCH)
         assert cell.limits and all(v >= 0 for v in cell.limits.values())
+        assert cell.stand_in, (f"{w['name']}: the workload file has no "
+                               "[stand_in] table (n, segment) for the CPU "
+                               "tests")
+        assert cell.stand_in["n"] > 0 and cell.stand_in["segment"] > 0
         assert cell.per_layer
         assert w["chips"] in (1, 4)
 
@@ -69,3 +75,22 @@ def test_the_yardstick_imports_neither_jax_nor_the_program():
             assert other not in text, (path, other)
     for path in (ROOT / "bench_torch" / "reference").rglob("*.py"):
         assert "oc_nbody_tpu_torch" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("name,loaded", [
+    ("jax", True), ("jax.numpy", True), ("jaxlib.xla_client", True),
+    ("flax.linen", True), ("oc_nbody_tpu", True),
+    ("oc_nbody_tpu.forces", True), ("oc_nbody_tpu_torch", False),
+    ("jaxtyping", False), ("flaxen.x", False)])
+def test_jax_loaded_compares_whole_top_level_names(monkeypatch, name,
+                                                   loaded):
+    monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    assert (name in harness.jax_loaded()) == loaded
+
+
+def test_a_run_with_jax_loaded_gives_no_result(run_cpu, monkeypatch):
+    """A stub ``jax`` in the run's process: the run refuses, naming it."""
+    assert harness.jax_loaded() == []
+    monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
+    with pytest.raises(harness.JaxLoaded, match=r": jax$"):
+        run_cpu(BENCH["workloads"][0]["name"])

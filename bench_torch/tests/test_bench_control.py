@@ -4,17 +4,15 @@ import pytest
 
 from bench_torch import check
 from bench_torch.readings import segment_readings
-from oc_nbody_tpu_torch.parallel.mesh import Mesh
-from conftest import TINY, stand_in
+from conftest import mesh_of, stand_in
 from tests_cells import CELLS
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_control_fails_and_program_passes(name):
     cell = stand_in(name)
-    n = TINY[name][0]
-    mesh = Mesh.on_one_device(cell.chips, "cpu") if cell.chips > 1 else None
-    r = segment_readings(cell, 11, device="cpu", n=n, mesh=mesh)
+    r = segment_readings(cell, 11, device="cpu", n=cell.stand_in["n"],
+                         mesh=mesh_of(cell))
     ok, _ = check.judge(r["program"], cell.limits)
     assert ok, r["program"]
     bad, rows = check.judge(r["control"], cell.limits)

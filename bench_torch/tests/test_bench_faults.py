@@ -2,39 +2,18 @@
 step that returns its state unchanged, half the sources left out with the
 rest weighted double, the exchange between shards left out, an answer
 altered where it is produced, and an integrator that lost its order
-(``faults.py``). The sound run beside them is correct."""
+(``faults.py``, by ``kinds.KINDS``). The sound run beside them is correct. The step faults are
+the cell's stepper kind's; the exchange is left out where the cell has
+cards to exchange between."""
 import pytest
 import torch
 
-from bench_torch import faults
+from bench_torch import kinds
 from oc_nbody_tpu_torch import diagnostics
-from oc_nbody_tpu_torch.integrators.block import BlockHermite
-from oc_nbody_tpu_torch.integrators.leapfrog import LeapfrogKDK
 from oc_nbody_tpu_torch.ops import gravity
 from oc_nbody_tpu_torch.parallel.force import ShardedForce
+from conftest import stand_in
 from tests_cells import CELLS
-
-
-def _frozen_kdk(monkeypatch):
-    step = LeapfrogKDK.step
-
-    def frozen(self, carry):
-        new = step(self, carry)
-        return new.replace(state=carry.state.replace(time=new.state.time),
-                           acc=carry.acc)
-    monkeypatch.setattr(LeapfrogKDK, "step", frozen)
-
-
-def _frozen_block(monkeypatch):
-    micro = BlockHermite._micro_step
-
-    def frozen(self, carry, *a, **kw):
-        new = micro(self, carry, *a, **kw)
-        if new is None:
-            return None
-        return new.replace(state=new.state.replace(pos=carry.state.pos,
-                                                   vel=carry.state.vel))
-    monkeypatch.setattr(BlockHermite, "_micro_step", frozen)
 
 
 def _half_sources(monkeypatch):
@@ -77,20 +56,21 @@ FAULTS = {"unchanged_state": None, "half_sources": _half_sources,
 
 
 def _cases():
-    for cell in CELLS:
+    for name in CELLS:
+        cell = stand_in(name)
         for fault in FAULTS:
-            if fault == "no_exchange" and not cell.startswith("c5"):
+            if fault == "no_exchange" and cell.chips == 1:
                 continue       # only a cell across cards has an exchange
-            yield pytest.param(cell, fault, id=f"{cell}-{fault}")
+            yield pytest.param(name, fault, id=f"{name}-{fault}")
 
 
 @pytest.mark.parametrize("cell,fault", list(_cases()))
 def test_fault_makes_the_run_incorrect(run_cpu, monkeypatch, cell, fault):
+    kind = kinds.of(stand_in(cell).sim["integrator"]["kind"])
     if fault == "unchanged_state":
-        (_frozen_block if cell.startswith("c4") else _frozen_kdk)(monkeypatch)
+        kind.frozen(monkeypatch.setattr)
     elif fault == "first_order":
-        faults.plant("block" if cell.startswith("c4") else "kdk",
-                     monkeypatch.setattr)
+        kind.fault(monkeypatch.setattr)
     else:
         FAULTS[fault](monkeypatch)
     r = run_cpu(cell)

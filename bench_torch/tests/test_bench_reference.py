@@ -139,6 +139,31 @@ def test_row_structure_matches_the_program_row():
                                               ref["r_lagr"])) > 1e-4
 
 
+def test_row_structure_without_a_field_matches_the_program_row():
+    """An isolated cluster: the program's energy cut, no tidal radius."""
+    from bench_torch.reference import row
+    from oc_nbody_tpu_torch import diagnostics
+    from oc_nbody_tpu_torch.forces import ForceModel
+    from oc_nbody_tpu_torch.state import ParticleState
+    G, eps = 1.0, 1.0 / 256
+    pos, vel, mass = _row_state()
+    vel = (vel - vel.mean(dim=0)) * 3.0       # some stars escape
+    force = ForceModel(eps=eps, G=G)
+    state = ParticleState(pos=pos, vel=vel, mass=mass,
+                          ids=torch.arange(512, dtype=torch.int32), time=0.0)
+    got = diagnostics.compute_all(state, force)
+    _, phi, _ = direct.pair_sums(pos, mass, eps, G)
+    fr = (0.1, 0.25, 0.5, 0.75, 0.9)
+    ref = row.structure(pos, vel, mass, None, G, eps, fr, phi_pair=phi)
+    assert 0 < ref["N_bound"] == int(got["N_bound"]) < 512
+    assert ref["M_bound"] == pytest.approx(float(got["M_bound"]), rel=1e-14)
+    assert ref["r_tidal"] == float(got["r_tidal"]) == math.inf
+    for f, r in zip(fr, ref["r_lagr"]):
+        assert r == pytest.approx(float(got[f"r_lagr_{round(f * 100)}"]),
+                                  rel=1e-12)
+    assert ref["r_core"] == pytest.approx(float(got["r_core"]), rel=1e-5)
+
+
 def test_core_density_by_hand():
     """Seven stars: six on a sphere of radius 1 about one at the centre.
     The centre's 6th neighbour is at 1, five of them weigh 5 m."""
