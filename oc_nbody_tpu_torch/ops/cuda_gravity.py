@@ -109,7 +109,8 @@ JAX package (``accel_sym_chunked``, ``accel_potential_sym_chunked``,
 each diagonal chunk through K2 or K3, each unordered chunk pair (i < j)
 through K12 or K13, added in the JAX package's order (the diagonal outputs,
 then the pairs in lexicographic order, A into chunk i, B into chunk j), and
-``self_phi`` once at the end. ``accel_cross_pair``,
+``self_phi`` once at the end; under a profiler the evaluation and each
+tile are spans (``_chunked_sum``). ``accel_cross_pair``,
 ``accel_potential_cross_pair`` and ``accel_jerk_cross_pair`` are the
 disjoint-set forms on f32-ready inputs centred in one frame.
 
@@ -168,6 +169,7 @@ from pathlib import Path
 import torch
 
 from oc_nbody_tpu_torch.ops import df32, gravity
+from oc_nbody_tpu_torch.utils.profiling import span
 
 # Self-interaction dispatch: the pair-symmetric K2 for SYM_MIN <= N <=
 # STREAM_N, chunked (K2 + K12) past it, the one-sided K1 below. SYM_MIN is
@@ -1241,24 +1243,42 @@ def accel_potential_sym(pos, mass, eps=0.0, G=1.0, guarded: bool = True):
     return acc.to(pos.dtype), phi.to(pos.dtype)
 
 
-def _chunked_sum(n, chunk, diag, cross):
+def _chunked_sum(n, chunk, diag, cross, form, device):
     """The chunked self-interaction's order (the JAX package's
     ``_sym_chunked_generic``): chunks of ``chunk`` particles, the last one
     ragged; ``diag(k0, k1)`` gives a diagonal chunk's outputs, ``cross(i0,
     i1, j0, j1)`` a chunk pair's (A's, then B's), each unordered pair (i <
     j) in lexicographic order, A's outputs added into chunk i and B's into
-    chunk j after the diagonal outputs."""
+    chunk j after the diagonal outputs.
+
+    Spans: ``force.chunked`` around the evaluation, ``force.diag`` around
+    each diagonal tile (k(k-1)/2 pairs, k particles) and ``force.cross``
+    around each chunk pair (nA·nB pairs, nA + nB particles), the tiles'
+    ``form`` the pair work's (``sym``, ``sym_phi``, ``sym_jerk``, ``_x`` at
+    the extended tier), all timed on ``device``. A tile's span holds its
+    kernel alone; the concatenation and the additions into the outputs
+    lie between the tiles."""
     bounds = [(k, min(k + chunk, n)) for k in range(0, n, chunk)]
-    outs = [torch.cat(parts) for parts in
-            zip(*(diag(k0, k1) for k0, k1 in bounds))]
-    k = len(outs)
-    for i, (i0, i1) in enumerate(bounds):
-        for j0, j1 in bounds[i + 1:]:
-            res = cross(i0, i1, j0, j1)
-            for o, a in zip(outs, res[:k]):
-                o[i0:i1] += a
-            for o, b in zip(outs, res[k:]):
-                o[j0:j1] += b
+    with span("force.chunked", device=device):
+        tiles = []
+        for k0, k1 in bounds:
+            k = k1 - k0
+            with span("force.diag", device=device, pairs=k * (k - 1) // 2,
+                      form=form, particles=k):
+                tiles.append(diag(k0, k1))
+        outs = [torch.cat(parts) for parts in zip(*tiles)]
+        del tiles
+        k = len(outs)
+        for i, (i0, i1) in enumerate(bounds):
+            for j0, j1 in bounds[i + 1:]:
+                na, nb = i1 - i0, j1 - j0
+                with span("force.cross", device=device, pairs=na * nb,
+                          form=form, particles=na + nb):
+                    res = cross(i0, i1, j0, j1)
+                for o, a in zip(outs, res[:k]):
+                    o[i0:i1] += a
+                for o, b in zip(outs, res[k:]):
+                    o[j0:j1] += b
     return outs
 
 
@@ -1325,7 +1345,8 @@ def _sym_chunked(pos_c, mass_c, vel_c, eps, G, guarded, chunk, with_phi):
                                 scratch)
         return cross_plain(pA, pB, mA, mB, eps, G, with_phi)
 
-    return _chunked_sum(n, chunk, diag, cross)
+    form = "sym_jerk" if jerk else "sym_phi" if with_phi else "sym"
+    return _chunked_sum(n, chunk, diag, cross, form, pos_c.device)
 
 
 def accel_sym_chunked(pos, mass, eps=0.0, G=1.0, guarded: bool = True,
@@ -1677,7 +1698,8 @@ def _sym_chunked_x(hi, lo, gm, vel, eps, guarded, chunk, with_phi):
             return cross_x_kernel(*args, eps, with_phi, guarded, scratch)
         return cross_x_plain(*args, eps, with_phi, guarded=guarded)
 
-    return _chunked_sum(n, chunk, diag, cross)
+    form = "sym_jerk_x" if jerk else "sym_phi_x" if with_phi else "sym_x"
+    return _chunked_sum(n, chunk, diag, cross, form, hi.device)
 
 
 def accel_sym_x_chunked(pos, mass, eps=0.0, G=1.0, guarded: bool = True,

@@ -16,11 +16,13 @@ one ``SpanRecord`` to a bounded buffer (the oldest go first) as it closes:
 its name, its id, its parent's id (the span open on the same thread when
 it began), its host start and end in ns on ``clock_ns`` (``time.time_ns``,
 the clock the profiler's events carry), and its attributes (``bytes``
-handed between shards, the ``site`` of a wait). With ``device=`` a CUDA
-device, a span also records a timing event on that device's current
-stream at entry and at exit (no sync); its device milliseconds are
-resolved when ``spans()`` reads it. No span launches a kernel, a copy or a
-memset.
+handed between shards, the ``site`` of a wait; for a tile of pair work,
+its ``pairs``, the ``form`` of that work, as ``bench_torch/roofline.py``'s
+``FLOPS_PER_PAIR`` keys it, and the ``particles`` it reads). With
+``device=`` a CUDA device, a span also records a timing event on that
+device's current stream at entry and at exit (no sync); its device
+milliseconds are resolved when ``spans()`` reads it. No span launches a
+kernel, a copy or a memset.
 
 Every span whose name ends in ``.wait`` blocks the host on a card: the
 one device read of a Hermite step or block micro-step, the row's three
@@ -57,6 +59,9 @@ class SpanRecord:
     bytes: int | None
     site: str | None
     device_ms: float | None
+    pairs: int | None = None
+    form: str | None = None
+    particles: int | None = None
 
 
 class _Off:
@@ -74,12 +79,16 @@ _OFF = _Off()
 
 class _Span:
     __slots__ = ("id", "name", "parent", "start_ns", "end_ns", "bytes",
-                 "site", "device", "events", "device_ms")
+                 "site", "device", "events", "device_ms", "pairs", "form",
+                 "particles")
 
-    def __init__(self, name, device, moves, site):
+    def __init__(self, name, device, moves, site, pairs, form, particles):
         self.name = name
         self.bytes = None if moves is None else _nbytes(moves)
         self.site = site
+        self.pairs = pairs
+        self.form = form
+        self.particles = particles
         self.device = (device if device is not None and device.type == "cuda"
                        else None)
         self.events = None
@@ -116,7 +125,8 @@ class _Span:
             self.device_ms = start.elapsed_time(end)
             self.events = None
         return SpanRecord(self.id, self.name, self.parent, self.start_ns,
-                          self.end_ns, self.bytes, self.site, self.device_ms)
+                          self.end_ns, self.bytes, self.site, self.device_ms,
+                          self.pairs, self.form, self.particles)
 
 
 def _nbytes(moves) -> int:
@@ -126,15 +136,18 @@ def _nbytes(moves) -> int:
 
 
 def span(name: str, device: torch.device | None = None, moves=None,
-         site: str | None = None):
+         site: str | None = None, pairs: int | None = None,
+         form: str | None = None, particles: int | None = None):
     """A span ``name`` (a context manager), recorded only while a
     torch.profiler runs. ``device``: a CUDA device on whose current stream
     the span's device time is taken too; ``moves``: the tensors (a tensor,
     or lists and tuples of them) the span hands from shard to shard, whose
-    bytes it records; ``site``: where a ``.wait`` span blocks."""
+    bytes it records; ``site``: where a ``.wait`` span blocks; ``pairs``,
+    ``form``, ``particles``: a tile's pair interactions, the form of its
+    pair work and the particles it reads."""
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name, device, moves, site)
+    return _Span(name, device, moves, site, pairs, form, particles)
 
 
 def spans() -> list:

@@ -212,3 +212,74 @@ def test_stopwatch_phases_are_spans():
     assert sum(1 for r in recs if r.site == "run.row") == 3
     assert names["integrator.step"] == res["r"].n_steps
     assert set(res["r"].phase_s) == {"init", "advance", "diagnostics"}
+
+
+CHUNKED = [  # (dispatch function, velocities, chunk size's name, form)
+    ("accel", False, "CHUNK_SYM", "sym"),
+    ("accel_potential", False, "CHUNK_SYM", "sym_phi"),
+    ("accel_jerk", True, "CHUNK_SYMJ", "sym_jerk"),
+    ("accel_x", False, "CHUNK_SYMX", "sym_x"),
+    ("accel_potential_x", False, "CHUNK_SYMX", "sym_phi_x"),
+    ("accel_jerk_x", True, "CHUNK_SYMXJ", "sym_jerk_x"),
+]
+
+
+@pytest.mark.parametrize("fn,with_vel,chunk,form", CHUNKED)
+def test_a_chunked_evaluation_spans_each_tile(monkeypatch, fn, with_vel,
+                                              chunk, form):
+    """Past STREAM_N (lowered to 256, chunks of 128): n = 600 is five
+    chunks, the last of 88 stars; one ``force.chunked`` span holds five
+    ``force.diag`` and ten ``force.cross`` spans whose pairs add up to
+    n(n-1)/2, each counting the particles it reads. Without a profiler
+    nothing is recorded."""
+    from oc_nbody_tpu_torch.ops import cuda_gravity as cg
+    monkeypatch.setattr(cg, "STREAM_N", 256)
+    monkeypatch.setattr(cg, chunk, 128)
+    n = 600
+    gen = torch.Generator().manual_seed(11)
+    pos = torch.randn(n, 3, generator=gen, dtype=torch.float64)
+    vel = torch.randn(n, 3, generator=gen, dtype=torch.float64)
+    mass = torch.full((n,), 1.0 / n, dtype=torch.float32)
+    args = (pos, vel, mass) if with_vel else (pos, mass)
+    recs = _recorded(lambda: getattr(cg, fn)(*args, 0.01))
+    chunked = [r for r in recs if r.name == "force.chunked"]
+    assert len(chunked) == 1
+    tiles = [r for r in recs if r.name in ("force.diag", "force.cross")]
+    assert all(r.parent == chunked[0].id for r in tiles)
+    diag = [r for r in tiles if r.name == "force.diag"]
+    cross = [r for r in tiles if r.name == "force.cross"]
+    assert len(diag) == 5 and len(cross) == 10
+    assert sum(r.pairs for r in tiles) == n * (n - 1) // 2
+    assert [r.particles for r in diag] == [128] * 4 + [88]
+    assert sorted({r.particles for r in cross}) == [216, 256]
+    assert {r.form for r in tiles} == {form}
+    assert all(r.device_ms is None for r in tiles + chunked)   # the CPU
+    before = len(profiling.spans())
+    getattr(cg, fn)(*args, 0.01)
+    assert len(profiling.spans()) == before
+    assert profiling.span("force.cross", device=pos.device, pairs=1,
+                          form=form, particles=2) is profiling.span("x")
+
+
+def test_the_million_star_layout_counts_every_pair_once():
+    """c6's layout, N = 1,048,576 in chunks of CHUNK_SYM = 131,072, through
+    ``_chunked_sum`` with stand-in tiles: 8 diagonal tiles and 28 chunk
+    pairs whose pairs add up to N(N-1)/2, 87.5% of them in the pairs."""
+    from oc_nbody_tpu_torch.ops import cuda_gravity as cg
+    n, k = 1048576, cg.CHUNK_SYM
+
+    def diag(k0, k1):
+        return (torch.zeros(k1 - k0, 1),)
+
+    def cross(i0, i1, j0, j1):
+        return torch.zeros(i1 - i0, 1), torch.zeros(j1 - j0, 1)
+
+    recs = _recorded(lambda: cg._chunked_sum(n, k, diag, cross, "sym",
+                                             torch.device("cpu")))
+    diag_pairs = [r.pairs for r in recs if r.name == "force.diag"]
+    cross_pairs = [r.pairs for r in recs if r.name == "force.cross"]
+    assert len(diag_pairs) == 8 and len(cross_pairs) == 28
+    assert sum(diag_pairs) + sum(cross_pairs) == n * (n - 1) // 2 \
+        == 549_755_289_600
+    assert sum(cross_pairs) / (n * (n - 1) // 2) == pytest.approx(0.875,
+                                                                  abs=1e-5)
