@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded   # the build and the sharded phase alone
+    python3 chip_smoke.py --phi64     # the build and K23's check alone
 
 With ``--sharded`` on a machine with several cards, the sharded phase also
 runs every mode, the race check and c5 (rdma) on a mesh of up to 4 cards.
@@ -27,7 +28,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    strided by 2 (Plummer spheres, centred, strided and cast as
    local_density does): rk2 bitwise, mnb within 1e-6 relative, two
    launches bitwise, timed beside its issue-rate bound (its twin at 65,536
-   only). Then the extended (hi/lo) tier the same way: K6 sym_accel_x at
+   only). K23 phi_f64 (the f64 row's pair potential) against its plain twin
+   on the same card tensors at 4,097 (eps = 0, coincident stars) and
+   131,072 (c5's eps) and, on 4,096 sampled rows, at 1,048,576: the largest
+   gap over max|phi| at most 1e-13, two launches bitwise equal, timed
+   beside its FP64 bound and the twin
+   (``--phi64``: the build and this check alone). Then the extended (hi/lo) tier the same way: K6 sym_accel_x at
    N = 131,072 (beside K2, its tile geometry and its shared bytes a pair),
    K7 sym_jerk_x at 16,384 (beside K3), K8
    rows_accel_x at 1,024², K9 rows_jerk_x on K5's row counts against
@@ -439,8 +445,9 @@ PATHS_BIG = {
 EXTENDED_KERNELS = ("sym_x", "sym_jerk_x", "rows_x", "rows_jerk_x",
                     "cross_x", "cross_jerk_x", "rows_jerk_x_stream",
                     "rows_x_stream")
-# the diagnostics row's CH85 sweep (K22), which runs at every tier
-TIERLESS_KERNELS = ("knn_density",)
+# the diagnostics row's CH85 sweep (K22) and f64 pair potential (K23), which
+# run at every tier
+TIERLESS_KERNELS = ("knn_density", "phi_f64")
 # the self-interaction kernels, which a path pruned from t = 0 never runs
 SELF_KERNELS = ("sym", "cross", "sym_jerk", "cross_jerk", "sym_x", "cross_x",
                 "sym_jerk_x", "cross_jerk_x")
@@ -952,6 +959,87 @@ def check_knn(cg, device):
             main = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                         shape=[np_, np_], bound=bound)
         del st, c, probes, src, msrc, rk2, mnb, again, want_rk2, want_mnb
+        torch.cuda.empty_cache()
+    return main
+
+
+# K23 (csrc/phi_f64.cu) is bound by the FP64 pipe: 64 lanes an SM, each
+# DADD, DMUL or DFMA one issue slot, 33.5e12 flops a second with an FMA
+# counted twice. A pair is 3 DADD, 3 DFMA for u, rsqrt(double)'s Newton
+# refinement (DMUL, DFMA; its seed MUFU.RSQ64H runs on the special-function
+# unit) and one DFMA into the sum: PHI64_SLOTS_PER_PAIR FP64 instructions
+# in the compiled inner loop (cuobjdump -sass of phi_f64_partial<4,false>)
+PHI64_SLOTS_PER_PAIR = 12
+PEAK_FP64_FLOPS = 33.5e12
+# c5's softening (configs/c5_131k_sharded.toml) and the sizes of the f64
+# rows: c5's 131,072 stars and a million (ROADMAP C5's check)
+PHI64_EPS = 0.001953125
+PHI64_NS = (131072, 1048576)
+PHI64_SAMPLE = 4096
+
+
+def _phi64_bound_ms(n):
+    return n * n * 2 * PHI64_SLOTS_PER_PAIR / PEAK_FP64_FLOPS * 1e3
+
+
+def check_phi64(cg, device):
+    """K23 against its plain twin on the same card tensors (Plummer
+    spheres): at 4,097 stars with eps = 0 and coincident stars (the guard)
+    and at c5's 131,072 with c5's eps, the whole twin, the largest gap over
+    max|phi| at most 1e-13; at 1,048,576 against the plain f64 rows sum on
+    PHI64_SAMPLE sampled rows (the whole twin would take ~75 s); two
+    launches bitwise equal; each timed beside its FP64 bound. Returns the
+    131,072 case's dict(max_abs_err, ms, plain_ms, shape, bound)."""
+    import torch
+    from oc_nbody_tpu_torch.models.plummer import plummer
+    from oc_nbody_tpu_torch.ops import cuda_phi64, gravity
+    print(f"phi_f64 (K23): n, eps, max gap / max|phi|, ms, plain_ms, "
+          f"bound_ms ({PHI64_SLOTS_PER_PAIR} FP64 slots a pair)")
+    main = None
+    for n, eps in ((4097, 0.0),) + tuple((n, PHI64_EPS) for n in PHI64_NS):
+        st = plummer(n, torch.Generator().manual_seed(n + 23), device=device)
+        pos, mass = st.pos, st.mass
+        if eps == 0.0:   # coincident stars: u = 0 off the diagonal
+            pos = pos.clone()
+            pos[1:4] = pos[0]
+        phi = cuda_phi64.potential_kernel(pos, mass, eps)
+        if not torch.equal(phi, cuda_phi64.potential_kernel(pos, mass, eps)):
+            raise AssertionError(f"phi_f64 n={n}: two launches differ "
+                                 "bitwise")
+        if not bool(torch.isfinite(phi).all()):
+            raise AssertionError(f"phi_f64 n={n}: non-finite phi")
+        if n <= PHI64_NS[0]:
+            pms = _once_ms(lambda: cuda_phi64.potential_plain(pos, mass,
+                                                              eps))
+            got, want = phi, cuda_phi64.potential_plain(pos, mass, eps)
+        else:
+            idx = torch.randperm(n, generator=torch.Generator().manual_seed(
+                n), device="cpu")[:PHI64_SAMPLE].to(device)
+            pos_c, mass_c = gravity.prepare_f32(pos, mass,
+                                                compute_dtype=torch.float64)
+            t = time.perf_counter()
+            want = (gravity.accel_potential_rows(
+                pos_c[idx], pos_c, mass_c, eps, 1.0, chunk=64)[1]
+                + gravity.self_phi(mass_c[idx], eps, 1.0))
+            torch.cuda.synchronize()
+            print(f"phi_f64 {n}: the plain f64 rows sum on {PHI64_SAMPLE} "
+                  f"rows {time.perf_counter() - t:.2f} s", flush=True)
+            got, pms = phi[idx], None
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not rel <= 1e-13:
+            raise AssertionError(f"phi_f64 n={n}: max gap / max|phi| "
+                                 f"{rel:.3e} > 1e-13")
+        bound = (_phi64_bound_ms(n), "operations")
+        ms = _median_ms(lambda: cuda_phi64.potential_kernel(pos, mass, eps),
+                        reps=3)
+        print(f"phi_f64 {n:<8}{eps:<12g}{rel:<11.3e}{ms:<11.4f}"
+              f"{'' if pms is None else f'{pms:.1f}':<11}{bound[0]:.4f}"
+              f"  ({bound[0] / ms:.1%} of the bound)", flush=True)
+        if n == PHI64_NS[0]:
+            main = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                        shape=[n, n], bound=bound)
+        del st, pos, mass, phi, got, want
         torch.cuda.empty_cache()
     return main
 
@@ -2236,9 +2324,9 @@ def _check_run(k, res):
         _report_block(k, res, advance_s)
     if cfg.output.diag_f64:
         rows = len(res.diagnostics["time"])
-        print(f"{k}: f64 diagnostics potential (plain PyTorch, row chunks "
-              f"of 512): {res.phase_s['diagnostics'] / rows:.3f} s per "
-              f"row over {rows} rows (the whole row, N={n})", flush=True)
+        print(f"{k}: f64 diagnostics potential (K23): "
+              f"{res.phase_s['diagnostics'] / rows:.3f} s per row over "
+              f"{rows} rows (the whole row, N={n})", flush=True)
 
 
 def run_df_paths(cg, device):
@@ -3320,9 +3408,9 @@ def run_sharded_paths(cg, device):
     on a MESH_D-shard mesh on this card, each beside its unsharded control,
     and where more cards are visible c5 (rdma) on a mesh of up to MESH_D
     cards; every sharded force evaluation is d^2 launches of its kernel
-    (K18 per hop under ring, K20 / K21 under rdma) and every f32
-    diagnostics row d^2 of K20<phi> and, with the CH85 columns, one K22,
-    and no other kernel runs. Returns
+    (K18 per hop under ring, K20 / K21 under rdma), every f32 diagnostics
+    row d^2 of K20<phi>, every f64 row one K23 and, with the CH85 columns,
+    one K22, and no other kernel runs. Returns
     ({name: RunResult}, {name: launches})."""
     import torch
     from oc_nbody_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -3339,7 +3427,9 @@ def run_sharded_paths(cg, device):
         rows = len(res.diagnostics["time"])
         d2 = run_mesh.n_devices ** 2
         want = {PATHS_MESH[k][2]: d2 * (res.n_steps + 1)}
-        if not _load(k).output.diag_f64:
+        if _load(k).output.diag_f64:   # K23 on the gathered state
+            want["phi_f64"] = rows
+        else:
             want["ring_phi"] = d2 * rows
         if _load(k).output.core_diag:   # K22 on the gathered state
             want["knn_density"] = rows
@@ -3380,8 +3470,8 @@ def run_sharded_phase(cg, device):
 
 def main():
     t_start = time.perf_counter()
-    if sys.argv[1:] not in ([], ["--sharded"]):
-        _fail("usage: python3 chip_smoke.py [--sharded]")
+    if sys.argv[1:] not in ([], ["--sharded"], ["--phi64"]):
+        _fail("usage: python3 chip_smoke.py [--sharded | --phi64]")
     if not os.path.isfile(os.path.join(ROOT, "oc_nbody_tpu_torch",
                                        "__init__.py")):
         _fail("the oc_nbody_tpu_torch package is not beside this script")
@@ -3413,9 +3503,14 @@ def main():
         run_sharded_phase(cg, device)
         print(smi_line)
         return 0
+    if sys.argv[1:] == ["--phi64"]:
+        check_phi64(cg, device)
+        print(smi_line)
+        return 0
     from oc_nbody_tpu_torch.ops import cuda_df
     main_shapes = check_kernels(cg, device)
     main_shapes["knn_density"] = check_knn(cg, device)
+    main_shapes["phi_f64"] = check_phi64(cg, device)
     check_kernels_x(cg, device, main_shapes)
     check_kernels_df(cg, cuda_df, device, main_shapes)
     check_kernels_big(cg, device, main_shapes)
@@ -3590,7 +3685,10 @@ def main():
              "oc_nbody_tpu/ops/pallas_ring.py:202", None),
             ("knn_density", "knn_density",
              "oc_nbody_tpu_torch/csrc/knn_density.cu",
-             "none: oc_nbody_tpu/diagnostics.py:148 is plain jnp", None)):
+             "none: oc_nbody_tpu/diagnostics.py:148 is plain jnp", None),
+            ("phi_f64", "phi_f64", "oc_nbody_tpu_torch/csrc/phi_f64.cu",
+             "none: the f64 row of oc_nbody_tpu/diagnostics.py is plain jnp",
+             None)):
         m = main_shapes[key]
         bound_ms, bound_by = m["bound"]
         entry = {"name": name, "route": "cuda", "source": src,

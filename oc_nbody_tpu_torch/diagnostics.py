@@ -18,7 +18,7 @@ import math
 import torch
 
 from oc_nbody_tpu_torch.forces import ForceModel
-from oc_nbody_tpu_torch.ops import cuda_knn, gravity
+from oc_nbody_tpu_torch.ops import cuda_knn, cuda_phi64
 from oc_nbody_tpu_torch.ops.gravity import rounded
 from oc_nbody_tpu_torch.state import ParticleState
 from oc_nbody_tpu_torch.utils.profiling import span
@@ -39,13 +39,14 @@ def pair_and_external_phi(state: ParticleState, force: ForceModel,
                           f64_pairwise: bool = False):
     """(phi_pair, phi_ext) per particle: one O(N²) pass. With
     ``f64_pairwise`` (``output.diag_f64``) the pairwise potential is the
-    plain f64 sum on the state's device, outside any kernel, in row chunks
-    of 512; otherwise the force model's tier computes it."""
+    f64 sum of ``cuda_phi64.potential`` on the state's device (K23 on the
+    card, the plain sum on the CPU); otherwise the force model's tier
+    computes it."""
     if not f64_pairwise:
         _, phi_pair, phi_ext = force.accel_potential(state.pos, state.mass)
         return phi_pair, phi_ext
-    phi_pair = gravity.potential(state.pos, state.mass, force.eps, force.G,
-                                 compute_dtype=_F64, chunk=512)
+    phi_pair = cuda_phi64.potential(state.pos, state.mass, force.eps,
+                                    force.G)
     phi_ext = (force.external.phi(state.pos) if force.external is not None
                else torch.zeros_like(phi_pair))
     return phi_pair, phi_ext

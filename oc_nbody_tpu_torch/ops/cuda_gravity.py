@@ -5,9 +5,10 @@ one library all kernels live in; the two-float tier's K10 and K11 are wrapped
 in ``ops/cuda_df.py``, the sharded ring's steps K20 and K21
 (``csrc/ring_accel.cu``, ``csrc/ring_jerk.cu``) in ``ops/cuda_ring.py``, and
 the diagnostics row's CH85 k-th-nearest-neighbour sweep K22
-(``csrc/knn_density.cu``) in ``ops/cuda_knn.py``, which replaces no TPU
+(``csrc/knn_density.cu``) in ``ops/cuda_knn.py`` and its f64 pair potential
+K23 (``csrc/phi_f64.cu``) in ``ops/cuda_phi64.py``, which replace no TPU
 kernel (the JAX package's ``local_density``, oc_nbody_tpu/diagnostics.py:148,
-is plain jnp).
+and its f64 row are plain jnp).
 
   * K1 ``csrc/rows_accel.cu`` — one-sided rows vs sources, optional
     potential. Replaces the Pallas row-grid kernels ``_accel_kernel`` and
@@ -208,7 +209,8 @@ _KERNELS = ("rows", "sym", "rows_jerk", "sym_jerk", "rows_jerk_t", "sym_x",
             "sym_jerk_x", "rows_x", "rows_jerk_x", "rows_df", "rows_jerk_df",
             "cross", "cross_jerk", "rows_jerk_stream", "cross_x",
             "cross_jerk_x", "rows_jerk_x_stream", "rows_t", "rows_stream",
-            "rows_x_stream", "ring", "ring_phi", "ring_jerk", "knn_density")
+            "rows_x_stream", "ring", "ring_phi", "ring_jerk", "knn_density",
+            "phi_f64")
 LAUNCHES = dict.fromkeys(_KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
@@ -223,7 +225,7 @@ _SOURCES = ("rows_accel.cu", "sym_accel.cu", "rows_jerk.cu", "sym_jerk.cu",
             "rows_jerk_df.cu", "df_selftest.cu", "cross_accel.cu",
             "cross_jerk.cu", "cross_accel_x.cu", "cross_jerk_x.cu",
             "rows_accel_t.cu", "rows_accel_xs.cu", "ring_accel.cu",
-            "ring_jerk.cu", "knn_density.cu")
+            "ring_jerk.cu", "knn_density.cu", "phi_f64.cu")
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -298,7 +300,8 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_double)
         lib.ocn_rows_accel.argtypes = [p, i, p, p, i, f, f, i, p, p, p]
         lib.ocn_rows_accel.restype = i
         lib.ocn_sym_accel.argtypes = [p, p, i, f, f, i, i, p, p, p, p]
@@ -393,6 +396,10 @@ def _library():
         lib.ocn_ring_jerk_scratch.restype = ctypes.c_longlong
         lib.ocn_knn_density.argtypes = [p, i, p, i, i, p, p, p]
         lib.ocn_knn_density.restype = i
+        lib.ocn_phi_f64.argtypes = [p, i, d, d, i, p, p, p]
+        lib.ocn_phi_f64.restype = i
+        lib.ocn_phi_f64_scratch.argtypes = [i]
+        lib.ocn_phi_f64_scratch.restype = ctypes.c_longlong
         lib.ocn_sym_tile.argtypes = []
         lib.ocn_sym_tile.restype = i
         lib.ocn_error_string.argtypes = [i]

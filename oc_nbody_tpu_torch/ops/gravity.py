@@ -16,7 +16,7 @@ functions; on CPU tensors their wrappers call these. The operands of the
 extended (hi/lo) precision tier are prepared here too (``split_hilo``,
 ``centre_split``, ``gm_f32``, ``prepare_x``); its pair sums are in
 ``ops/df32.py``. ``potential`` is the pair potential alone, the f64
-diagnostics sum.
+diagnostics sum's plain twin.
 
 Conventions: r_ij = x_j - x_i points at the source, v_ij = v_j - v_i;
   a_i   = G sum_j m_j r_ij / (r_ij² + eps²)^{3/2}
@@ -350,9 +350,10 @@ def accel_potential(pos, mass, eps=0.0, G=1.0, *,
 def potential(pos, mass, eps=0.0, G=1.0, *, compute_dtype=torch.float64,
               chunk=512):
     """The per-particle pair potential alone, self term removed: what
-    ``accel_potential`` returns as phi, without the acceleration sums. The
-    f64 diagnostics potential (``output.diag_f64``) is this in f64; the
-    (chunk, N) temporaries bound its memory."""
+    ``accel_potential`` returns as phi, without the acceleration sums. In
+    f64 it is the plain twin of K23, the f64 diagnostics potential
+    (``output.diag_f64``, ``ops/cuda_phi64.py``); the (chunk, N)
+    temporaries bound its memory."""
     pos_c, mass_c = prepare_f32(pos, mass, compute_dtype=compute_dtype)
     eps2 = rounded(rounded(eps, compute_dtype) ** 2, compute_dtype)
     gm = (rounded(G, compute_dtype) * mass_c)[None, :]

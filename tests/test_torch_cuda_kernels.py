@@ -66,7 +66,9 @@ its rk2 and mnb, and local_density's rho with and without the r_min floor,
 are bitwise the twin's; on Plummer spheres of 1,000, 10,650, 32,768,
 65,536 and 131,072 stars (strided by 2) rk2 is bitwise, mnb, r_core and
 rho_core within 1e-6; two launches are bitwise equal, and a row launches
-K22 once and never the twin.
+K22 once and never the twin. K23 (phi_f64), the f64 row's pair potential,
+is tested in tests/test_torch_phi_f64.py; here it is one of the kernels
+every wrapper launches once.
 """
 import numpy as np
 import pytest
@@ -74,7 +76,7 @@ import torch
 
 from oc_nbody_tpu_torch import diagnostics as tdiag
 from oc_nbody_tpu_torch.models.plummer import plummer
-from oc_nbody_tpu_torch.ops import cuda_df, cuda_knn, cuda_ring
+from oc_nbody_tpu_torch.ops import cuda_df, cuda_knn, cuda_phi64, cuda_ring
 from oc_nbody_tpu_torch.ops import cuda_gravity as cg
 from oc_nbody_tpu_torch.ops import df32, gravity
 from oc_nbody_tpu_torch.ops.gravity import prepare_f32
@@ -272,6 +274,7 @@ def test_wrappers_launch_the_kernels_on_cuda(cuda, monkeypatch):
     cuda_ring.accel_jerk_ring([pos[:64]], [vel[:64]], [mass[:64]],
                               1.0 / 64)                 # K21
     cuda_knn.knn_density(pos[:1000], pos[:1000], mass[:1000], 6)   # K22
+    cuda_phi64.potential(pos64[:1000], mass[:1000], 1.0 / 64)      # K23
     torch.cuda.synchronize()
     assert acc.dtype == phi.dtype == a.dtype == j.dtype == torch.float64
     assert cg.LAUNCHES == {key: launches[key] + 1 for key in launches}

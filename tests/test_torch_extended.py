@@ -464,7 +464,7 @@ def test_wrappers_refuse_mixed_devices_and_count_only_plain_on_cpu():
     cg.accel_x(tp, tm, EPS)
     cg.accel_jerk_x(tp, tv, tm, EPS)
     assert cg.LAUNCHES == launches        # no kernel on CPU tensors
-    assert set(cg.LAUNCHES) == set(cg.PLAIN_CALLS) and len(cg.LAUNCHES) == 24
+    assert set(cg.LAUNCHES) == set(cg.PLAIN_CALLS) and len(cg.LAUNCHES) == 25
     hi, lo, gm = tgrav.prepare_x(tp, tm, 1.0)
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         cg.accel_rows_x_hilo(hi, lo, hi.to("meta"), lo, gm, EPS)

@@ -186,8 +186,8 @@ def test_run_c5_on_an_api_mesh(diag_f64):
     """c5 as committed but for N and length (``mesh.mode = "ring"``, and
     ``rdma``), on 4 CPU shards: 16 KDK steps and 3 rows, each drift inside
     c5's 1e-6 class, d^2 ring launches per force evaluation (K20's twin per
-    step and at init; K20<phi>'s per f32 row), and the rows equal to the
-    unsharded run's to the f32 rows' rounding."""
+    step and at init; K20<phi>'s per f32 row, K23's once per f64 row), and
+    the rows equal to the unsharded run's to the f32 rows' rounding."""
     mesh = Mesh.on_one_device(D, "cpu")
     rows = {}
     for mode in ("ring", "rdma", None):
@@ -204,7 +204,9 @@ def test_run_c5_on_an_api_mesh(diag_f64):
         assert np.abs(d["dE_over_E_int"]).max() < 1e-6
         if mode == "rdma":
             want = {"ring": D * D * 17, "knn_density": 3}   # CH85 per row
-            if not diag_f64:
+            if diag_f64:   # K23's twin on the gathered state, per row
+                want["phi_f64"] = 3
+            else:
                 want["ring_phi"] = D * D * 3
             assert ran == want
         rows[mode] = d

@@ -228,8 +228,9 @@ def _check_slice(path, n, row_j, row_t, pos_j, pos_t, size, self_scale):
 @pytest.mark.parametrize("path", [C5X, C1], ids=["orbit", "isolated"])
 def test_diag_f64_row_matches_jax(path):
     """``output.diag_f64``: the pairwise potential of the row is the plain
-    f64 sum in both packages (no kernel), shared by the energies and, for
-    an isolated cluster, the bound-mass cut: 1e-12 relative."""
+    f64 sum in both packages (on the CPU; the port's card runs K23), shared
+    by the energies and, for an isolated cluster, the bound-mass cut: 1e-12
+    relative."""
     n = 300
     cfg_j = jconfig.apply_overrides(jconfig.load_config(path), [f"ic.n={n}"])
     cfg_t = tconfig.apply_overrides(tconfig.load_config(path), [f"ic.n={n}"])
@@ -385,12 +386,16 @@ def test_cli_runs_c5x_and_the_extended_overrides_on_cpu(capsys):
         assert len(lines) == 1 and f"steps={steps}" in lines[0]
         assert abs(float(lines[0].split("dE/E=")[1].split()[0])) < 1e-6
         ran = {k for k in before if cg.PLAIN_CALLS[k] != before[k]}
-        # c5x's rows are f64 sums outside the twins; c1x's go through K8's;
+        # c5x's rows are f64 sums through K23's twin; c1x's go through K8's;
         # each row's CH85 through K22's
-        assert ran == {"rows_x", "knn_density"}
+        f64_rows = argv[1] == C5X
+        assert ran == {"rows_x", "knn_density"} | (
+            {"phi_f64"} if f64_rows else set())
         assert cg.PLAIN_CALLS["rows_x"] - before["rows_x"] == \
-            steps + 1 + (0 if argv[1] == C5X else 2)
+            steps + 1 + (0 if f64_rows else 2)
         assert cg.PLAIN_CALLS["knn_density"] - before["knn_density"] == 2
+        assert cg.PLAIN_CALLS["phi_f64"] - before["phi_f64"] == \
+            (2 if f64_rows else 0)
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):
